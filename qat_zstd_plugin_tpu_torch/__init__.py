@@ -1,0 +1,41 @@
+"""qat_zstd_plugin_tpu_torch — the PyTorch/CUDA port of qat_zstd_plugin_tpu.
+
+The device half of the codec's level-1 path (the syncmer slot pipeline)
+runs here as hand-written CUDA kernels for Hopper (csrc/l1_kernels.cu)
+with PyTorch ops between them; the host half (claim extension, gap fill,
+entropy coding, frame assembly) and the zstd format code are imported
+from qat_zstd_plugin_tpu unchanged. Nothing here imports jax.
+
+    compress(data, level=1, device="cuda") -> zstd frame (bytes), equal
+        byte for byte to qat_zstd_plugin_tpu's TpuCodec frame at the same
+        level and batch size
+    decompress(frame)                      -> bytes (stock libzstd)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from qat_zstd_plugin_tpu import BLOCK_SIZE_MAX, __version__, decompress
+
+from .runtime.device import Status, start_device, status, stop_device
+from .runtime.gpu_codec import GpuCodec
+
+__all__ = ["BLOCK_SIZE_MAX", "GpuCodec", "Status", "compress", "decompress",
+           "start_device", "status", "stop_device", "version"]
+
+
+def version() -> str:
+    return __version__
+
+
+def compress(data: bytes | np.ndarray, level: int = 1,
+             block_size: int = BLOCK_SIZE_MAX, checksum: bool = True,
+             batch: int = 8, device: str | torch.device = "cuda") -> bytes:
+    """Compress to a complete zstd frame on `device`. "cuda" runs the CUDA
+    kernels and raises when there is no CUDA device; "cpu" runs their
+    plain-torch twins. There is no silent fallback between the two."""
+    codec = GpuCodec(level=level, batch=batch, block_size=block_size,
+                     device=device)
+    return codec.compress(data, checksum=checksum)

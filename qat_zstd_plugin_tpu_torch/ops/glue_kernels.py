@@ -1,0 +1,497 @@
+"""The level-1 device path in PyTorch: four CUDA kernels and the torch ops
+between them.
+
+Port of the syncmer branch of qat_zstd_plugin_tpu.ops.glue_kernels
+(`find_matches_positions(sync=True)` and what it reaches):
+
+  hash_keys_winmin_sync -> sort -> neighbor_unsort_keys -> sort --+
+    +- minz plane -> ldm_keys -> sort -> neighbor_unsort_keys      |
+         -> sort -> _ldm_est                                      v
+                              compact_slots_sync -> (B*nseg, w/4) slot words
+
+Each of the four kernels has here
+  * a wrapper with the reference's name, which checks device, dtype,
+    shape and contiguity and launches the kernel of csrc/l1_kernels.cu on
+    PyTorch's current stream (counting the launch in `launches`);
+  * a plain-torch twin (`<name>_twin`) that computes the same words. The
+    wrapper calls the twin only for a tensor on the CPU; for any other
+    device it launches the kernel or raises.
+
+Sort keys and slot words are u32 bit patterns held in int32 tensors. The
+twins carry them in int64 and mask with 0xFFFFFFFF after every shift and
+multiply: torch has no uint32 shifts, compares or minimum on the CPU, and
+the reference's u32 wrap-around is part of the result (an un-sort key
+shifts the hash bits out of the word).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_M32 = 0xFFFFFFFF
+_SIGN = -0x80000000  # int32 bit 31: xor maps u32 order onto int32 order
+_C1 = 2654435761
+_C2 = 2246822519
+_C3 = 3266489917
+
+# Kernel launches since the last reset_launches(), by kernel name. A
+# wrapper counts where it launches its kernel and nowhere else.
+launches = {"hash_keys_winmin_sync": 0, "neighbor_unsort_keys": 0,
+            "ldm_keys": 0, "compact_slots_sync": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# u32 helpers for the twins (int64 tensors holding values in [0, 2^32))
+# ---------------------------------------------------------------------------
+
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns (or bytes) -> int64 u32 values."""
+    return t.to(torch.int64) & _M32
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    """int64 u32 values -> int32 bit patterns."""
+    return torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for u32 a and constant c, in two 16-bit halves so
+    that no int64 product overflows."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _shl(a: torch.Tensor, s: int, fill: int) -> torch.Tensor:
+    """Element i <- a[:, i+s] along the whole row; the last s get fill."""
+    out = torch.full_like(a, fill)
+    out[:, :a.shape[1] - s] = a[:, s:]
+    return out
+
+
+def _shr(a: torch.Tensor, s: int, fill: int) -> torch.Tensor:
+    """Element i <- a[:, i-s] along the whole row; the first s get fill."""
+    out = torch.full_like(a, fill)
+    out[:, s:] = a[:, :a.shape[1] - s]
+    return out
+
+
+def _winmin_tail(h8: torch.Tensor, stride: int) -> torch.Tensor:
+    """Entry i <- min of h8 over [i, i+stride), by doubling. An unsigned
+    minimum with fill 0xFFFFFFFF: the same values as the reference's
+    sign-flipped int32 minimum with fill 0x7FFFFFFF."""
+    m = h8
+    s = 1
+    while s < stride:
+        m = torch.minimum(m, _shl(m, s, _M32))
+        s *= 2
+    return m
+
+
+def _hash_tile(x: torch.Tensor, width: int, hbits: int) -> torch.Tensor:
+    """hbits-bit hash of the width-byte gram at every position of the
+    (rows, N) int64 bytes; bytes past the row's end read as 0."""
+    def at(shift: int) -> torch.Tensor:
+        return x if shift == 0 else _shl(x, shift, 0)
+
+    def word(shift: int) -> torch.Tensor:
+        return ((at(shift) << 24) | (at(shift + 1) << 16)
+                | (at(shift + 2) << 8) | at(shift + 3))
+
+    w0 = _mul32(word(0), _C1)
+    if width == 4:
+        h = w0
+    elif width == 5:
+        h = w0 ^ ((_mul32(at(4), _C2) << 11) & _M32)
+    elif width == 6:
+        h = w0 ^ _mul32((at(4) << 8) | at(5), _C2)
+    elif width == 8:
+        h = w0 ^ _mul32(_mul32(word(4), _C2), _C3)
+    else:
+        raise ValueError(f"unsupported hash width {width}")
+    return h >> (32 - hbits)
+
+
+# ---------------------------------------------------------------------------
+# Launch plumbing
+# ---------------------------------------------------------------------------
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"{name}: expected a {ndim}-d {dtype} tensor, got "
+                         f"{t.dim()}-d {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def _use_twin(t: torch.Tensor, name: str) -> bool:
+    """True for a CPU tensor (the twin runs); False for a CUDA tensor (the
+    kernel launches); raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {t.device}")
+    return False
+
+
+def _launch(name: str, *args) -> None:
+    """Call entry point qz_<name> with tensors as device pointers, on the
+    current stream of the first tensor's device; raise on a CUDA error."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {a.device}")
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, "qz_" + name)(
+            *[a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args], ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} "
+                           f"({lib.qz_cuda_error_string(rc).decode()})")
+    launches[name] += 1
+
+
+def _sort_rows(x: torch.Tensor) -> torch.Tensor:
+    """Unsigned row sort of int32 bit patterns (the reference's
+    jax.lax.sort, which is XLA's and not a Pallas kernel). Keys are unique
+    within a row (the position sits in the low bits), so any sort gives
+    the reference's order."""
+    return torch.sort(x ^ _SIGN, dim=1).values ^ _SIGN
+
+
+# ---------------------------------------------------------------------------
+# K1 hash_keys_winmin_sync
+# ---------------------------------------------------------------------------
+
+def _k1_geometry(blocks: torch.Tensor, window: int):
+    B, N = blocks.shape
+    w = min(window, N)
+    if N % w or w % 2:
+        raise ValueError(f"block length {N} must be a multiple of an even "
+                         f"segment width (got {w})")
+    return B, N, w, (w - 1).bit_length()
+
+
+def hash_keys_winmin_sync_twin(blocks: torch.Tensor, width: int,
+                               window: int, stride: int):
+    """Plain-torch K1 (see hash_keys_winmin_sync)."""
+    B, N, w, pbits = _k1_geometry(blocks, window)
+    x = blocks.to(torch.int64)
+    gp = torch.arange(N, device=blocks.device)
+    h = _hash_tile(x, width, 32 - pbits)
+    h8 = _hash_tile(x, 8, 32)
+    # Argmin parity over the 4-wide window [i, i+4): the low bit carries
+    # the lane parity (hash low bit cleared), so ties go to the even lane.
+    v = (h8 & 0xFFFFFFFE) | (gp & 1)
+    for s in (1, 2):
+        v = torch.minimum(v, _shl(v, s, _M32))
+    pick_next = (v & 1) == 1
+    pos = gp & (w - 1)
+    selh = torch.where(pick_next, _shl(h, 1, 0), h)
+    selp = torch.where(pick_next, pos + 1, pos)
+    key = (selh << pbits) | selp
+    keys = _i32(key[:, ::2].reshape(B * (N // w), w // 2))
+    minz = _i32(_winmin_tail(h8, stride)) if stride else None
+    return keys, minz
+
+
+def hash_keys_winmin_sync(blocks: torch.Tensor, width: int, window: int,
+                          stride: int):
+    """K1. (B, N) uint8 blocks -> ((B*nseg, w/2) int32 pair-anchor keys,
+    (B, N) int32 windowed-minimum plane, or None when stride is 0).
+
+    Pair p of a segment holds (hash_width(sel) << pbits | sel) with sel in
+    {2p, 2p+1} chosen by the parity of the argmin of the 8-gram hash over
+    a 4-wide window; minz[i] is the minimum 8-gram hash over
+    [i, i+stride). Port of the Pallas kernel of the same name."""
+    _check(blocks, "hash_keys_winmin_sync", torch.uint8, 2)
+    if width not in (4, 5, 6, 8):
+        raise ValueError(f"unsupported hash width {width}")
+    if stride & (stride - 1) or stride > 4096:
+        raise ValueError(f"stride {stride} must be 0 or a power of two "
+                         "<= 4096")
+    if _use_twin(blocks, "hash_keys_winmin_sync"):
+        return hash_keys_winmin_sync_twin(blocks, width, window, stride)
+    B, N, w, pbits = _k1_geometry(blocks, window)
+    keys = torch.empty((B * (N // w), w // 2), dtype=torch.int32,
+                       device=blocks.device)
+    minz = torch.empty((B, N), dtype=torch.int32, device=blocks.device) \
+        if stride else None
+    _launch("hash_keys_winmin_sync", blocks, keys, minz, B, N, width, pbits,
+            w - 1, stride)
+    return keys, minz
+
+
+# ---------------------------------------------------------------------------
+# K2 neighbor_unsort_keys
+# ---------------------------------------------------------------------------
+
+def _k2_params(sk: torch.Tensor, pbits: int, pos_mask: int | None):
+    if not 2 <= pbits <= 31:
+        raise ValueError(f"pbits {pbits} out of range")
+    return sk.shape[1] - 1 if pos_mask is None else pos_mask
+
+
+def neighbor_unsort_keys_twin(sk: torch.Tensor, pbits: int,
+                              neighbors: int = 1,
+                              pos_mask: int | None = None) -> torch.Tensor:
+    """Plain-torch K2 (see neighbor_unsort_keys)."""
+    pmask = _k2_params(sk, pbits, pos_mask)
+    s = _u32(sk)
+    sh = s >> pbits
+    sp = s & pmask
+    off = torch.zeros_like(s)
+    for k in range(1, neighbors + 1):
+        ph = _shr(sh, k, _M32)
+        pp = _shr(sp, k, 0)
+        eq = (sh == ph) & (pp < sp)
+        off = torch.where((off == 0) & eq, sp - pp, off)
+    return _i32(((s << (32 - pbits)) | off) & _M32)
+
+
+def neighbor_unsort_keys(sk: torch.Tensor, pbits: int, neighbors: int = 1,
+                         pos_mask: int | None = None) -> torch.Tensor:
+    """K2. Sorted (R, w) keys (hash << pbits | pos) -> un-sort keys
+    (key << (32 - pbits) | off), truncated to 32 bits: the nearest earlier
+    entry of the row with an equal hash (up to `neighbors` back) claims
+    off = pos - prev. pos_mask overrides the position mask w - 1 (pair
+    rows carry w/2 entries over w positions). Port of the Pallas kernel
+    of the same name."""
+    _check(sk, "neighbor_unsort_keys", torch.int32, 2)
+    pmask = _k2_params(sk, pbits, pos_mask)
+    if _use_twin(sk, "neighbor_unsort_keys"):
+        return neighbor_unsort_keys_twin(sk, pbits, neighbors, pos_mask)
+    out = torch.empty_like(sk)
+    _launch("neighbor_unsort_keys", sk, out, sk.shape[0], sk.shape[1],
+            pbits, neighbors, pmask)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3 ldm_keys
+# ---------------------------------------------------------------------------
+
+def ldm_stride(span_blocks: int, n: int) -> int:
+    """Sample spacing that keeps a combined row at <= 65536 samples, so the
+    packed keys keep >= 16 hash bits (reference: glue_kernels.ldm_stride)."""
+    s = 32
+    while 2 * span_blocks * (n // s) > 65536:
+        s *= 2
+    return s
+
+
+def _k3_geometry(minz: torch.Tensor, span_blocks: int, stride: int):
+    B, N = minz.shape
+    if B % span_blocks or N % stride:
+        raise ValueError(f"ldm_keys: B={B} must be a multiple of "
+                         f"span_blocks={span_blocks}, N={N} of "
+                         f"stride={stride}")
+    half = span_blocks * (N // stride)
+    return B, N, half, (2 * half - 1).bit_length()
+
+
+def ldm_keys_twin(minz: torch.Tensor, span_blocks: int = 4,
+                  stride: int = 32) -> torch.Tensor:
+    """Plain-torch K3 (see ldm_keys)."""
+    B, N, half, pbits = _k3_geometry(minz, span_blocks, stride)
+    dest = _u32(minz[:, ::stride])
+    ctx = torch.cat([torch.full((span_blocks, N // stride), _M32,
+                                dtype=torch.int64, device=minz.device),
+                     dest[:B - span_blocks]])
+    hd = (_mul32(dest, _C1) >> pbits).reshape(B // span_blocks, half)
+    hc = (_mul32(ctx, _C1) >> pbits).reshape(B // span_blocks, half)
+    pos = torch.arange(2 * half, device=minz.device)
+    return _i32((torch.cat([hc, hd], dim=1) << pbits) | pos)
+
+
+def ldm_keys(minz: torch.Tensor, span_blocks: int = 4,
+             stride: int = 32) -> torch.Tensor:
+    """K3. (B, N) minimizer plane -> (B/span_blocks, 2*half) int32 LDM
+    sort keys (h << pbits | sample index), each row [previous span's
+    samples | this span's samples], h the top bits of the sample
+    remixed by x2654435761. Port of the Pallas kernel of the same name."""
+    _check(minz, "ldm_keys", torch.int32, 2)
+    B, N, half, pbits = _k3_geometry(minz, span_blocks, stride)
+    if _use_twin(minz, "ldm_keys"):
+        return ldm_keys_twin(minz, span_blocks, stride)
+    out = torch.empty((B // span_blocks, 2 * half), dtype=torch.int32,
+                      device=minz.device)
+    _launch("ldm_keys", minz, out, B // span_blocks, N, stride, span_blocks,
+            pbits)
+    return out
+
+
+def ldm_unsorted(minz: torch.Tensor, span_blocks: int = 4,
+                 neighbors: int = 1) -> torch.Tensor:
+    """LDM candidate chain: keys -> sort -> neighbor/un-sort keys -> sort.
+    Returns (B/span_blocks, sps) int32, entry j = (j << hbits | sample
+    offset), position-ordered. The reference computes the minimizer plane
+    itself when none is given; the L1 path always has K1's."""
+    stride = ldm_stride(span_blocks, minz.shape[1])
+    key = ldm_keys(minz, span_blocks, stride)
+    pbits = (key.shape[1] - 1).bit_length()
+    return _sort_rows(neighbor_unsort_keys(_sort_rows(key), pbits,
+                                           neighbors))
+
+
+def _ldm_est(su: torch.Tensor, lengths: torch.Tensor, n: int,
+             span_blocks: int, max_off: int):
+    """Sample-grid LDM claims from position-ordered LDM keys (reference:
+    glue_kernels._ldm_est, XLA glue there and torch ops here). Returns
+    (B, spb) int32 chained estimates (0 = no claim) and byte offsets."""
+    sb = span_blocks
+    stride = ldm_stride(sb, n)
+    nspans, sps = su.shape
+    half = sps // 2
+    spb = half // sb
+    B = nspans * sb
+    pbits = (sps - 1).bit_length()
+    offs = su[:, half:] & ((1 << (32 - pbits)) - 1)
+
+    def shl(a, s, fill):
+        return torch.cat([a[:, s:], torch.full((nspans, s), fill,
+                                               dtype=a.dtype,
+                                               device=a.device)], dim=1)
+
+    # Chain over consecutive samples agreeing on the offset within +-1
+    # slot (minimizer offsets jitter by one slot); reach caps at 6.
+    agree = offs > 0
+    reach = agree.to(torch.int32)
+    for k in range(1, 6):
+        nxt = shl(offs, k, 0)
+        agree = agree & ((nxt - offs).abs() <= 1) & (nxt > 0)
+        reach = reach + agree.to(torch.int32)
+    valid = (reach >= 2) & (offs >= 2) & (offs * stride <= max_off)
+    est_b = torch.where(valid, reach * stride, 0).reshape(B, spb)
+    off_b = (offs * stride).reshape(B, spb)
+    posb = torch.arange(spb, dtype=torch.int32, device=su.device) * stride
+    est_b = torch.where(posb[None, :] + 40 <= lengths.to(torch.int32)[:, None],
+                        est_b, 0)
+    return est_b, off_b
+
+
+# ---------------------------------------------------------------------------
+# K4 compact_slots_sync
+# ---------------------------------------------------------------------------
+
+def _k4_geometry(su: torch.Tensor, lengths: torch.Tensor, est_b, off_b):
+    B = lengths.shape[0]
+    R, w2 = su.shape
+    if R % B:
+        raise ValueError(f"compact_slots_sync: {R} rows for {B} blocks")
+    w = 2 * w2
+    Ns = (R // B) * w // 4
+    spb = 0
+    if est_b is not None:
+        spb = est_b.shape[1]
+        if (est_b.shape != (B, spb) or off_b is None
+                or off_b.shape != est_b.shape or Ns % spb):
+            raise ValueError("compact_slots_sync: est_b and off_b must be "
+                             f"(B, spb) with spb dividing {Ns}")
+    return B, Ns, w, (w - 1).bit_length(), spb
+
+
+def compact_slots_sync_twin(su: torch.Tensor, window: int,
+                            lengths: torch.Tensor, width: int = 6,
+                            est_b: torch.Tensor | None = None,
+                            off_b: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Plain-torch K4 (see compact_slots_sync)."""
+    B, Ns, w, pbits, spb = _k4_geometry(su, lengths, est_b, off_b)
+    offbits = 32 - pbits
+    s = _u32(su).reshape(B, 2 * Ns)
+    blen = lengths.to(torch.int64)[:, None]
+    gp4 = torch.arange(Ns, device=su.device)
+    segbase = (gp4 >> (pbits - 2)) << pbits  # (slot // ws) * w
+    best = torch.full((B, Ns), _M32, dtype=torch.int64, device=su.device)
+    for src in (s[:, 0::2], s[:, 1::2]):  # pairs 2i and 2i+1
+        posf = src >> offbits
+        off = src & ((1 << offbits) - 1)
+        valid = (off > 0) & (segbase + posf + width <= blen)
+        best = torch.minimum(best, torch.where(
+            valid, ((posf & 3) << 30) | off, _M32))
+    if spb:
+        sls = Ns // spb
+        est = torch.zeros_like(best)
+        ldo = torch.zeros_like(best)
+        est[:, ::sls] = est_b.to(torch.int64)
+        ldo[:, ::sls] = off_b.to(torch.int64)
+        ml0 = torch.where(best != _M32, width, 0)
+        best = torch.where(est > ml0, ldo & _M32, best)
+    return _i32(best).reshape(su.shape[0], w // 4)
+
+
+def compact_slots_sync(su: torch.Tensor, window: int, lengths: torch.Tensor,
+                       width: int = 6, est_b: torch.Tensor | None = None,
+                       off_b: torch.Tensor | None = None) -> torch.Tensor:
+    """K4. Position-ordered pair keys su (B*nseg, w/2), entry j =
+    (pos << (32 - pbits) | off) -> (B*nseg, w/4) int32 slot words: slot i
+    holds the smaller (k << 30 | off) of pairs 2i and 2i+1 whose claim has
+    an offset and passes pos + width <= length, else 0xFFFFFFFF. With LDM
+    estimates (est_b, off_b: (B, spb) from _ldm_est) the slot of each
+    sample takes the LDM offset when the estimate beats the local claim's
+    width. Port of the Pallas kernel of the same name, which computes
+    _ldm_est inside its program; window is the reference's argument and
+    follows from su's width."""
+    _check(su, "compact_slots_sync", torch.int32, 2)
+    _check(lengths, "compact_slots_sync", torch.int32, 1)
+    for t in (est_b, off_b):
+        if t is not None:
+            _check(t, "compact_slots_sync", torch.int32, 2)
+    B, Ns, w, pbits, spb = _k4_geometry(su, lengths, est_b, off_b)
+    if _use_twin(su, "compact_slots_sync"):
+        return compact_slots_sync_twin(su, window, lengths, width, est_b,
+                                       off_b)
+    out = torch.empty((su.shape[0], w // 4), dtype=torch.int32,
+                      device=su.device)
+    _launch("compact_slots_sync", su, lengths, est_b, off_b, out, B, Ns,
+            pbits, width, spb)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The L1 composition
+# ---------------------------------------------------------------------------
+
+def _sync_tail_fused(su, lengths, minz, width: int, window: int,
+                     span_blocks: int, max_off: int) -> torch.Tensor:
+    """LDM chain + pair-claim compaction (one XLA program in the
+    reference; here a sequence of launches on one stream)."""
+    est_b = off_b = None
+    if span_blocks:
+        su_l = ldm_unsorted(minz, span_blocks, neighbors=1)
+        est_b, off_b = _ldm_est(su_l, lengths, minz.shape[1], span_blocks,
+                                max_off)
+    return compact_slots_sync(su, window, lengths, width, est_b, off_b)
+
+
+def find_matches_positions(blocks: torch.Tensor, lengths: torch.Tensor,
+                           window: int = 32768, ldm: int = 0,
+                           ldm_max_off: int = 1 << 19,
+                           width: int = 6) -> torch.Tensor:
+    """Hash-matcher pipeline, segment-slots contract: (B, N) uint8 blocks
+    and (B,) int32 lengths -> (B*nseg, w/4) int32 slot words, slot i of a
+    row holding (subslot_k << 30 | byte_offset) or 0xFFFFFFFF. Port of the
+    reference's glue_kernels.find_matches_positions with its level-1
+    arguments fixed: sync=True (syncmer pair anchors), dense claims, one
+    hash width and one neighbour."""
+    N = blocks.shape[1]
+    w = min(window, N)
+    pbits = (w - 1).bit_length()
+    stride = ldm_stride(ldm, N) if ldm else 0  # 0: no minimizer plane
+    key, minz = hash_keys_winmin_sync(blocks, width, window, stride)
+    su = _sort_rows(neighbor_unsort_keys(_sort_rows(key), pbits, 1,
+                                         pos_mask=w - 1))
+    return _sync_tail_fused(su, lengths, minz, width=width, window=window,
+                            span_blocks=ldm, max_off=ldm_max_off)

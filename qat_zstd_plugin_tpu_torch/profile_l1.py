@@ -1,0 +1,226 @@
+"""Where the time of the level-1 main path goes, on one CUDA device.
+
+    python3 -m qat_zstd_plugin_tpu_torch.profile_l1 [--seed S] [--mb 64]
+        [--reps 3] [--trace-dir build/profile]
+
+Run from the repository root on a machine with a CUDA device. It drives
+the same configuration as chip_smoke.py's main path (level 1, 128 KiB
+blocks, batch 128, the seeded corpus plus a 5000-byte tail) and prints
+one JSON object per line:
+
+  card          the card's name and power limit, as nvidia-smi gives them;
+  device_half   CUDA-event median ms of find_matches_positions for one
+                batch, its input already on the card;
+  device_ops    torch.profiler over 10 such batches: the device time of
+                each kernel (memcpys included) and its share of the total;
+  stages        per repetition, seconds per corpus of each host-visible
+                step of the main path, run one after the other and each
+                synchronised: np stack, host-to-device copy, the device
+                half, device-to-host copy, unpack_segments,
+                device_positions_to_claims;
+  host_half     per repetition, seconds of finish_block_host over every
+                full block on a thread pool, from claims made beforehand;
+  e2e           per repetition, seconds and MB/s of GpuCodec.compress;
+  e2e_profiled  one more e2e call under torch.profiler: the card's busy
+                time (union of its kernel and memcpy intervals) against
+                the call's wall time, and the busiest device ops.
+
+The full torch.profiler tables go to <trace-dir>/device_ops.txt and
+<trace-dir>/e2e_ops.txt.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+BLOCK = 131072
+BATCH = 128
+TAIL = 5000
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """Median milliseconds of fn() on the card, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def _device_events(prof) -> list:
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _busy_us(events) -> float:
+    """Length of the union of the events' time intervals."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in events):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def _top_ops(events, n: int = 8) -> list[dict]:
+    """The n device ops with the most device time, and their shares."""
+    per: dict[str, float] = {}
+    for ev in events:
+        name = ev.name[:60]
+        per[name] = per.get(name, 0.0) + ev.time_range.elapsed_us()
+    total = sum(per.values()) or 1.0
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:n]
+    return [{"op": k, "ms": v / 1e3, "share": v / total} for k, v in top]
+
+
+def _write_table(prof, path: str) -> None:
+    with open(path, "w") as f:
+        f.write(prof.key_averages().table(row_limit=40,
+                                          max_name_column_width=60))
+
+
+def profile(seed: int, mb: int, reps: int, trace_dir: str) -> None:
+    from qat_zstd_plugin_tpu.runtime.tpu_codec import \
+        device_positions_to_claims
+
+    from .corpus import make_corpus
+    from .ops import _build, match_pipeline
+    from .runtime.gpu_codec import GpuCodec
+
+    def emit(what: str, **fields) -> None:
+        print(json.dumps({"what": what, **fields}), flush=True)
+
+    os.makedirs(trace_dir, exist_ok=True)
+    emit("card", card=card_line(), cpus=os.cpu_count())
+    _build.load()
+    dev = torch.device("cuda")
+    corpus = make_corpus((mb << 20) + TAIL, seed)
+    buf = np.frombuffer(corpus, np.uint8)
+    codec = GpuCodec(level=1, batch=BATCH, device="cuda")
+    run = codec._pipeline()
+    nfull = len(buf) // BLOCK
+    starts = range(0, nfull, BATCH)
+
+    # Device half alone, input on the card.
+    blocks = torch.from_numpy(buf[:BATCH * BLOCK].reshape(BATCH, BLOCK)
+                              .copy()).to(dev)
+    lengths = torch.full((BATCH,), BLOCK, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: run(blocks, lengths))
+    emit("device_half", batch=BATCH, ms=ms, mbs=BATCH * BLOCK / ms / 1e3)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            run(blocks, lengths)
+        torch.cuda.synchronize()
+    _write_table(prof, os.path.join(trace_dir, "device_ops.txt"))
+    emit("device_ops", batches=10, ops=_top_ops(_device_events(prof)))
+    del blocks, lengths
+
+    # The main path's host-visible steps, one after the other.
+    def timed(acc: dict, key: str, fn, sync: bool = False):
+        t0 = time.perf_counter()
+        out = fn()
+        if sync:
+            torch.cuda.synchronize()
+        acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+        return out
+
+    claims: dict[int, object] = {}
+    for rep in range(reps):
+        acc: dict[str, float] = {}
+        for s in starts:
+            b = min(BATCH, nfull - s)
+            blk = timed(acc, "stack", lambda: buf[
+                s * BLOCK:(s + b) * BLOCK].reshape(b, BLOCK).copy())
+            lens = np.full(b, BLOCK, np.int32)
+            xb, xl = timed(acc, "h2d", lambda: (
+                torch.from_numpy(blk).to(dev),
+                torch.from_numpy(lens).to(dev)), sync=True)
+            slots = timed(acc, "device_half", lambda: run(xb, xl), sync=True)
+            words = timed(acc, "d2h",
+                          lambda: slots.cpu().numpy().view(np.uint32))
+            per = timed(acc, "unpack", lambda: match_pipeline.unpack_segments(
+                words, b, codec.params.window))
+            got = timed(acc, "claims", lambda: [
+                device_positions_to_claims(p, o, BLOCK) for p, o in per])
+            claims.update((s + i, c) for i, c in enumerate(got))
+        emit("stages", rep=rep, batches=len(starts), seconds=acc,
+             total_s=sum(acc.values()))
+
+    # The host half alone, from those claims.
+    workers = min(32, (os.cpu_count() or 1) + 4)  # the codec pool's
+    for rep in range(reps):
+        with ThreadPoolExecutor(workers) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(lambda i: codec.finish_block_host(
+                buf, i, claims[i], None), range(nfull)))
+            seconds = time.perf_counter() - t0
+        emit("host_half", rep=rep, blocks=nfull, seconds=seconds,
+             workers=workers)
+
+    # End to end.
+    GpuCodec(level=1, batch=BATCH, device="cuda").compress(
+        corpus[:BLOCK + TAIL])  # warm-up
+    for rep in range(reps):
+        c = GpuCodec(level=1, batch=BATCH, device="cuda")
+        t0 = time.perf_counter()
+        frame = c.compress(corpus)
+        seconds = time.perf_counter() - t0
+        emit("e2e", rep=rep, seconds=seconds,
+             mbs=len(corpus) / seconds / 1e6, ratio=len(frame) / len(corpus),
+             device_blocks=c.device_blocks)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        GpuCodec(level=1, batch=BATCH, device="cuda").compress(corpus)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    _write_table(prof, os.path.join(trace_dir, "e2e_ops.txt"))
+    events = _device_events(prof)
+    busy = _busy_us(events) / 1e6
+    emit("e2e_profiled", seconds=seconds, card_busy_s=busy,
+         busy_share=busy / seconds, ops=_top_ops(events))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mb", type=int, default=64,
+                    help="corpus size in MiB (plus a tail)")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--trace-dir", default=os.path.join("build", "profile"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_l1: torch sees no CUDA device")
+    profile(args.seed, args.mb, args.reps, args.trace_dir)
+
+
+if __name__ == "__main__":
+    main()

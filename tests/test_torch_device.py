@@ -1,0 +1,102 @@
+"""Device state and the no-silent-fallback rule of the port."""
+
+import pytest
+import torch
+
+import qat_zstd_plugin_tpu_torch as qzt
+from qat_zstd_plugin_tpu.runtime import device as jax_device
+from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
+from qat_zstd_plugin_tpu_torch.runtime import device
+
+
+def test_start_device_status():
+    device.stop_device()
+    assert device.status() == device.Status.FAIL
+    want = device.Status.OK if torch.cuda.is_available() \
+        else device.Status.STARTED
+    assert qzt.start_device() == want
+    assert device.status() == want
+    assert len(device.devices()) == torch.cuda.device_count()
+    assert qzt.stop_device() == device.Status.OK
+    assert device.status() == device.Status.FAIL
+
+
+def test_status_is_shared_with_the_reference():
+    assert device.Status is jax_device.Status
+    assert device.RETRY_INTERVAL_BLOCKS == jax_device.RETRY_INTERVAL_BLOCKS
+
+
+def test_note_offload_failure_cadence():
+    device.stop_device()
+    hits = [device.note_offload_failure()
+            for _ in range(2 * device.RETRY_INTERVAL_BLOCKS)]
+    assert [i + 1 for i, h in enumerate(hits) if h] == [
+        device.RETRY_INTERVAL_BLOCKS, 2 * device.RETRY_INTERVAL_BLOCKS]
+    device.stop_device()
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qzt.compress(b"x" * 300_000, level=1, device="cuda")
+
+
+def test_unsupported_device_raises():
+    with pytest.raises(ValueError):
+        qzt.GpuCodec(level=1, device="meta")
+
+
+def _meta_calls():
+    u8 = torch.zeros((4, 32768), dtype=torch.uint8, device="meta")
+    i32 = torch.zeros((16, 16384), dtype=torch.int32, device="meta")
+    minz = torch.zeros((4, 32768), dtype=torch.int32, device="meta")
+    lengths = torch.zeros((4,), dtype=torch.int32, device="meta")
+    return {
+        "hash_keys_winmin_sync":
+            lambda: tk.hash_keys_winmin_sync(u8, 6, 32768, 32),
+        "neighbor_unsort_keys":
+            lambda: tk.neighbor_unsort_keys(i32, 15, 1, 32767),
+        "ldm_keys": lambda: tk.ldm_keys(minz, 4, 32),
+        "compact_slots_sync":
+            lambda: tk.compact_slots_sync(i32[:4, :16384].contiguous(),
+                                          32768, lengths, 6),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(tk.launches))
+def test_wrapper_raises_off_cpu_and_cuda(name, monkeypatch):
+    """A tensor the kernel cannot launch on raises; the twin is not run."""
+    def no_twin(*a, **k):
+        raise AssertionError("twin called for a non-CPU tensor")
+
+    monkeypatch.setattr(tk, f"{name}_twin", no_twin)
+    before = dict(tk.launches)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        _meta_calls()[name]()
+    assert tk.launches == before
+
+
+@pytest.mark.parametrize("name", sorted(tk.launches))
+def test_wrapper_rejects_wrong_dtype(name):
+    call = {
+        "hash_keys_winmin_sync": lambda: tk.hash_keys_winmin_sync(
+            torch.zeros((2, 64), dtype=torch.int32), 6, 64, 32),
+        "neighbor_unsort_keys": lambda: tk.neighbor_unsort_keys(
+            torch.zeros((2, 64), dtype=torch.int64), 6),
+        "ldm_keys": lambda: tk.ldm_keys(
+            torch.zeros((4, 64), dtype=torch.uint8), 4, 32),
+        "compact_slots_sync": lambda: tk.compact_slots_sync(
+            torch.zeros((2, 64), dtype=torch.int32), 128,
+            torch.zeros((2,), dtype=torch.int64)),
+    }[name]
+    with pytest.raises(ValueError):
+        call()
+
+
+def test_cpu_run_counts_no_launch():
+    tk.reset_launches()
+    blocks = torch.zeros((4, 32768), dtype=torch.uint8)
+    lengths = torch.full((4,), 32768, dtype=torch.int32)
+    tk.find_matches_positions(blocks, lengths, ldm=4)
+    assert all(n == 0 for n in tk.launches.values())
