@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the CUDA kernels,
-checks each against its plain-torch twin, drives the level-1 main path
-end to end and checks the frame with stock libzstd.
+checks each against its plain-torch twin, drives the hash-matcher levels
+1-4 end to end and checks every frame with stock libzstd.
 
     python3 chip_smoke.py [--seed S] [--mb 64]
 
@@ -10,17 +10,25 @@ Run from the repository root on a machine with one CUDA device. Phases
 
   1. card and build: the card's name and power limit, the nvcc build of
      qat_zstd_plugin_tpu_torch/csrc/ and the native host runtime;
-  2. kernel vs twin: each of the four kernels against its plain-torch twin
-     on the card at the main path's shapes (B=128 blocks of 128 KiB),
-     exactly equal, with median CUDA-event times of both;
-  3. device half: find_matches_positions(sync=True) slot words from the
-     kernels on the card against the twins on the CPU, at B=128 (LDM on)
-     and B=6 (a batch that is no whole number of LDM spans: LDM off);
-  4. main path: qat_zstd_plugin_tpu_torch.compress(level=1, batch=128,
-     device="cuda") on a --mb MiB corpus plus a 5000-byte tail, decoded
-     bit-exactly; every kernel must have launched, no batch or block may
-     have fallen back to the CPU matcher;
-  5. port on card vs port on CPU: 1 MiB + tail at batch 8, frames equal.
+  2. kernel vs twin: each of the eight kernels against its plain-torch
+     twin on the card, exactly equal, with median CUDA-event times of
+     both: K1-K4 at level 1's shapes (B=128 blocks of 128 KiB), B5-B8 at
+     the level 2-4 shapes (B=64 blocks of 128 KiB, bench.py's device
+     level ladder), on the corpus and on random bytes; K2 also with
+     neighbors=2 on full-resolution rows, K3 also at spans 8 and 16;
+  3. device half: find_matches_positions slot words from the kernels on
+     the card against the twins on the CPU, with the ms per batch: level
+     1 at B=128 (LDM on) and B=6 (no whole number of LDM spans: LDM off),
+     levels 2, 3 and 4 at B=64 (LDM on) and level 4 at B=8 (LDM off);
+  4. main paths: compress(level=1, batch=128, device="cuda") on a --mb MiB
+     corpus plus a 5000-byte tail, then compress(level=L, batch=64) for
+     L = 2, 3, 4 on a 32 MiB corpus plus a tail. The launch counts
+     are reset just before and read just after each; every frame is
+     decoded bit-exactly, no batch or block may have fallen back to the
+     CPU matcher, and each level's kernels must have launched;
+  5. port on card vs port on CPU, frames equal: level 1 at batch 8 on 8
+     blocks + tail, level 4 at batch 16 on 16 blocks + tail, level 3 at
+     batch 8 on 9 blocks (a padded partial batch).
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -39,15 +47,37 @@ import numpy as np
 
 BLOCK = 131072
 BATCH = 128  # bench.py's L1 headline batch
+DENSE_BATCH = 64  # bench.py's device level ladder (L2, L4) batch
+DENSE_MB = 32  # level 2-4 corpus size in MiB (plus a tail)
+DENSE_LEVELS = (2, 3, 4)
 TAIL = 5000
-SOURCE = "qat_zstd_plugin_tpu_torch/csrc/l1_kernels.cu"
-# Each CUDA kernel and the Pallas kernel it replaces.
-REPLACES = {
-    "hash_keys_winmin_sync": "qat_zstd_plugin_tpu/ops/glue_kernels.py:192",
-    "neighbor_unsort_keys": "qat_zstd_plugin_tpu/ops/glue_kernels.py:490",
-    "ldm_keys": "qat_zstd_plugin_tpu/ops/glue_kernels.py:1127",
-    "compact_slots_sync": "qat_zstd_plugin_tpu/ops/glue_kernels.py:1379",
+WINDOW = 32768
+L1_SRC = "qat_zstd_plugin_tpu_torch/csrc/l1_kernels.cu"
+DENSE_SRC = "qat_zstd_plugin_tpu_torch/csrc/dense_kernels.cu"
+REF = "qat_zstd_plugin_tpu/ops/glue_kernels.py"
+# Each CUDA kernel: its source and the Pallas kernel it replaces.
+KERNELS = {
+    "hash_keys_winmin_sync": (L1_SRC, f"{REF}:192"),
+    "neighbor_unsort_keys": (L1_SRC, f"{REF}:490"),
+    "ldm_keys": (L1_SRC, f"{REF}:1127"),
+    "compact_slots_sync": (L1_SRC, f"{REF}:1379"),
+    "hash_keys": (DENSE_SRC, f"{REF}:106"),
+    "hash_keys_winmin": (DENSE_SRC, f"{REF}:148"),
+    "finalize_candidates": (DENSE_SRC, f"{REF}:559"),
+    "compact_slots_dense": (DENSE_SRC, f"{REF}:1289"),
 }
+# The kernels each level's main path must launch.
+_DENSE = ("hash_keys_winmin", "neighbor_unsort_keys", "ldm_keys",
+          "finalize_candidates", "compact_slots_dense")
+LEVEL_KERNELS = {
+    1: ("hash_keys_winmin_sync", "neighbor_unsort_keys", "ldm_keys",
+        "compact_slots_sync"),
+    2: _DENSE,  # one width: no hash_keys
+    3: _DENSE + ("hash_keys",),
+    4: _DENSE + ("hash_keys",),
+}
+
+
 def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}), flush=True)
 
@@ -64,20 +94,24 @@ def exact(torch, got, want, what: str) -> int:
     return err
 
 
+def _ragged(torch, rng, B: int, N: int, dev):
+    lengths = rng.integers(0, N + 1, B).astype(np.int32)
+    lengths[0] = N
+    return torch.from_numpy(lengths).to(dev)
+
+
 def kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int) -> dict:
-    """Phase 2: each kernel against its twin on the card, with times."""
+    """Phase 2, level 1's kernels: each against its twin on the card."""
     from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 1)
     B, N = blocks_np.shape
-    window, width, span = 32768, 6, 4
+    width, span = 6, 4
     stride = tk.ldm_stride(span, N)
-    pbits = (window - 1).bit_length()
+    pbits = (WINDOW - 1).bit_length()
     blocks = torch.from_numpy(blocks_np).to(dev)
     rand = torch.from_numpy(rng.integers(0, 256, (B, N), np.uint8)).to(dev)
-    ragged = torch.from_numpy(
-        rng.integers(0, N + 1, B).astype(np.int32)).to(dev)
-    ragged[0] = N
+    ragged = _ragged(torch, rng, B, N, dev)
     results = {}
 
     def record(name, err, kernel_fn, twin_fn):
@@ -87,13 +121,13 @@ def kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int) -> dict:
     # K1 on the corpus and on random bytes.
     err = 0
     for x in (rand, blocks):
-        k, m = tk.hash_keys_winmin_sync(x, width, window, stride)
-        tw_k, tw_m = tk.hash_keys_winmin_sync_twin(x, width, window, stride)
+        k, m = tk.hash_keys_winmin_sync(x, width, WINDOW, stride)
+        tw_k, tw_m = tk.hash_keys_winmin_sync_twin(x, width, WINDOW, stride)
         err = max(err, exact(torch, k, tw_k, "hash_keys_winmin_sync keys"),
                   exact(torch, m, tw_m, "hash_keys_winmin_sync minz"))
     record("hash_keys_winmin_sync", err,
-           lambda: tk.hash_keys_winmin_sync(blocks, width, window, stride),
-           lambda: tk.hash_keys_winmin_sync_twin(blocks, width, window,
+           lambda: tk.hash_keys_winmin_sync(blocks, width, WINDOW, stride),
+           lambda: tk.hash_keys_winmin_sync_twin(blocks, width, WINDOW,
                                                  stride))
 
     # K2 on the sorted pair rows and on the sorted LDM rows.
@@ -102,15 +136,15 @@ def kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int) -> dict:
     slk = tk._sort_rows(lk)
     lbits = (lk.shape[1] - 1).bit_length()
     err = max(
-        exact(torch, tk.neighbor_unsort_keys(sk, pbits, 1, window - 1),
-              tk.neighbor_unsort_keys_twin(sk, pbits, 1, window - 1),
+        exact(torch, tk.neighbor_unsort_keys(sk, pbits, 1, WINDOW - 1),
+              tk.neighbor_unsort_keys_twin(sk, pbits, 1, WINDOW - 1),
               "neighbor_unsort_keys (pair rows)"),
         exact(torch, tk.neighbor_unsort_keys(slk, lbits, 1),
               tk.neighbor_unsort_keys_twin(slk, lbits, 1),
               "neighbor_unsort_keys (LDM rows)"))
     record("neighbor_unsort_keys", err,
-           lambda: tk.neighbor_unsort_keys(sk, pbits, 1, window - 1),
-           lambda: tk.neighbor_unsort_keys_twin(sk, pbits, 1, window - 1))
+           lambda: tk.neighbor_unsort_keys(sk, pbits, 1, WINDOW - 1),
+           lambda: tk.neighbor_unsort_keys_twin(sk, pbits, 1, WINDOW - 1))
 
     # K3 on the corpus's minimizer plane.
     err = exact(torch, lk, tk.ldm_keys_twin(m, span, stride), "ldm_keys")
@@ -118,44 +152,169 @@ def kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int) -> dict:
            lambda: tk.ldm_keys_twin(m, span, stride))
 
     # K4 with ragged lengths, with and without LDM estimates.
-    su = tk._sort_rows(tk.neighbor_unsort_keys(sk, pbits, 1, window - 1))
+    su = tk._sort_rows(tk.neighbor_unsort_keys(sk, pbits, 1, WINDOW - 1))
     su_l = tk._sort_rows(tk.neighbor_unsort_keys(slk, lbits, 1))
     est, off = tk._ldm_est(su_l, ragged, N, span, 1 << 19)
     err = max(
-        exact(torch, tk.compact_slots_sync(su, window, ragged, width, est,
+        exact(torch, tk.compact_slots_sync(su, WINDOW, ragged, width, est,
                                            off),
-              tk.compact_slots_sync_twin(su, window, ragged, width, est, off),
+              tk.compact_slots_sync_twin(su, WINDOW, ragged, width, est, off),
               "compact_slots_sync (LDM)"),
-        exact(torch, tk.compact_slots_sync(su, window, ragged, width),
-              tk.compact_slots_sync_twin(su, window, ragged, width),
+        exact(torch, tk.compact_slots_sync(su, WINDOW, ragged, width),
+              tk.compact_slots_sync_twin(su, WINDOW, ragged, width),
               "compact_slots_sync"))
     record("compact_slots_sync", err,
-           lambda: tk.compact_slots_sync(su, window, ragged, width, est, off),
-           lambda: tk.compact_slots_sync_twin(su, window, ragged, width,
+           lambda: tk.compact_slots_sync(su, WINDOW, ragged, width, est, off),
+           lambda: tk.compact_slots_sync_twin(su, WINDOW, ragged, width,
                                               est, off))
     torch.cuda.synchronize()
     return results
 
 
-def device_half(torch, mp, blocks_np: np.ndarray, lengths_np: np.ndarray,
-                ldm: int) -> tuple[int, float]:
-    """Phase 3: the composed slot words, kernels on the card vs twins on
-    the CPU. Returns the number of claimed slots and the median time of
-    the kernels' composition on the card, input already on the card."""
+def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
+                           results: dict) -> None:
+    """Phase 2, the level 2-4 kernels (and K2, K3 at their level 2-4
+    arguments) against their twins on the card, at B=64 × 128 KiB. Adds
+    to `results`; prints one line per case with its times."""
     from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
-    kw = dict(window=32768, ldm=ldm, ldm_max_off=1 << 19, width=6)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 2)
+    B, N = blocks_np.shape
+    pbits = (WINDOW - 1).bit_length()
+    corpus = torch.from_numpy(blocks_np).to(dev)
+    rand = torch.from_numpy(rng.integers(0, 256, (B, N), np.uint8)).to(dev)
+    # The corpus with an all-same block and runs past the 16383 cap, one
+    # across a segment boundary and one to the row's end.
+    mixed = corpus.clone()
+    mixed[1] = 0x41
+    mixed[2, 20000:60000] = 7
+    mixed[3, N - 20000:] = 9
+    ragged = _ragged(torch, rng, B, N, dev)
+
+    def case(kernel: str, name: str, err: int, kernel_fn, twin_fn,
+             main: bool = False) -> None:
+        r = {"max_abs_err": err, "ms": cuda_ms(kernel_fn),
+             "plain_ms": cuda_ms(twin_fn)}
+        phase("kernel_case", kernel=kernel, case=name, **r)
+        prev = results.get(kernel)
+        if main or prev is None:
+            results[kernel] = {**r, "max_abs_err": max(
+                err, prev["max_abs_err"] if prev else 0)}
+        else:
+            prev["max_abs_err"] = max(prev["max_abs_err"], err)
+
+    # B5 at every width, on the corpus and on random bytes.
+    for width in (4, 5, 6, 8):
+        err = max(exact(torch, tk.hash_keys(x, width, WINDOW),
+                        tk.hash_keys_twin(x, width, WINDOW),
+                        f"hash_keys width {width}") for x in (corpus, rand))
+        case("hash_keys", f"width {width}", err,
+             lambda: tk.hash_keys(corpus, width, WINDOW),
+             lambda: tk.hash_keys_twin(corpus, width, WINDOW),
+             main=width == 6)
+
+    # B6 at the strides of spans 4/8 (32) and 16 (64).
+    minz = {}
+    for stride in (32, 64):
+        err = 0
+        for x in (rand, mixed):
+            k, m = tk.hash_keys_winmin(x, 4, WINDOW, stride)
+            tw_k, tw_m = tk.hash_keys_winmin_twin(x, 4, WINDOW, stride)
+            err = max(err, exact(torch, k, tw_k, "hash_keys_winmin keys"),
+                      exact(torch, m, tw_m, f"hash_keys_winmin minz {stride}"))
+        minz[stride] = m
+        case("hash_keys_winmin", f"stride {stride}", err,
+             lambda: tk.hash_keys_winmin(mixed, 4, WINDOW, stride),
+             lambda: tk.hash_keys_winmin_twin(mixed, 4, WINDOW, stride),
+             main=stride == 64)
+
+    # K2 with neighbors=2 on full-resolution rows (level 4).
+    sk = tk._sort_rows(tk.hash_keys(mixed, 4, WINDOW))
+    err = exact(torch, tk.neighbor_unsort_keys(sk, pbits, 2),
+                tk.neighbor_unsort_keys_twin(sk, pbits, 2),
+                "neighbor_unsort_keys (full-resolution rows, neighbors 2)")
+    case("neighbor_unsort_keys", "full-resolution rows, neighbors 2", err,
+         lambda: tk.neighbor_unsort_keys(sk, pbits, 2),
+         lambda: tk.neighbor_unsort_keys_twin(sk, pbits, 2))
+
+    # K3 at spans 8 and 16 (levels 3 and 4), and the LDM estimates of
+    # spans 4 and 16 for B8.
+    ests = {}
+    for span in (4, 8, 16):
+        stride = tk.ldm_stride(span, N)
+        if stride not in minz:
+            minz[stride] = tk.hash_keys_winmin(mixed, 4, WINDOW, stride)[1]
+        if span != 4:
+            lk = tk.ldm_keys(minz[stride], span, stride)
+            err = exact(torch, lk, tk.ldm_keys_twin(minz[stride], span,
+                                                    stride),
+                        f"ldm_keys span {span}")
+            case("ldm_keys", f"span {span}", err,
+                 lambda: tk.ldm_keys(minz[stride], span, stride),
+                 lambda: tk.ldm_keys_twin(minz[stride], span, stride))
+        if span != 8:
+            ests[span] = tk._ldm_est(tk.ldm_unsorted(minz[stride], span),
+                                     ragged, N, span, 1 << 19)
+
+    # B7 at each level's widths, ragged lengths, on the mixed corpus and
+    # on random bytes; the twin chunks two widths per pass.
+    for widths, nb in (((6,), 1), ((5, 8), 1), ((4, 5, 6, 8), 2)):
+        err = 0
+        for x in (rand, mixed):
+            sus = [tk._unsorted(tk.hash_keys(x, w, WINDOW), pbits, nb)
+                   for w in widths]
+            ml, mo = tk.finalize_candidates(sus, x, ragged, widths, WINDOW)
+            tw_ml, tw_mo = tk.finalize_candidates_twin(sus, x, ragged,
+                                                       widths, WINDOW)
+            err = max(err,
+                      exact(torch, ml, tw_ml, f"finalize mlen {widths}"),
+                      exact(torch, mo, tw_mo, f"finalize moff {widths}"))
+        case("finalize_candidates", f"widths {widths}", err,
+             lambda: tk.finalize_candidates(sus, x, ragged, widths, WINDOW),
+             lambda: tk.finalize_candidates_twin(sus, x, ragged, widths,
+                                                 WINDOW),
+             main=len(widths) == 4)
+
+    # B8 on the level-4 claims of the mixed corpus, with and without LDM
+    # estimates (spans 4 and 16), at both local caps.
+    for cap in (24, 32):
+        for span in (0, 4, 16):
+            est, off = ests[span] if span else (None, None)
+            err = exact(
+                torch, tk.compact_slots_dense(ml, mo, WINDOW, est, off, cap),
+                tk.compact_slots_dense_twin(ml, mo, WINDOW, est, off, cap),
+                f"compact_slots_dense cap {cap} span {span}")
+            case("compact_slots_dense", f"cap {cap}, LDM span {span}", err,
+                 lambda: tk.compact_slots_dense(ml, mo, WINDOW, est, off,
+                                                cap),
+                 lambda: tk.compact_slots_dense_twin(ml, mo, WINDOW, est,
+                                                     off, cap),
+                 main=(cap, span) == (32, 16))
+    torch.cuda.synchronize()
+
+
+def device_half(torch, qzt, level: int, blocks_np: np.ndarray) -> dict:
+    """Phase 3: the composed slot words of `level`'s pipeline, kernels on
+    the card vs twins on the CPU. Returns the claimed slots and the
+    median time of the kernels' composition on the card, input already
+    on the card."""
+    from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
+    B = len(blocks_np)
+    lengths_np = np.full(B, BLOCK, np.int32)
+    on_card = qzt.GpuCodec(level=level, batch=B, device="cuda")._pipeline()
+    on_cpu = qzt.GpuCodec(level=level, batch=B, device="cpu")._pipeline()
     dev = torch.device("cuda")
     blocks = torch.from_numpy(blocks_np).to(dev)
     lengths = torch.from_numpy(lengths_np).to(dev)
-    got = mp.find_matches_positions(blocks, lengths, **kw).cpu()
-    want = mp.find_matches_positions(torch.from_numpy(blocks_np),
-                                     torch.from_numpy(lengths_np), **kw)
-    exact(torch, got, want, f"find_matches_positions B={len(blocks_np)}")
-    ms = cuda_ms(lambda: mp.find_matches_positions(blocks, lengths, **kw))
-    return int((got != -1).sum()), ms
+    got = on_card(blocks, lengths).cpu()
+    want = on_cpu(torch.from_numpy(blocks_np), torch.from_numpy(lengths_np))
+    exact(torch, got, want, f"find_matches_positions L{level} B={B}")
+    ms = cuda_ms(lambda: on_card(blocks, lengths))
+    return {"level": level, "batch": B, "claims": int((got != -1).sum()),
+            "ms": ms, "mbs": B * BLOCK / ms / 1e3}
 
 
-def decode(data: bytes, frame: bytes, level: int) -> str:
+def decode(data: bytes, frame: bytes, level: int, batch: int) -> str:
     """Bit-exact decode through stock libzstd; without it, a 4 MiB prefix
     frame through the in-repo golden decoder. Returns the decoder used."""
     from qat_zstd_plugin_tpu import oracle
@@ -166,17 +325,62 @@ def decode(data: bytes, frame: bytes, level: int) -> str:
     import qat_zstd_plugin_tpu_torch as qzt
     from qat_zstd_plugin_tpu.golden import decoder
     prefix = data[:4 << 20]
-    small = qzt.compress(prefix, level=level, batch=BATCH, device="cuda")
+    small = qzt.compress(prefix, level=level, batch=batch, device="cuda")
     if decoder.decompress(small, max_output=len(prefix)) != prefix:
         raise AssertionError("golden decode differs from the input")
     return "golden (4 MiB prefix)"
+
+
+def main_path(torch, qzt, tk, level: int, batch: int, data: bytes) -> dict:
+    """Phase 4 for one level: compress on the card with the launch counts
+    reset just before; decode; no fallback; the level's kernels ran.
+    Returns the launch counts of the run."""
+    qzt.compress(data[:BLOCK + TAIL], level=level, batch=batch,
+                 device="cuda")  # warm-up: CUDA context, allocator, build
+    torch.cuda.synchronize()
+    codec = qzt.GpuCodec(level=level, batch=batch, device="cuda")
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    frame = codec.compress(data)
+    seconds = time.perf_counter() - t0
+    launches = dict(tk.launches)
+    used = decode(data, frame, level, batch)
+    phase("main_path", level=level, batch=batch, input_bytes=len(data),
+          frame_bytes=len(frame), ratio=len(frame) / len(data),
+          seconds=seconds, e2e_mbs=len(data) / seconds / 1e6, decoder=used,
+          device_blocks=codec.device_blocks,
+          fallback_batches=codec.fallback_batches,
+          fallback_blocks=codec.stats.fallback_blocks, launches=launches)
+    if codec.fallback_batches or codec.stats.fallback_blocks:
+        raise AssertionError(f"level {level}: the main path fell back to "
+                             "the CPU matcher")
+    if codec.device_blocks != len(data) // BLOCK:
+        raise AssertionError(f"level {level}: device produced "
+                             f"{codec.device_blocks} blocks")
+    missing = [k for k in LEVEL_KERNELS[level] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"level {level}: kernels never launched on "
+                             f"the main path: {missing}")
+    return launches
+
+
+def card_vs_cpu(qzt, level: int, batch: int, data: bytes) -> None:
+    """Phase 5 for one level: the port's frame on the card equals its
+    frame on the CPU."""
+    on_card = qzt.compress(data, level=level, batch=batch, device="cuda")
+    on_cpu = qzt.compress(data, level=level, batch=batch, device="cpu")
+    if on_card != on_cpu:
+        raise AssertionError(f"level {level}: frames differ between "
+                             "device='cuda' and device='cpu'")
+    phase("card_vs_cpu", level=level, batch=batch, input_bytes=len(data),
+          equal=True, frame_bytes=len(on_card))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mb", type=int, default=64,
-                    help="main-path corpus size in MiB (plus a tail)")
+                    help="level-1 corpus size in MiB (plus a tail)")
     args = ap.parse_args()
 
     import torch
@@ -194,7 +398,6 @@ def main() -> int:
     from qat_zstd_plugin_tpu_torch.corpus import make_corpus
     from qat_zstd_plugin_tpu_torch.ops import _build
     from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
-    from qat_zstd_plugin_tpu_torch.ops import match_pipeline as mp
     from qat_zstd_plugin_tpu_torch.profile_l1 import card_line
 
     # 1. Card and build.
@@ -211,63 +414,45 @@ def main() -> int:
         raise RuntimeError("native host runtime did not build")
     phase("native", load_s=time.perf_counter() - t0)
 
-    # 2. Kernel vs twin at the main path's shapes.
+    # 2. Kernel vs twin at the main paths' shapes.
     corpus = make_corpus((args.mb << 20) + TAIL, args.seed)
+    dense_corpus = make_corpus((DENSE_MB << 20) + TAIL, args.seed)
     blocks_np = np.frombuffer(corpus[:BATCH * BLOCK], np.uint8) \
         .reshape(BATCH, BLOCK).copy()
+    dense_np = np.frombuffer(dense_corpus[:DENSE_BATCH * BLOCK], np.uint8) \
+        .reshape(DENSE_BATCH, BLOCK).copy()
     kernels = kernels_vs_twins(torch, tk, blocks_np, args.seed)
+    dense_kernels_vs_twins(torch, tk, dense_np, args.seed, kernels)
     for name, r in kernels.items():
         phase("kernel_vs_twin", kernel=name, **r)
 
     # 3. Device half: slot words, kernels vs twins.
-    full = np.full(BATCH, BLOCK, np.int32)
-    n128, ms128 = device_half(torch, mp, blocks_np, full, ldm=4)
-    n6, ms6 = device_half(torch, mp, blocks_np[:6].copy(), full[:6].copy(),
-                          ldm=4)
-    phase("device_half", equal=True, claims_b128_ldm4=n128,
-          claims_b6_ldm0=n6, ms_b128=ms128, ms_b6=ms6,
-          mbs_b128=BATCH * BLOCK / ms128 / 1e3)
+    for level, x in ((1, blocks_np), (1, blocks_np[:6].copy()),
+                     *((lv, dense_np) for lv in DENSE_LEVELS),
+                     (4, dense_np[:8].copy())):
+        phase("device_half", equal=True, **device_half(torch, qzt, level, x))
 
-    # 4. Main path on the card.
-    qzt.compress(corpus[:BLOCK + TAIL], level=1, batch=BATCH,
-                 device="cuda")  # warm-up: CUDA context, allocator, build
-    torch.cuda.synchronize()
-    codec = qzt.GpuCodec(level=1, batch=BATCH, device="cuda")
-    tk.reset_launches()
-    t0 = time.perf_counter()
-    frame = codec.compress(corpus)
-    seconds = time.perf_counter() - t0
-    launches = dict(tk.launches)
-    used = decode(corpus, frame, 1)
-    phase("main_path", input_bytes=len(corpus), frame_bytes=len(frame),
-          ratio=len(frame) / len(corpus), seconds=seconds,
-          e2e_mbs=len(corpus) / seconds / 1e6, decoder=used,
-          device_blocks=codec.device_blocks,
-          fallback_batches=codec.fallback_batches,
-          fallback_blocks=codec.stats.fallback_blocks, launches=launches)
-    if codec.fallback_batches or codec.stats.fallback_blocks:
-        raise AssertionError("the main path fell back to the CPU matcher")
-    if codec.device_blocks != len(corpus) // BLOCK:
-        raise AssertionError(f"device produced {codec.device_blocks} blocks")
+    # 4. Main paths on the card, launch counts per path.
+    launches = dict.fromkeys(KERNELS, 0)
+    runs = [(1, BATCH, corpus)] + [(lv, DENSE_BATCH, dense_corpus)
+                                   for lv in DENSE_LEVELS]
+    for level, batch, data in runs:
+        for k, n in main_path(torch, qzt, tk, level, batch, data).items():
+            launches[k] += n
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+        raise AssertionError(f"kernels never launched: {missing}")
 
     # 5. Port on card vs port on CPU.
-    small = corpus[:8 * BLOCK + TAIL]
-    on_card = qzt.compress(small, level=1, batch=8, device="cuda")
-    on_cpu = qzt.compress(small, level=1, batch=8, device="cpu")
-    if on_card != on_cpu:
-        raise AssertionError("frames differ between device='cuda' and "
-                             "device='cpu'")
-    phase("card_vs_cpu", equal=True, frame_bytes=len(on_card))
+    card_vs_cpu(qzt, 1, 8, corpus[:8 * BLOCK + TAIL])
+    card_vs_cpu(qzt, 4, 16, dense_corpus[:16 * BLOCK + TAIL])
+    card_vs_cpu(qzt, 3, 8, dense_corpus[:9 * BLOCK])
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name], **r}
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1], "launches": launches[name], **r}
         for name, r in kernels.items()]}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,15 @@
 """qat_zstd_plugin_tpu_torch — the PyTorch/CUDA port of qat_zstd_plugin_tpu.
 
-The device half of the codec's level-1 path (the syncmer slot pipeline)
-runs here as hand-written CUDA kernels for Hopper (csrc/l1_kernels.cu)
+The device half of the codec's hash-matcher levels 1-4 (level 1's
+syncmer slot pipeline and the full-resolution dense hash pipeline of
+levels 2-4) runs here as hand-written CUDA kernels for Hopper (csrc/)
 with PyTorch ops between them; the host half (claim extension, gap fill,
 entropy coding, frame assembly) and the zstd format code are imported
 from qat_zstd_plugin_tpu unchanged. Nothing here imports jax.
 
-    compress(data, level=1, device="cuda") -> zstd frame (bytes), equal
-        byte for byte to qat_zstd_plugin_tpu's TpuCodec frame at the same
-        level and batch size
+    compress(data, level=1..4, device="cuda") -> zstd frame (bytes),
+        equal byte for byte to qat_zstd_plugin_tpu's TpuCodec frame at the
+        same level and batch size
     decompress(frame)                      -> bytes (stock libzstd)
 """
 

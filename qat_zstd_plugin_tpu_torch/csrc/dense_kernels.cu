@@ -1,0 +1,355 @@
+// Hopper kernels of the level 2-4 device path (full-resolution dense hash
+// claims).
+//
+// Four hand-written CUDA kernels replace the four Pallas kernels that
+// qat_zstd_plugin_tpu.ops.glue_kernels.find_matches_positions(dense=True,
+// sync=False) runs on the TPU beyond the level-1 ones. Each has a plain
+// PyTorch twin in qat_zstd_plugin_tpu_torch/ops/glue_kernels.py that
+// computes the same words; the wrappers there check shapes and dtypes,
+// allocate the outputs and launch these entry points through ctypes.
+//
+// Interface: as in l1_kernels.cu, every entry point takes device
+// pointers, sizes and the CUDA stream (PyTorch's current stream), launches
+// on that stream, allocates nothing, and returns cudaGetLastError().
+//
+// All four are integer passes with a few operations per byte moved, so
+// device-memory bandwidth bounds them on an H100 (3.35 TB/s), except the
+// offset-1 run scan of finalize_candidates, which is a per-row scan (see
+// there). They are written simple and right first.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMinMatch = 4;    // match_pipeline.MIN_MATCH
+constexpr int kRunCap = 16383;  // longest run / estimate finalize writes
+constexpr int kBig = 1 << 30;   // "no change" in the run scan
+constexpr int kChainSteps = 2;  // glue_kernels.CHAIN_STEPS
+
+// ---------------------------------------------------------------------------
+// B5 hash_keys and B6 hash_keys_winmin: full-resolution sort keys (+ the
+// windowed-minimum plane of the 8-gram hash).
+// Replaces glue_kernels.hash_keys and glue_kernels.hash_keys_winmin
+// (Pallas).
+//
+// One thread per 4 consecutive positions; a CTA covers kHashSpan
+// positions of one row. It stages the tile's bytes plus a halo in shared
+// memory (zero past the row's end, as the reference's shifted reads), and
+// each thread writes (hash_w(i) << pbits | i & pmask) for its four
+// positions with one 16-byte store: the (rows * nseg, w) key layout is the
+// (rows, n) row-major one. With kMinz the CTA first hashes every 8-gram of
+// the tile plus a stride-wide halo once into shared memory (0xFFFFFFFF at
+// or past n, the reference's fill) and each thread writes minz[i..i+3],
+// the minimum over [i+k, i+k+stride): the inner [i+3, i+stride) is shared
+// by the four. Bound: reads n bytes, writes 4n (keys) + 4n (minz) per row.
+// ---------------------------------------------------------------------------
+
+constexpr int kHashThreads = 256;
+constexpr int kHashSpan = 4 * kHashThreads;
+
+template <bool kMinz>
+__global__ void __launch_bounds__(kHashThreads)
+hash_keys_kernel(const uint8_t* __restrict__ blocks,
+                 uint32_t* __restrict__ keys, uint32_t* __restrict__ minz,
+                 int n, int width, int pbits, uint32_t pmask, int stride) {
+    extern __shared__ uint32_t smem[];
+    const int nh = kMinz ? kHashSpan + stride : 0;  // h8 entries
+    uint32_t* h8 = smem;
+    uint8_t* bytes = reinterpret_cast<uint8_t*>(smem + nh);
+    const int nb = (kMinz ? nh : kHashSpan) + 7;
+    const int row = blockIdx.y;
+    const int base = blockIdx.x * kHashSpan;
+    const uint8_t* x = blocks + size_t(row) * n;
+
+    for (int j = threadIdx.x; j < nb; j += kHashThreads) {
+        const int p = base + j;
+        bytes[j] = p < n ? x[p] : 0;
+    }
+    __syncthreads();
+    if (kMinz) {
+        for (int j = threadIdx.x; j < nh; j += kHashThreads)
+            h8[j] = base + j < n ? gram_hash(bytes + j, 8, 32) : kEmpty;
+        __syncthreads();
+    }
+
+    const int t = 4 * threadIdx.x;
+    const int i = base + t;
+    if (i >= n) return;  // n % 4 == 0: positions i..i+3 are all in the row
+    const int hbits = 32 - pbits;
+    uint4 k;
+    k.x = (gram_hash(bytes + t, width, hbits) << pbits) | (uint32_t(i) & pmask);
+    k.y = (gram_hash(bytes + t + 1, width, hbits) << pbits) |
+          (uint32_t(i + 1) & pmask);
+    k.z = (gram_hash(bytes + t + 2, width, hbits) << pbits) |
+          (uint32_t(i + 2) & pmask);
+    k.w = (gram_hash(bytes + t + 3, width, hbits) << pbits) |
+          (uint32_t(i + 3) & pmask);
+    const size_t at = (size_t(row) * n + i) >> 2;
+    reinterpret_cast<uint4*>(keys)[at] = k;
+
+    if (kMinz) {
+        uint4 m;
+        if (stride >= 4) {
+            uint32_t inner = kEmpty;  // min over [t+3, t+stride)
+            for (int q = 3; q < stride; ++q) inner = min(inner, h8[t + q]);
+            const uint32_t a0 = h8[t], a1 = h8[t + 1], a2 = h8[t + 2];
+            const uint32_t b0 = h8[t + stride], b1 = h8[t + stride + 1],
+                           b2 = h8[t + stride + 2];
+            m.x = min(inner, min(a0, min(a1, a2)));
+            m.y = min(inner, min(a1, min(a2, b0)));
+            m.z = min(inner, min(a2, min(b0, b1)));
+            m.w = min(inner, min(b0, min(b1, b2)));
+        } else {
+            uint32_t v[4] = {kEmpty, kEmpty, kEmpty, kEmpty};
+            for (int p = 0; p < 4; ++p)
+                for (int q = 0; q < stride; ++q) v[p] = min(v[p], h8[t + p + q]);
+            m = make_uint4(v[0], v[1], v[2], v[3]);
+        }
+        reinterpret_cast<uint4*>(minz)[at] = m;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// B7 finalize_candidates: per-width chain doubling, cross-width merge, cost
+// filter, offset-1 run scan.
+// Replaces glue_kernels._finalize_chunk (Pallas), which the reference
+// calls two widths at a time (a VMEM limit); here every width is one pass,
+// which gives the same words because the filter and the run scan come
+// after the last width either way.
+//
+// Pass 1, one thread per position i of a row: for each width it reads the
+// claim offsets at i, i+w, ..., i+3w of the position-ordered
+// keys (the block row is contiguous across its segments, and the chain
+// runs across them, as the reference's whole-row shifts do), zeroes a
+// claim whose gram passes the block's length, doubles the same-offset
+// chain twice in registers, and merges the estimate (longer, then
+// nearer); then the cost filter and the 16383 cap. Coalesced reads of
+// 16 * widths bytes per position, mostly L1/L2 hits.
+//
+// Pass 2, one CTA per row: the offset-1 run scan. The reference takes, for
+// each i, the first byte change in [i, i + 2^14) by 14 doubling steps of a
+// suffix minimum; the length it gives is capped at 16383, so the exact
+// next change gives the same length. A per-thread forward walk would read
+// up to 16384 bytes per position (2^31 reads for a 128 KiB all-same
+// block), so each thread takes a chunk of the row: it finds the first
+// change in its chunk, a shared-memory suffix minimum over the chunks
+// gives each thread the first change after its chunk, and a backward walk
+// over the chunk then knows the next change at every position. n reads per
+// row plus the mlen/moff read-modify-write where the byte repeats.
+// ---------------------------------------------------------------------------
+
+struct WidthKeys {
+    const uint32_t* su[4];
+    int width[4];
+};
+
+__global__ void finalize_merge_kernel(WidthKeys keys, int nw,
+                                      const int32_t* __restrict__ lengths,
+                                      int32_t* __restrict__ mlen,
+                                      int32_t* __restrict__ moff,
+                                      long long total, int n,
+                                      uint32_t omask) {
+    constexpr int kPos = 1 << kChainSteps;
+    const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (idx >= total) return;
+    const int b = int(idx / n);
+    const int i = int(idx % n);
+    const int blen = lengths[b];
+    const size_t row = size_t(b) * n;
+    int ml = 0, mo = 0;
+    for (int wi = 0; wi < nw; ++wi) {
+        const int width = keys.width[wi];
+        const uint32_t* su = keys.su[wi] + row;
+        int o[kPos], r[kPos];
+#pragma unroll
+        for (int m = 0; m < kPos; ++m) {
+            const long long j = i + (long long)m * width;
+            o[m] = j < n && j + width <= blen ? int(su[j] & omask) : 0;
+            r[m] = o[m] > 0;
+        }
+        // Step with span s: reach(j) += reach(j + s*width) where the chain
+        // continues; r[m + s] still holds the previous step's value.
+#pragma unroll
+        for (int s = 1; s < kPos; s *= 2) {
+#pragma unroll
+            for (int m = 0; m + s < kPos; ++m) {
+                if (o[m] > 0 && r[m] == s && o[m + s] == o[m]) r[m] += r[m + s];
+            }
+        }
+        const int est = r[0] * width;
+        const int off = o[0];
+        const bool better =
+            est > ml || (est == ml && off > 0 && (off < mo || mo == 0));
+        if (off > 0 && better) {
+            ml = est;
+            mo = off;
+        }
+    }
+    const bool worth = ml >= 7 || (ml >= 6 && mo <= 32768) ||
+                       (ml >= 5 && mo <= 4096) || (ml >= 4 && mo <= 256);
+    mlen[idx] = worth ? min(ml, kRunCap) : 0;
+    moff[idx] = worth ? mo : 0;
+}
+
+constexpr int kRunThreads = 1024;
+
+__global__ void __launch_bounds__(kRunThreads)
+finalize_runs_kernel(const uint8_t* __restrict__ blocks,
+                     const int32_t* __restrict__ lengths,
+                     int32_t* __restrict__ mlen, int32_t* __restrict__ moff,
+                     int n) {
+    __shared__ int after[kRunThreads];
+    const int row = blockIdx.x;
+    const uint8_t* x = blocks + size_t(row) * n;
+    int32_t* ml = mlen + size_t(row) * n;
+    int32_t* mo = moff + size_t(row) * n;
+    const int blen = lengths[row];
+    const int chunk = (n + kRunThreads - 1) / kRunThreads;
+    const int lo = min(n, int(threadIdx.x) * chunk);
+    const int hi = min(n, lo + chunk);
+    // A change at j: x[j] != x[j+1]; the row's last byte is always one.
+    auto change = [&](int j) { return j == n - 1 || x[j] != x[j + 1]; };
+
+    int first = kBig;
+    for (int j = lo; j < hi; ++j) {
+        if (change(j)) {
+            first = j;
+            break;
+        }
+    }
+    after[threadIdx.x] = first;
+    __syncthreads();
+    for (int s = 1; s < kRunThreads; s *= 2) {  // suffix minimum
+        const int v = threadIdx.x + s < kRunThreads ? after[threadIdx.x + s]
+                                                    : kBig;
+        __syncthreads();
+        after[threadIdx.x] = min(after[threadIdx.x], v);
+        __syncthreads();
+    }
+    int next = threadIdx.x + 1 < kRunThreads ? after[threadIdx.x + 1] : kBig;
+    for (int j = hi - 1; j >= lo; --j) {
+        if (change(j)) next = j;  // first change at or after j
+        const int len1 = min(min(next - j + 1, blen - j), kRunCap);
+        if (j > 0 && x[j] == x[j - 1] && len1 >= 4 && len1 > ml[j]) {
+            ml[j] = len1;
+            mo[j] = 1;
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// B8 compact_slots_dense: dense claims -> slot words, LDM take rule.
+// Replaces glue_kernels.compact_slots_dense (Pallas).
+//
+// One thread per 4-byte slot s of a block: one 16-byte load each of mlen
+// and moff at 4s..4s+3 (the reference makes four strided copies first),
+// the smallest (k << 30 | moff) over the lanes with mlen >= MIN_MATCH, or
+// the empty sentinel. On every (ns / spb)-th slot, when LDM estimates are
+// given, the LDM offset takes the slot under merge_ldm's rule against the
+// true lane-0 length: est > mlen[4s] and (mlen[4s] < local_cap or
+// est >= 128). 32 bytes read and 4 written per slot.
+// ---------------------------------------------------------------------------
+
+__global__ void compact_slots_dense_kernel(const int32_t* __restrict__ mlen,
+                                           const int32_t* __restrict__ moff,
+                                           const int32_t* __restrict__ est,
+                                           const int32_t* __restrict__ ldo,
+                                           uint32_t* __restrict__ out,
+                                           long long total, int ns, int spb,
+                                           int local_cap) {
+    const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (idx >= total) return;
+    const int4 ml = reinterpret_cast<const int4*>(mlen)[idx];
+    const int4 of = reinterpret_cast<const int4*>(moff)[idx];
+    const int mls[4] = {ml.x, ml.y, ml.z, ml.w};
+    const int ofs[4] = {of.x, of.y, of.z, of.w};
+    uint32_t best = kEmpty;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        if (mls[k] >= kMinMatch)
+            best = min(best, (uint32_t(k) << 30) | uint32_t(ofs[k]));
+    }
+    if (spb > 0) {
+        const int sls = ns / spb;  // slots per LDM sample
+        const int s = int(idx % ns);
+        if (s % sls == 0) {
+            const size_t t = size_t(idx / ns) * spb + s / sls;
+            const int e = est[t];
+            if (e > ml.x && (ml.x < local_cap || e >= 128))
+                best = uint32_t(ldo[t]);
+        }
+    }
+    out[idx] = best;
+}
+
+template <bool kMinz>
+int launch_hash_keys(const void* blocks, void* keys, void* minz, int rows,
+                     int n, int width, int pbits, int pmask, int stride,
+                     void* stream) {
+    const int nh = kMinz ? kHashSpan + stride : 0;
+    const int nb = (kMinz ? nh : kHashSpan) + 7;
+    const size_t smem = size_t(nh) * 4 + ((size_t(nb) + 3) & ~size_t(3));
+    const dim3 grid((n + kHashSpan - 1) / kHashSpan, rows);
+    hash_keys_kernel<kMinz><<<grid, kHashThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(blocks), static_cast<uint32_t*>(keys),
+        static_cast<uint32_t*>(minz), n, width, pbits, uint32_t(pmask),
+        stride);
+    return int(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int qz_hash_keys(const void* blocks, void* keys, int rows, int n, int width,
+                 int pbits, int pmask, void* stream) {
+    return launch_hash_keys<false>(blocks, keys, nullptr, rows, n, width,
+                                   pbits, pmask, 0, stream);
+}
+
+int qz_hash_keys_winmin(const void* blocks, void* keys, void* minz, int rows,
+                        int n, int width, int pbits, int pmask, int stride,
+                        void* stream) {
+    return launch_hash_keys<true>(blocks, keys, minz, rows, n, width, pbits,
+                                  pmask, stride, stream);
+}
+
+int qz_finalize_candidates(const void* su0, const void* su1, const void* su2,
+                           const void* su3, const void* blocks,
+                           const void* lengths, void* mlen, void* moff,
+                           int rows, int n, int nw, int w0, int w1, int w2,
+                           int w3, int pbits, void* stream) {
+    const WidthKeys keys = {
+        {static_cast<const uint32_t*>(su0), static_cast<const uint32_t*>(su1),
+         static_cast<const uint32_t*>(su2), static_cast<const uint32_t*>(su3)},
+        {w0, w1, w2, w3}};
+    const long long total = (long long)rows * n;
+    const uint32_t omask = (1u << pbits) - 1u;
+    const auto len = static_cast<const int32_t*>(lengths);
+    const auto ml = static_cast<int32_t*>(mlen);
+    const auto mo = static_cast<int32_t*>(moff);
+    const auto s = static_cast<cudaStream_t>(stream);
+    finalize_merge_kernel<<<blocks_for(total), kThreads, 0, s>>>(
+        keys, nw, len, ml, mo, total, n, omask);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    finalize_runs_kernel<<<rows, kRunThreads, 0, s>>>(
+        static_cast<const uint8_t*>(blocks), len, ml, mo, n);
+    return int(cudaGetLastError());
+}
+
+int qz_compact_slots_dense(const void* mlen, const void* moff,
+                           const void* est, const void* ldo, void* out,
+                           int rows, int ns, int spb, int local_cap,
+                           void* stream) {
+    const long long total = (long long)rows * ns;
+    compact_slots_dense_kernel<<<blocks_for(total), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(mlen), static_cast<const int32_t*>(moff),
+        static_cast<const int32_t*>(est), static_cast<const int32_t*>(ldo),
+        static_cast<uint32_t*>(out), total, ns, spb, local_cap);
+    return int(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,11 +1,13 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
-`csrc/*.cu` is compiled on first use into a shared library with a plain C
-interface under `build/torch_kernels/<key>/` beside the package, where
-<key> hashes the sources and the flags, so an edit rebuilds and an
-unchanged tree reuses the library. No PyTorch header is compiled, which
-keeps a build to seconds. Nothing is built at import: the CPU tests
-import every module on a machine without nvcc.
+Each `csrc/*.cu` is compiled on first use, one nvcc process per source
+and all of them at once, and the objects are linked into one shared
+library with a plain C interface under `build/torch_kernels/<key>/`
+beside the package, where <key> hashes every file under csrc/ (headers
+included) and the flags, so an edit rebuilds and an unchanged tree reuses
+the library. No PyTorch header is compiled, which keeps a build to
+seconds. Nothing is built at import: the CPU tests import every module on
+a machine without nvcc.
 """
 
 from __future__ import annotations
@@ -20,37 +22,45 @@ import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC = os.path.join(_PKG, "csrc")
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-LIB_NAME = "libl1_kernels.so"
+LIB_NAME = "libqz_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points of csrc/l1_kernels.cu: argument types, each ending in the
-# stream; every one returns a cudaError_t as int.
+# C entry points of csrc/*.cu: argument types, each ending in the stream;
+# every one returns a cudaError_t as int.
 SIGNATURES = {
     "qz_hash_keys_winmin_sync": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "qz_neighbor_unsort_keys": (_P, _P, _I, _I, _I, _I, _I, _P),
     "qz_ldm_keys": (_P, _P, _I, _I, _I, _I, _I, _P),
     "qz_compact_slots_sync": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "qz_hash_keys": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "qz_hash_keys_winmin": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "qz_finalize_candidates": (_P,) * 8 + (_I,) * 8 + (_P,),
+    "qz_compact_slots_dense": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-build_seconds: float | None = None  # wall time of this process's nvcc run
+build_seconds: float | None = None  # wall time of this process's nvcc runs
 
 
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+def _sources(csrc: str = CSRC) -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc, "*.cu")))
 
 
-def library_path() -> str:
+def library_path(csrc: str = CSRC) -> str:
+    """Where the library for the files under `csrc` and NVCC_FLAGS goes."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(os.path.basename(src).encode())
-        with open(src, "rb") as f:
-            h.update(f.read())
+    for root, dirs, files in os.walk(csrc):
+        dirs.sort()
+        for name in sorted(files):
+            path = os.path.join(root, name)
+            h.update(os.path.relpath(path, csrc).encode() + b"\0")
+            with open(path, "rb") as f:
+                h.update(f.read())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16], LIB_NAME)
 
 
@@ -64,24 +74,41 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{err}")
+
+
 def build() -> str:
     """Compile csrc/ unless the library for these sources exists; returns
-    its path. The output is renamed into place, so a killed build never
-    leaves a half-written library behind."""
+    its path. The library is renamed into place, so a killed build never
+    leaves a half-written one behind."""
     global build_seconds
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    tag = f"tmp.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [os.path.join(os.path.dirname(path),
+                         f"{os.path.basename(src)}.{tag}.o")
+            for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    _run([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+          for src, obj in zip(_sources(), objs)])
+    tmp = f"{path}.{tag}"
+    _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
     build_seconds = time.perf_counter() - t0
     os.replace(tmp, path)
+    for obj in objs:
+        os.remove(obj)
     return path
 
 

@@ -1,18 +1,29 @@
-"""The level-1 device path in PyTorch: four CUDA kernels and the torch ops
-between them.
+"""The hash-matcher device paths of levels 1-4 in PyTorch: eight CUDA
+kernels and the torch ops between them.
 
-Port of the syncmer branch of qat_zstd_plugin_tpu.ops.glue_kernels
-(`find_matches_positions(sync=True)` and what it reaches):
+Port of the dense branches of qat_zstd_plugin_tpu.ops.glue_kernels
+`find_matches_positions` and what they reach. Level 1, sync=True (the
+syncmer pair anchors, csrc/l1_kernels.cu):
 
   hash_keys_winmin_sync -> sort -> neighbor_unsort_keys -> sort --+
     +- minz plane -> ldm_keys -> sort -> neighbor_unsort_keys      |
          -> sort -> _ldm_est                                      v
                               compact_slots_sync -> (B*nseg, w/4) slot words
 
-Each of the four kernels has here
+Levels 2-4, sync=False (full-resolution keys, csrc/dense_kernels.cu):
+
+  width 0: hash_keys_winmin -> sort -> neighbor_unsort_keys -> sort --+
+  width i: hash_keys        -> sort -> neighbor_unsort_keys -> sort --+
+  minz plane -> ldm_keys -> ... -> _ldm_est (as above)                 v
+     finalize_candidates -> (mlen, moff) -> compact_slots_dense -> slot words
+
+Without LDM (a batch that is no whole number of spans) every width takes
+hash_keys and compact_slots_dense gets no estimates.
+
+Each of the eight kernels has here
   * a wrapper with the reference's name, which checks device, dtype,
-    shape and contiguity and launches the kernel of csrc/l1_kernels.cu on
-    PyTorch's current stream (counting the launch in `launches`);
+    shape and contiguity and launches the kernel of csrc/ on PyTorch's
+    current stream (counting the launch in `launches`);
   * a plain-torch twin (`<name>_twin`) that computes the same words. The
     wrapper calls the twin only for a tensor on the CPU; for any other
     device it launches the kernel or raises.
@@ -41,7 +52,11 @@ _C3 = 3266489917
 # Kernel launches since the last reset_launches(), by kernel name. A
 # wrapper counts where it launches its kernel and nowhere else.
 launches = {"hash_keys_winmin_sync": 0, "neighbor_unsort_keys": 0,
-            "ldm_keys": 0, "compact_slots_sync": 0}
+            "ldm_keys": 0, "compact_slots_sync": 0, "hash_keys": 0,
+            "hash_keys_winmin": 0, "finalize_candidates": 0,
+            "compact_slots_dense": 0}
+
+MIN_MATCH = 4  # qat_zstd_plugin_tpu.ops.match_pipeline.MIN_MATCH
 
 
 def reset_launches() -> None:
@@ -74,7 +89,8 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
 def _shl(a: torch.Tensor, s: int, fill: int) -> torch.Tensor:
     """Element i <- a[:, i+s] along the whole row; the last s get fill."""
     out = torch.full_like(a, fill)
-    out[:, :a.shape[1] - s] = a[:, s:]
+    if s < a.shape[1]:
+        out[:, :a.shape[1] - s] = a[:, s:]
     return out
 
 
@@ -150,6 +166,9 @@ def _launch(name: str, *args) -> None:
     for a in args:
         if isinstance(a, torch.Tensor) and a.device != dev:
             raise ValueError(f"{name}: tensors on {dev} and {a.device}")
+        if isinstance(a, torch.Tensor) and a.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must start on a 16-byte "
+                             "boundary (the kernels load 8 and 16 bytes)")
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -229,6 +248,80 @@ def hash_keys_winmin_sync(blocks: torch.Tensor, width: int, window: int,
     minz = torch.empty((B, N), dtype=torch.int32, device=blocks.device) \
         if stride else None
     _launch("hash_keys_winmin_sync", blocks, keys, minz, B, N, width, pbits,
+            w - 1, stride)
+    return keys, minz
+
+
+# ---------------------------------------------------------------------------
+# B5 hash_keys and B6 hash_keys_winmin
+# ---------------------------------------------------------------------------
+
+def _dense_geometry(blocks: torch.Tensor, window: int):
+    B, N = blocks.shape
+    w = min(window, N)
+    if N % w or N % 4:
+        raise ValueError(f"block length {N} must be a multiple of 4 and of "
+                         f"the segment width {w}")
+    return B, N, w, (w - 1).bit_length()
+
+
+def hash_keys_twin(blocks: torch.Tensor, width: int,
+                   window: int) -> torch.Tensor:
+    """Plain-torch B5 (see hash_keys)."""
+    B, N, w, pbits = _dense_geometry(blocks, window)
+    h = _hash_tile(blocks.to(torch.int64), width, 32 - pbits)
+    pos = torch.arange(N, device=blocks.device) & (w - 1)
+    return _i32((h << pbits) | pos).reshape(B * (N // w), w)
+
+
+def _check_hash_args(blocks: torch.Tensor, name: str, width: int) -> None:
+    _check(blocks, name, torch.uint8, 2)
+    if width not in (4, 5, 6, 8):
+        raise ValueError(f"unsupported hash width {width}")
+
+
+def hash_keys(blocks: torch.Tensor, width: int, window: int) -> torch.Tensor:
+    """B5. (B, N) uint8 blocks -> (B*nseg, w) int32 sort keys, position i
+    of a block holding (hash_width(i) << pbits | i & (w - 1)) at row
+    i // w, column i % w of its block's segments. Port of the Pallas
+    kernel of the same name."""
+    _check_hash_args(blocks, "hash_keys", width)
+    B, N, w, pbits = _dense_geometry(blocks, window)
+    if _use_twin(blocks, "hash_keys"):
+        return hash_keys_twin(blocks, width, window)
+    keys = torch.empty((B * (N // w), w), dtype=torch.int32,
+                       device=blocks.device)
+    _launch("hash_keys", blocks, keys, B, N, width, pbits, w - 1)
+    return keys
+
+
+def _check_stride(stride: int) -> None:
+    if stride < 1 or stride & (stride - 1) or stride > 4096:
+        raise ValueError(f"stride {stride} must be a power of two <= 4096")
+
+
+def hash_keys_winmin_twin(blocks: torch.Tensor, width: int, window: int,
+                          stride: int):
+    """Plain-torch B6 (see hash_keys_winmin)."""
+    keys = hash_keys_twin(blocks, width, window)
+    h8 = _hash_tile(blocks.to(torch.int64), 8, 32)
+    return keys, _i32(_winmin_tail(h8, stride))
+
+
+def hash_keys_winmin(blocks: torch.Tensor, width: int, window: int,
+                     stride: int):
+    """B6. hash_keys for one width plus the (B, N) int32 windowed-minimum
+    plane of the 8-gram hash (minz[i] = min over [i, i+stride)), from one
+    read of the bytes. Port of the Pallas kernel of the same name."""
+    _check_hash_args(blocks, "hash_keys_winmin", width)
+    _check_stride(stride)
+    B, N, w, pbits = _dense_geometry(blocks, window)
+    if _use_twin(blocks, "hash_keys_winmin"):
+        return hash_keys_winmin_twin(blocks, width, window, stride)
+    keys = torch.empty((B * (N // w), w), dtype=torch.int32,
+                       device=blocks.device)
+    minz = torch.empty((B, N), dtype=torch.int32, device=blocks.device)
+    _launch("hash_keys_winmin", blocks, keys, minz, B, N, width, pbits,
             w - 1, stride)
     return keys, minz
 
@@ -461,7 +554,194 @@ def compact_slots_sync(su: torch.Tensor, window: int, lengths: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The L1 composition
+# B7 finalize_candidates
+# ---------------------------------------------------------------------------
+
+RUN_CAP = 16383  # longest offset-1 run and length estimate
+CHAIN_STEPS = 2  # chain doublings per width (the reference's default,
+                 # which every level's path uses)
+
+
+def _finalize_chunk_twin(sus, blocks: torch.Tensor, lengths: torch.Tensor,
+                         widths: tuple, window: int, carry, final: bool):
+    """Plain-torch _finalize_chunk: the reference's kernel body, whole-row
+    shifts and all, on int64 planes."""
+    B, N = blocks.shape
+    w = min(window, N)
+    omask = (1 << (w - 1).bit_length()) - 1
+    dev = blocks.device
+    gp = torch.arange(N, device=dev)
+    blen = lengths.to(torch.int64)[:, None]
+    if carry is None:
+        mlen = torch.zeros((B, N), dtype=torch.int64, device=dev)
+        moff = torch.zeros_like(mlen)
+    else:
+        mlen, moff = (c.to(torch.int64) for c in carry)
+    for su, width in zip(sus, widths):
+        # The chain runs along the whole block row, across segments.
+        offs = (su.to(torch.int64) & omask).reshape(B, N)
+        offs = torch.where(gp + width <= blen, offs, 0)
+        reach = (offs > 0).to(torch.int64)
+        span = 1
+        for _ in range(CHAIN_STEPS):
+            nxt_off = _shl(offs, span * width, 0)
+            nxt_reach = _shl(reach, span * width, 0)
+            cont = (offs > 0) & (reach == span) & (nxt_off == offs)
+            reach = torch.where(cont, reach + nxt_reach, reach)
+            span *= 2
+        est = reach * width
+        better = (est > mlen) | ((est == mlen) & (offs > 0)
+                                 & ((offs < moff) | (moff == 0)))
+        take = (offs > 0) & better
+        mlen = torch.where(take, est, mlen)
+        moff = torch.where(take, offs, moff)
+    if final:
+        worth = ((mlen >= 7) | ((mlen >= 6) & (moff <= 32768))
+                 | ((mlen >= 5) & (moff <= 4096))
+                 | ((mlen >= 4) & (moff <= 256)))
+        mlen = torch.where(worth, mlen, 0).clamp(max=RUN_CAP)
+        moff = torch.where(worth, moff, 0)
+        # Offset-1 runs: r[i] = first change in [i, i + 2^nsteps), by
+        # doubling; the row's last byte always counts as a change.
+        x = blocks.to(torch.int64)
+        big = 1 << 30
+        r = torch.where(x != _shl(x, 1, -1), gp, big)
+        step = 1
+        for _ in range(min(14, max(1, (N - 1).bit_length()))):
+            r = torch.minimum(r, _shl(r, step, big))
+            step *= 2
+        len1 = torch.minimum(r - gp + 1, blen - gp).clamp(max=RUN_CAP)
+        use1 = (x == _shr(x, 1, -1)) & (len1 >= 4) & (len1 > mlen)
+        mlen = torch.where(use1, len1, mlen)
+        moff = torch.where(use1, 1, moff)
+    return mlen.to(torch.int32), moff.to(torch.int32)
+
+
+def finalize_candidates_twin(sus, blocks: torch.Tensor,
+                             lengths: torch.Tensor, widths: tuple,
+                             window: int):
+    """Plain-torch B7, chunked as the reference is (two widths per pass,
+    the running (mlen, moff) carried between passes), so that the kernel,
+    which does every width in one pass, is held to the chunked result."""
+    carry = None
+    for i in range(0, len(widths), 2):
+        carry = _finalize_chunk_twin(sus[i:i + 2], blocks, lengths,
+                                     tuple(widths[i:i + 2]), window, carry,
+                                     final=i + 2 >= len(widths))
+    return carry
+
+
+def finalize_candidates(sus, blocks: torch.Tensor, lengths: torch.Tensor,
+                        widths: tuple, window: int):
+    """B7. Position-ordered un-sort keys of each width (B*nseg, w), entry
+    j = (pos << hbits | off), + (B, N) uint8 blocks + (B,) int32 lengths
+    -> (mlen, moff), two (B, N) int32 planes: per width the chain-doubled
+    length estimate of each offset claim, merged across widths (longer,
+    then nearer), the cost filter, then the exact offset-1 run scan
+    (capped at 16383). Port of the reference's finalize_candidates and
+    its Pallas kernel _finalize_chunk."""
+    name = "finalize_candidates"
+    _check(blocks, name, torch.uint8, 2)
+    _check(lengths, name, torch.int32, 1)
+    B, N = blocks.shape
+    w = min(window, N)
+    if not 1 <= len(widths) <= 4 or len(sus) != len(widths):
+        raise ValueError(f"{name}: 1-4 widths, one key array each (got "
+                         f"{len(widths)} widths, {len(sus)} arrays)")
+    if any(not 1 <= int(x) <= 64 for x in widths):
+        raise ValueError(f"{name}: widths {widths} out of range")
+    if N % w or lengths.shape != (B,):
+        raise ValueError(f"{name}: blocks {tuple(blocks.shape)} and "
+                         f"lengths {tuple(lengths.shape)} do not fit")
+    for su in sus:
+        _check(su, name, torch.int32, 2)
+        if su.shape != (B * (N // w), w):
+            raise ValueError(f"{name}: key array {tuple(su.shape)} is not "
+                             f"{(B * (N // w), w)}")
+    if _use_twin(blocks, name):
+        return finalize_candidates_twin(sus, blocks, lengths, widths, window)
+    mlen = torch.empty((B, N), dtype=torch.int32, device=blocks.device)
+    moff = torch.empty_like(mlen)
+    pad = 4 - len(widths)
+    _launch(name, *sus, *[None] * pad, blocks, lengths, mlen, moff, B, N,
+            len(widths), *widths, *[0] * pad, (w - 1).bit_length())
+    return mlen, moff
+
+
+# ---------------------------------------------------------------------------
+# B8 compact_slots_dense
+# ---------------------------------------------------------------------------
+
+def _b8_geometry(mlen: torch.Tensor, window: int, est_b, off_b):
+    B, N = mlen.shape
+    w = min(window, N)
+    if N % w or w % 4:
+        raise ValueError(f"compact_slots_dense: block length {N} must be a "
+                         f"multiple of a segment width {w} that 4 divides")
+    Ns = N // 4
+    spb = 0
+    if est_b is not None:
+        spb = est_b.shape[1]
+        if (est_b.shape != (B, spb) or off_b is None
+                or off_b.shape != est_b.shape or Ns % spb):
+            raise ValueError("compact_slots_dense: est_b and off_b must be "
+                             f"(B, spb) with spb dividing {Ns}")
+    return B, N, w, Ns, spb
+
+
+def compact_slots_dense_twin(mlen: torch.Tensor, moff: torch.Tensor,
+                             window: int, est_b: torch.Tensor | None = None,
+                             off_b: torch.Tensor | None = None,
+                             local_cap: int = 24) -> torch.Tensor:
+    """Plain-torch B8 (see compact_slots_dense)."""
+    B, N, w, Ns, spb = _b8_geometry(mlen, window, est_b, off_b)
+    best = torch.full((B, Ns), _M32, dtype=torch.int64, device=mlen.device)
+    for k in range(4):
+        key = (k << 30) | moff[:, k::4].to(torch.int64)
+        best = torch.minimum(best, torch.where(mlen[:, k::4] >= MIN_MATCH,
+                                               key, _M32))
+    if spb:
+        sls = Ns // spb
+        ml0 = mlen[:, ::4 * sls].to(torch.int64)  # lane 0 of sample slots
+        est = est_b.to(torch.int64)
+        take = (est > ml0) & ((ml0 < local_cap) | (est >= 128))
+        best[:, ::sls] = torch.where(take, off_b.to(torch.int64) & _M32,
+                                     best[:, ::sls])
+    return _i32(best).reshape(B * (N // w), w // 4)
+
+
+def compact_slots_dense(mlen: torch.Tensor, moff: torch.Tensor, window: int,
+                        est_b: torch.Tensor | None = None,
+                        off_b: torch.Tensor | None = None,
+                        local_cap: int = 24) -> torch.Tensor:
+    """B8. Dense claims (B, N) int32 mlen/moff -> (B*nseg, w/4) int32 slot
+    words: slot i holds the smallest (k << 30 | moff[4i+k]) over the lanes
+    with mlen >= MIN_MATCH, else 0xFFFFFFFF. With LDM estimates (est_b,
+    off_b: (B, spb) from _ldm_est) the slot of each sample takes the LDM
+    offset under merge_ldm's rule: est > mlen[4i] and (mlen[4i] <
+    local_cap or est >= 128). Port of the Pallas kernel of the same name,
+    which computes _ldm_est inside its program."""
+    name = "compact_slots_dense"
+    for t in (mlen, moff):
+        _check(t, name, torch.int32, 2)
+    for t in (est_b, off_b):
+        if t is not None:
+            _check(t, name, torch.int32, 2)
+    if moff.shape != mlen.shape:
+        raise ValueError(f"{name}: mlen {tuple(mlen.shape)} and moff "
+                         f"{tuple(moff.shape)} differ")
+    B, N, w, Ns, spb = _b8_geometry(mlen, window, est_b, off_b)
+    if _use_twin(mlen, name):
+        return compact_slots_dense_twin(mlen, moff, window, est_b, off_b,
+                                        local_cap)
+    out = torch.empty((B * (N // w), w // 4), dtype=torch.int32,
+                      device=mlen.device)
+    _launch(name, mlen, moff, est_b, off_b, out, B, Ns, spb, local_cap)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The compositions
 # ---------------------------------------------------------------------------
 
 def _sync_tail_fused(su, lengths, minz, width: int, window: int,
@@ -476,22 +756,76 @@ def _sync_tail_fused(su, lengths, minz, width: int, window: int,
     return compact_slots_sync(su, window, lengths, width, est_b, off_b)
 
 
+def _dense_tail_fused(sus, blocks, lengths, minz, widths: tuple,
+                      window: int, span_blocks: int, local_cap: int,
+                      max_off: int) -> torch.Tensor:
+    """finalize + LDM chain + dense slot compaction (one XLA program in
+    the reference)."""
+    mlen, moff = finalize_candidates(sus, blocks, lengths, widths, window)
+    est_b = off_b = None
+    if span_blocks:
+        su_l = ldm_unsorted(minz, span_blocks, neighbors=1)
+        est_b, off_b = _ldm_est(su_l, lengths, blocks.shape[1], span_blocks,
+                                max_off)
+    return compact_slots_dense(mlen, moff, window, est_b, off_b, local_cap)
+
+
+def _unsorted(key: torch.Tensor, pbits: int, neighbors: int,
+              pos_mask: int | None = None) -> torch.Tensor:
+    """sort -> neighbor/un-sort keys -> sort: position-ordered claims."""
+    return _sort_rows(neighbor_unsort_keys(_sort_rows(key), pbits,
+                                           neighbors, pos_mask))
+
+
+def candidates_hash_split(blocks, lengths, widths: tuple = (5, 8),
+                          neighbors: int = 1, window: int = 32768):
+    """(mlen, moff) from hash_keys of every width, without LDM (reference:
+    glue_kernels.candidates_hash_split)."""
+    pbits = (min(window, blocks.shape[1]) - 1).bit_length()
+    sus = [_unsorted(hash_keys(blocks, width, window), pbits, neighbors)
+           for width in widths]
+    return finalize_candidates(sus, blocks, lengths, tuple(widths), window)
+
+
 def find_matches_positions(blocks: torch.Tensor, lengths: torch.Tensor,
+                           widths: tuple = (6,), neighbors: int = 1,
                            window: int = 32768, ldm: int = 0,
-                           ldm_max_off: int = 1 << 19,
-                           width: int = 6) -> torch.Tensor:
+                           ldm_max_off: int = 1 << 19, dense: bool = True,
+                           sync: bool = False) -> torch.Tensor:
     """Hash-matcher pipeline, segment-slots contract: (B, N) uint8 blocks
     and (B,) int32 lengths -> (B*nseg, w/4) int32 slot words, slot i of a
     row holding (subslot_k << 30 | byte_offset) or 0xFFFFFFFF. Port of the
-    reference's glue_kernels.find_matches_positions with its level-1
-    arguments fixed: sync=True (syncmer pair anchors), dense claims, one
-    hash width and one neighbour."""
+    reference's glue_kernels.find_matches_positions for its dense
+    branches: sync (level 1's syncmer pair anchors, one width), and
+    full-resolution keys with or without LDM (levels 2-4). The parsed
+    branch (dense=False) is not ported: no level takes it."""
+    if not dense:
+        raise NotImplementedError("dense=False (device parse + "
+                                  "compact_slots) is not ported")
+    widths = tuple(widths)
     N = blocks.shape[1]
     w = min(window, N)
     pbits = (w - 1).bit_length()
-    stride = ldm_stride(ldm, N) if ldm else 0  # 0: no minimizer plane
-    key, minz = hash_keys_winmin_sync(blocks, width, window, stride)
-    su = _sort_rows(neighbor_unsort_keys(_sort_rows(key), pbits, 1,
-                                         pos_mask=w - 1))
-    return _sync_tail_fused(su, lengths, minz, width=width, window=window,
-                            span_blocks=ldm, max_off=ldm_max_off)
+    local_cap = 4 * max(widths)
+    if sync:
+        if len(widths) != 1:
+            raise ValueError(f"sync implies one width (got {widths})")
+        stride = ldm_stride(ldm, N) if ldm else 0  # 0: no minimizer plane
+        key, minz = hash_keys_winmin_sync(blocks, widths[0], window, stride)
+        su = _unsorted(key, pbits, neighbors, pos_mask=w - 1)
+        return _sync_tail_fused(su, lengths, minz, width=widths[0],
+                                window=window, span_blocks=ldm,
+                                max_off=ldm_max_off)
+    if ldm:
+        # The first width's key build also writes the minimizer plane.
+        key, minz = hash_keys_winmin(blocks, widths[0], window,
+                                     ldm_stride(ldm, N))
+        sus = [_unsorted(key, pbits, neighbors)]
+        sus += [_unsorted(hash_keys(blocks, width, window), pbits, neighbors)
+                for width in widths[1:]]
+        return _dense_tail_fused(sus, blocks, lengths, minz, widths, window,
+                                 span_blocks=ldm, local_cap=local_cap,
+                                 max_off=ldm_max_off)
+    mlen, moff = candidates_hash_split(blocks, lengths, widths, neighbors,
+                                       window)
+    return compact_slots_dense(mlen, moff, window, local_cap=local_cap)

@@ -15,17 +15,19 @@ from . import glue_kernels
 
 
 def find_matches_positions(blocks: torch.Tensor, lengths: torch.Tensor,
+                           widths: tuple = (6,), neighbors: int = 1,
                            window: int = 32768, ldm: int = 0,
-                           ldm_max_off: int = 1 << 19,
-                           width: int = 6) -> torch.Tensor:
-    """Hash-matcher pipeline of level 1, segment-slots contract (see
+                           ldm_max_off: int = 1 << 19, dense: bool = True,
+                           sync: bool = False) -> torch.Tensor:
+    """Hash-matcher pipeline of levels 1-4, segment-slots contract (see
     glue_kernels.find_matches_positions). LDM spans tile the batch, so a
     batch that is not a whole number of spans runs without LDM."""
     if ldm and blocks.shape[0] % ldm:
         ldm = 0  # spans need whole block groups; partial batches skip LDM
     return glue_kernels.find_matches_positions(
-        blocks, lengths, window=window, ldm=ldm, ldm_max_off=ldm_max_off,
-        width=width)
+        blocks, lengths, widths=tuple(widths), neighbors=neighbors,
+        window=window, ldm=ldm, ldm_max_off=ldm_max_off, dense=dense,
+        sync=sync)
 
 
 def unpack_segments(slot_keys: np.ndarray, nblocks: int, window: int

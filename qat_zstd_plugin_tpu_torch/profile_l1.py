@@ -1,12 +1,14 @@
-"""Where the time of the level-1 main path goes, on one CUDA device.
+"""Where the time of a hash-matcher level's main path goes, on one CUDA
+device.
 
-    python3 -m qat_zstd_plugin_tpu_torch.profile_l1 [--seed S] [--mb 64]
-        [--reps 3] [--trace-dir build/profile]
+    python3 -m qat_zstd_plugin_tpu_torch.profile_l1 [--level 1]
+        [--seed S] [--mb 64] [--reps 3] [--trace-dir build/profile]
 
-Run from the repository root on a machine with a CUDA device. It drives
-the same configuration as chip_smoke.py's main path (level 1, 128 KiB
-blocks, batch 128, the seeded corpus plus a 5000-byte tail) and prints
-one JSON object per line:
+Run from the repository root on a machine with a CUDA device. By default
+it drives the same configuration as chip_smoke.py's level-1 main path
+(level 1, 128 KiB blocks, batch 128, the seeded corpus plus a 5000-byte
+tail); --level 2..4 --mb 32 drives the level 2-4 ones (batch 64). It
+prints one JSON object per line:
 
   card          the card's name and power limit, as nvidia-smi gives them;
   device_half   CUDA-event median ms of find_matches_positions for one
@@ -43,7 +45,8 @@ import numpy as np
 import torch
 
 BLOCK = 131072
-BATCH = 128
+BATCH = 128  # level 1 (bench.py's headline batch)
+DENSE_BATCH = 64  # levels 2-4 (bench.py's device level ladder)
 TAIL = 5000
 
 
@@ -104,7 +107,8 @@ def _write_table(prof, path: str) -> None:
                                           max_name_column_width=60))
 
 
-def profile(seed: int, mb: int, reps: int, trace_dir: str) -> None:
+def profile(seed: int, mb: int, reps: int, trace_dir: str,
+            level: int = 1) -> None:
     from qat_zstd_plugin_tpu.runtime.tpu_codec import \
         device_positions_to_claims
 
@@ -112,26 +116,29 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str) -> None:
     from .ops import _build, match_pipeline
     from .runtime.gpu_codec import GpuCodec
 
+    batch = BATCH if level == 1 else DENSE_BATCH
+
     def emit(what: str, **fields) -> None:
         print(json.dumps({"what": what, **fields}), flush=True)
 
     os.makedirs(trace_dir, exist_ok=True)
-    emit("card", card=card_line(), cpus=os.cpu_count())
+    emit("card", card=card_line(), cpus=os.cpu_count(), level=level,
+         batch=batch)
     _build.load()
     dev = torch.device("cuda")
     corpus = make_corpus((mb << 20) + TAIL, seed)
     buf = np.frombuffer(corpus, np.uint8)
-    codec = GpuCodec(level=1, batch=BATCH, device="cuda")
+    codec = GpuCodec(level=level, batch=batch, device="cuda")
     run = codec._pipeline()
     nfull = len(buf) // BLOCK
-    starts = range(0, nfull, BATCH)
+    starts = range(0, nfull, batch)
 
     # Device half alone, input on the card.
-    blocks = torch.from_numpy(buf[:BATCH * BLOCK].reshape(BATCH, BLOCK)
+    blocks = torch.from_numpy(buf[:batch * BLOCK].reshape(batch, BLOCK)
                               .copy()).to(dev)
-    lengths = torch.full((BATCH,), BLOCK, dtype=torch.int32, device=dev)
+    lengths = torch.full((batch,), BLOCK, dtype=torch.int32, device=dev)
     ms = cuda_ms(lambda: run(blocks, lengths))
-    emit("device_half", batch=BATCH, ms=ms, mbs=BATCH * BLOCK / ms / 1e3)
+    emit("device_half", batch=batch, ms=ms, mbs=batch * BLOCK / ms / 1e3)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -155,7 +162,7 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str) -> None:
     for rep in range(reps):
         acc: dict[str, float] = {}
         for s in starts:
-            b = min(BATCH, nfull - s)
+            b = min(batch, nfull - s)
             blk = timed(acc, "stack", lambda: buf[
                 s * BLOCK:(s + b) * BLOCK].reshape(b, BLOCK).copy())
             lens = np.full(b, BLOCK, np.int32)
@@ -185,10 +192,10 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str) -> None:
              workers=workers)
 
     # End to end.
-    GpuCodec(level=1, batch=BATCH, device="cuda").compress(
+    GpuCodec(level=level, batch=batch, device="cuda").compress(
         corpus[:BLOCK + TAIL])  # warm-up
     for rep in range(reps):
-        c = GpuCodec(level=1, batch=BATCH, device="cuda")
+        c = GpuCodec(level=level, batch=batch, device="cuda")
         t0 = time.perf_counter()
         frame = c.compress(corpus)
         seconds = time.perf_counter() - t0
@@ -199,7 +206,7 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str) -> None:
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        GpuCodec(level=1, batch=BATCH, device="cuda").compress(corpus)
+        GpuCodec(level=level, batch=batch, device="cuda").compress(corpus)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     _write_table(prof, os.path.join(trace_dir, "e2e_ops.txt"))
@@ -211,6 +218,7 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--level", type=int, default=1, choices=(1, 2, 3, 4))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mb", type=int, default=64,
                     help="corpus size in MiB (plus a tail)")
@@ -219,7 +227,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_l1: torch sees no CUDA device")
-    profile(args.seed, args.mb, args.reps, args.trace_dir)
+    profile(args.seed, args.mb, args.reps, args.trace_dir, args.level)
 
 
 if __name__ == "__main__":

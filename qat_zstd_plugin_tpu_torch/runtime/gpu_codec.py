@@ -38,11 +38,9 @@ class GpuCodec(TpuCodec):
                  device: str | torch.device = "cuda"):
         super().__init__(level=level, batch=batch, block_size=block_size,
                          use_device=True, device_entropy=False)
-        p = self.params
-        if not (p.matcher == "hash" and p.sync and p.dense
-                and len(p.widths) == 1 and p.neighbors == 1):
+        if self.params.matcher != "hash":
             raise NotImplementedError(
-                f"level {level}: only level 1 (the syncmer slot path) is "
+                f"level {level}: only the hash-matcher levels 1-4 are "
                 "ported")
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
@@ -67,8 +65,9 @@ class GpuCodec(TpuCodec):
 
             def run(blocks, lengths):
                 return match_pipeline.find_matches_positions(
-                    blocks, lengths, window=p.window, ldm=p.ldm,
-                    ldm_max_off=1 << wlog, width=p.widths[0])
+                    blocks, lengths, widths=p.widths, neighbors=p.neighbors,
+                    window=p.window, ldm=p.ldm, ldm_max_off=1 << wlog,
+                    dense=p.dense, sync=p.sync)
 
             self._fn = run
         return self._fn

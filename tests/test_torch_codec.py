@@ -1,4 +1,4 @@
-"""The port's L1 frames against the JAX package's, on the CPU.
+"""The port's frames at levels 1-4 against the JAX package's, on the CPU.
 
 GpuCodec(device="cpu") runs the kernels' plain-torch twins; TpuCodec runs
 the Pallas kernels in interpret mode. Both share the host half, so their
@@ -35,6 +35,30 @@ def test_frames_equal_tpu_codec(case):
     assert got == want
     assert oracle.decompress(got, len(data)) == data
     assert codec.device_blocks == nbytes // BLOCK
+    assert codec.fallback_batches == 0
+    assert codec.stats.fallback_blocks == 0
+
+
+DENSE_CASES = {  # level, full blocks, tail bytes, batch
+    "L2_8_blocks_tail_batch8": (2, 8, 5000, 8),
+    "L3_8_blocks_tail_batch8": (3, 8, 5000, 8),
+    "L4_16_blocks_tail_batch16": (4, 16, 5000, 16),  # LDM over 16 blocks
+    "L4_9_blocks_batch8_no_ldm": (4, 9, 0, 8),  # 8 % 16 != 0; padded batch
+}
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_CASES))
+def test_dense_level_frames_equal_tpu_codec(case):
+    """Levels 2-4, the full-resolution dense hash path: the frames equal
+    TpuCodec's at the same level and batch size and decode."""
+    level, nfull, tail, batch = DENSE_CASES[case]
+    data = make_data(nfull * BLOCK + tail, seed=level + nfull)
+    want = TpuCodec(level=level, batch=batch).compress(data)
+    codec = GpuCodec(level=level, batch=batch, device="cpu")
+    got = codec.compress(data)
+    assert got == want
+    assert oracle.decompress(got, len(data)) == data
+    assert codec.device_blocks == nfull
     assert codec.fallback_batches == 0
     assert codec.stats.fallback_blocks == 0
 
@@ -138,5 +162,8 @@ def test_requires_native_runtime(monkeypatch):
 
 
 def test_only_level_1_is_ported():
-    with pytest.raises(NotImplementedError):
-        GpuCodec(level=2, device="cpu")
+    """Levels 1-4 (the hash matcher) are ported; the content levels
+    5-12 are not."""
+    for level in (5, 12):
+        with pytest.raises(NotImplementedError):
+            GpuCodec(level=level, device="cpu")

@@ -58,17 +58,21 @@ def test_neighbor_unsort_and_ldm_keys(cuda):
                        tk.neighbor_unsort_keys_twin(slk, 15, 2))
 
 
+LENGTHS = np.array([N, N - 1, N // 2, 100, 0, N, N, 7], np.int32)
+L1_KERNELS = ("hash_keys_winmin_sync", "neighbor_unsort_keys", "ldm_keys",
+              "compact_slots_sync")
+
+
 def test_slot_words_card_vs_cpu(cuda):
     blocks = _blocks()
-    lengths = np.array([N, N - 1, N // 2, 100, 0, N, N, 7], np.int32)
-    kw = dict(window=WINDOW, ldm=4)
+    kw = dict(window=WINDOW, ldm=4, dense=True, sync=True)
     tk.reset_launches()
     got = tmp.find_matches_positions(torch.from_numpy(blocks).to(cuda),
-                                     torch.from_numpy(lengths).to(cuda),
+                                     torch.from_numpy(LENGTHS).to(cuda),
                                      **kw).cpu()
-    assert all(n > 0 for n in tk.launches.values())
+    assert all(tk.launches[k] > 0 for k in L1_KERNELS)
     want = tmp.find_matches_positions(torch.from_numpy(blocks),
-                                      torch.from_numpy(lengths), **kw)
+                                      torch.from_numpy(LENGTHS), **kw)
     assert torch.equal(got, want)
 
 
@@ -76,3 +80,59 @@ def test_frames_card_vs_cpu(cuda):
     data = _blocks(B=4, seed=1).tobytes() + b"tail" * 1000
     assert compress(data, batch=4, device="cuda") == \
         compress(data, batch=4, device="cpu")
+
+
+def test_hash_keys_and_winmin(cuda):
+    x = torch.from_numpy(_blocks()).to(cuda)
+    for width in (4, 5, 6, 8):
+        assert torch.equal(tk.hash_keys(x, width, WINDOW),
+                           tk.hash_keys_twin(x, width, WINDOW))
+    for stride in (1, 2, 32, 64):
+        k, m = tk.hash_keys_winmin(x, 5, WINDOW, stride)
+        tw_k, tw_m = tk.hash_keys_winmin_twin(x, 5, WINDOW, stride)
+        assert torch.equal(k, tw_k) and torch.equal(m, tw_m)
+
+
+def _sus(x, widths, neighbors=2):
+    return [tk._unsorted(tk.hash_keys(x, w, WINDOW), 15, neighbors)
+            for w in widths]
+
+
+@pytest.mark.parametrize("widths", [(6,), (5, 8), (4, 5, 6, 8)])
+def test_finalize_candidates(cuda, widths):
+    blocks = _blocks()
+    blocks[3, 1000:40000] = 7  # a run longer than 16383
+    x = torch.from_numpy(blocks).to(cuda)
+    lengths = torch.from_numpy(LENGTHS).to(cuda)
+    sus = _sus(x, widths)
+    ml, mo = tk.finalize_candidates(sus, x, lengths, widths, WINDOW)
+    tw_ml, tw_mo = tk.finalize_candidates_twin(sus, x, lengths, widths,
+                                               WINDOW)
+    assert torch.equal(ml, tw_ml) and torch.equal(mo, tw_mo)
+
+
+@pytest.mark.parametrize("ldm", [0, 4])
+def test_compact_slots_dense(cuda, ldm):
+    x = torch.from_numpy(_blocks()).to(cuda)
+    lengths = torch.from_numpy(LENGTHS).to(cuda)
+    widths = (4, 5, 6, 8)
+    ml, mo = tk.finalize_candidates(_sus(x, widths), x, lengths, widths,
+                                    WINDOW)
+    est = off = None
+    if ldm:
+        _, m = tk.hash_keys_winmin(x, 6, WINDOW, 32)
+        est, off = tk._ldm_est(tk.ldm_unsorted(m, ldm), lengths, N, ldm,
+                               1 << 19)
+    for cap in (24, 32):
+        assert torch.equal(
+            tk.compact_slots_dense(ml, mo, WINDOW, est, off, cap),
+            tk.compact_slots_dense_twin(ml, mo, WINDOW, est, off, cap))
+
+
+def test_l4_frames_card_vs_cpu(cuda):
+    data = _blocks(B=8, seed=2).tobytes() + b"tail" * 1000
+    tk.reset_launches()
+    on_card = compress(data, level=4, batch=8, device="cuda")
+    assert all(n > 0 for k, n in tk.launches.items() if k not in L1_KERNELS
+               and k != "hash_keys_winmin")  # batch 8 < 16: no LDM
+    assert on_card == compress(data, level=4, batch=8, device="cpu")

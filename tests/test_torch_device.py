@@ -52,6 +52,7 @@ def _meta_calls():
     i32 = torch.zeros((16, 16384), dtype=torch.int32, device="meta")
     minz = torch.zeros((4, 32768), dtype=torch.int32, device="meta")
     lengths = torch.zeros((4,), dtype=torch.int32, device="meta")
+    keys = torch.zeros((4, 32768), dtype=torch.int32, device="meta")
     return {
         "hash_keys_winmin_sync":
             lambda: tk.hash_keys_winmin_sync(u8, 6, 32768, 32),
@@ -61,6 +62,12 @@ def _meta_calls():
         "compact_slots_sync":
             lambda: tk.compact_slots_sync(i32[:4, :16384].contiguous(),
                                           32768, lengths, 6),
+        "hash_keys": lambda: tk.hash_keys(u8, 6, 32768),
+        "hash_keys_winmin": lambda: tk.hash_keys_winmin(u8, 6, 32768, 32),
+        "finalize_candidates": lambda: tk.finalize_candidates(
+            [keys, keys], u8, lengths, (5, 8), 32768),
+        "compact_slots_dense": lambda: tk.compact_slots_dense(
+            minz, minz, 32768),
     }
 
 
@@ -89,6 +96,17 @@ def test_wrapper_rejects_wrong_dtype(name):
         "compact_slots_sync": lambda: tk.compact_slots_sync(
             torch.zeros((2, 64), dtype=torch.int32), 128,
             torch.zeros((2,), dtype=torch.int64)),
+        "hash_keys": lambda: tk.hash_keys(
+            torch.zeros((2, 64), dtype=torch.int32), 6, 64),
+        "hash_keys_winmin": lambda: tk.hash_keys_winmin(
+            torch.zeros((2, 64), dtype=torch.int8), 6, 64, 32),
+        "finalize_candidates": lambda: tk.finalize_candidates(
+            [torch.zeros((2, 64), dtype=torch.int64)],
+            torch.zeros((2, 64), dtype=torch.uint8),
+            torch.zeros((2,), dtype=torch.int32), (6,), 64),
+        "compact_slots_dense": lambda: tk.compact_slots_dense(
+            torch.zeros((2, 64), dtype=torch.int32),
+            torch.zeros((2, 64), dtype=torch.uint8), 64),
     }[name]
     with pytest.raises(ValueError):
         call()
@@ -98,5 +116,8 @@ def test_cpu_run_counts_no_launch():
     tk.reset_launches()
     blocks = torch.zeros((4, 32768), dtype=torch.uint8)
     lengths = torch.full((4,), 32768, dtype=torch.int32)
-    tk.find_matches_positions(blocks, lengths, ldm=4)
+    tk.find_matches_positions(blocks, lengths, ldm=4, dense=True, sync=True)
+    tk.find_matches_positions(blocks, lengths, widths=(5, 8), ldm=4,
+                              dense=True)
+    tk.find_matches_positions(blocks, lengths, widths=(5, 8), dense=True)
     assert all(n == 0 for n in tk.launches.values())

@@ -241,7 +241,8 @@ def _slots(blocks, lengths, ldm, window=WINDOW):
         jnp.asarray(blocks), jnp.asarray(lengths), widths=(6,), dense=True,
         sync=True, **kw))
     got = tmp.find_matches_positions(torch.from_numpy(blocks),
-                                     torch.from_numpy(lengths), width=6, **kw)
+                                     torch.from_numpy(lengths), widths=(6,),
+                                     dense=True, sync=True, **kw)
     return u32(got), want
 
 
@@ -288,16 +289,20 @@ def test_unpack_segments_matches_reference():
 
 
 def test_only_the_sync_path_is_ported():
-    """find_matches_positions fixes the reference's level-1 arguments
-    (sync, dense, one width, one neighbour); GpuCodec takes only the
-    levels whose parameters are those."""
+    """Only the dense branches of find_matches_positions are ported (sync
+    and full resolution); GpuCodec takes the hash-matcher levels, which
+    are all dense, and refuses the content levels."""
     from qat_zstd_plugin_tpu.runtime.tpu_codec import TPU_LEVEL_TABLE
     from qat_zstd_plugin_tpu_torch import GpuCodec
     for level, p in sorted(TPU_LEVEL_TABLE.items()):
-        if (p.matcher == "hash" and p.sync and p.dense
-                and len(p.widths) == 1 and p.neighbors == 1):
+        if p.matcher == "hash":
+            assert p.dense
             assert GpuCodec(level=level, device="cpu").level == level
         else:
             with pytest.raises(NotImplementedError):
                 GpuCodec(level=level, device="cpu")
-    assert TPU_LEVEL_TABLE[1].widths == (6,)
+    assert [lv for lv, p in TPU_LEVEL_TABLE.items() if p.sync] == [1]
+    blocks = torch.zeros((4, WINDOW), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError):
+        tmp.find_matches_positions(blocks, torch.zeros(4, dtype=torch.int32),
+                                   dense=False)
