@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: builds the CUDA kernels,
-checks each against its plain-torch twin, drives the hash-matcher levels
-1-4 end to end and checks every frame with stock libzstd.
+"""Smoke run of the PyTorch/CUDA port on one GPU: builds the CUDA kernels
+and the host runtime, checks each kernel against its plain-torch twin,
+drives levels 1-4 (the hash matcher) and 5, 9 and 12 (the content
+matcher) end to end and checks every frame with stock libzstd.
 
     python3 chip_smoke.py [--seed S] [--mb 64]
 
@@ -9,26 +10,36 @@ Run from the repository root on a machine with one CUDA device. Phases
 (each raises on failure; nothing is caught):
 
   1. card and build: the card's name and power limit, the nvcc build of
-     qat_zstd_plugin_tpu_torch/csrc/ and the native host runtime;
-  2. kernel vs twin: each of the eight kernels against its plain-torch
+     qat_zstd_plugin_tpu_torch/csrc/ and the g++ build of the port's
+     native host runtime;
+  2. kernel vs twin: each of the ten kernels against its plain-torch
      twin on the card, exactly equal, with median CUDA-event times of
-     both: K1-K4 at level 1's shapes (B=128 blocks of 128 KiB), B5-B8 at
-     the level 2-4 shapes (B=64 blocks of 128 KiB, bench.py's device
-     level ladder), on the corpus and on random bytes; K2 also with
-     neighbors=2 on full-resolution rows, K3 also at spans 8 and 16;
-  3. device half: find_matches_positions slot words from the kernels on
-     the card against the twins on the CPU, with the ms per batch: level
-     1 at B=128 (LDM on) and B=6 (no whole number of LDM spans: LDM off),
-     levels 2, 3 and 4 at B=64 (LDM on) and level 4 at B=8 (LDM off);
+     both and the least time the card could take (the bytes the function
+     must move at 3.35 TB/s): K1-K4 at level 1's shapes (B=128 blocks of
+     128 KiB), B5-B10 at the level 2-12 shapes (B=64 blocks of 128 KiB,
+     bench.py's device level ladder), on the corpus and on random bytes;
+     K2 also with neighbors=2 on full-resolution rows, K3 also at spans 8
+     and 16; B9 at strides 32 and 64 on corpus, random and mixed bytes;
+     B10 on the L5 and L12 candidate lengths of the B=64 batch and on
+     crafted rows, lazy on and off;
+  3. device half: the composed output of each level's device half from
+     the kernels on the card against the twins on the CPU, with the ms
+     per batch: level 1 at B=128 (LDM on) and B=6 (no whole number of
+     LDM spans: LDM off), levels 2, 3 and 4 at B=64 (LDM on), level 4 at
+     B=8 (LDM off), levels 5, 9 and 12 at B=64 (LDM on) and level 5 at
+     B=6 (LDM off);
   4. main paths: compress(level=1, batch=128, device="cuda") on a --mb MiB
      corpus plus a 5000-byte tail, then compress(level=L, batch=64) for
-     L = 2, 3, 4 on a 32 MiB corpus plus a tail. The launch counts
-     are reset just before and read just after each; every frame is
-     decoded bit-exactly, no batch or block may have fallen back to the
-     CPU matcher, and each level's kernels must have launched;
+     L = 2, 3, 4, 5, 9, 12 on a 32 MiB corpus plus a tail. The launch
+     counts are reset just before and read just after each; every frame
+     is decoded bit-exactly by stock libzstd, no block may have fallen
+     back to the CPU matcher (a content-level block whose device output
+     overflows is re-matched on the host by the format's contract and
+     counted apart), and each level's kernels must have launched;
   5. port on card vs port on CPU, frames equal: level 1 at batch 8 on 8
      blocks + tail, level 4 at batch 16 on 16 blocks + tail, level 3 at
-     batch 8 on 9 blocks (a padded partial batch).
+     batch 8 on 9 blocks (a padded partial batch), level 5 at batch 8 on
+     9 blocks and level 12 at batch 4 on 4 blocks + tail.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -47,13 +58,16 @@ import numpy as np
 
 BLOCK = 131072
 BATCH = 128  # bench.py's L1 headline batch
-DENSE_BATCH = 64  # bench.py's device level ladder (L2, L4) batch
-DENSE_MB = 32  # level 2-4 corpus size in MiB (plus a tail)
+DENSE_BATCH = 64  # bench.py's device level ladder batch (levels 2-12)
+DENSE_MB = 32  # level 2-12 corpus size in MiB (plus a tail)
 DENSE_LEVELS = (2, 3, 4)
+CONTENT_LEVELS = (5, 9, 12)
 TAIL = 5000
 WINDOW = 32768
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 L1_SRC = "qat_zstd_plugin_tpu_torch/csrc/l1_kernels.cu"
 DENSE_SRC = "qat_zstd_plugin_tpu_torch/csrc/dense_kernels.cu"
+CONTENT_SRC = "qat_zstd_plugin_tpu_torch/csrc/content_kernels.cu"
 REF = "qat_zstd_plugin_tpu/ops/glue_kernels.py"
 # Each CUDA kernel: its source and the Pallas kernel it replaces.
 KERNELS = {
@@ -65,16 +79,21 @@ KERNELS = {
     "hash_keys_winmin": (DENSE_SRC, f"{REF}:148"),
     "finalize_candidates": (DENSE_SRC, f"{REF}:559"),
     "compact_slots_dense": (DENSE_SRC, f"{REF}:1289"),
+    "ldm_winmin": (CONTENT_SRC, f"{REF}:1088"),
+    "parse_greedy": (CONTENT_SRC,
+                     "qat_zstd_plugin_tpu/ops/parse_kernel.py:35"),
 }
 # The kernels each level's main path must launch.
 _DENSE = ("hash_keys_winmin", "neighbor_unsort_keys", "ldm_keys",
           "finalize_candidates", "compact_slots_dense")
+_CONTENT = ("ldm_winmin", "ldm_keys", "neighbor_unsort_keys", "parse_greedy")
 LEVEL_KERNELS = {
     1: ("hash_keys_winmin_sync", "neighbor_unsort_keys", "ldm_keys",
         "compact_slots_sync"),
     2: _DENSE,  # one width: no hash_keys
     3: _DENSE + ("hash_keys",),
     4: _DENSE + ("hash_keys",),
+    **dict.fromkeys(CONTENT_LEVELS, _CONTENT),
 }
 
 
@@ -83,7 +102,7 @@ def phase(name: str, **fields) -> None:
 
 
 def exact(torch, got, want, what: str) -> int:
-    """Max |got - want| over the u32 words; raises unless 0."""
+    """Max |got - want| over the words; raises unless 0."""
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
@@ -92,6 +111,20 @@ def exact(torch, got, want, what: str) -> int:
         raise AssertionError(f"{what}: kernel differs from twin "
                              f"(max abs err {err})")
     return err
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the given tensors (None counts 0)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(moved: int) -> dict:
+    """The least time for a function that must move `moved` bytes: every
+    kernel here does a few integer operations per byte, far below the
+    card's 67 TFLOP/s (fp32) per 3.35 TB/s, so bytes bound each."""
+    return {"bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None}
 
 
 def _ragged(torch, rng, B: int, N: int, dev):
@@ -114,9 +147,9 @@ def kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int) -> dict:
     ragged = _ragged(torch, rng, B, N, dev)
     results = {}
 
-    def record(name, err, kernel_fn, twin_fn):
+    def record(name, err, moved, kernel_fn, twin_fn):
         results[name] = {"max_abs_err": err, "ms": cuda_ms(kernel_fn),
-                         "plain_ms": cuda_ms(twin_fn)}
+                         "plain_ms": cuda_ms(twin_fn), **bound(moved)}
 
     # K1 on the corpus and on random bytes.
     err = 0
@@ -125,7 +158,7 @@ def kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int) -> dict:
         tw_k, tw_m = tk.hash_keys_winmin_sync_twin(x, width, WINDOW, stride)
         err = max(err, exact(torch, k, tw_k, "hash_keys_winmin_sync keys"),
                   exact(torch, m, tw_m, "hash_keys_winmin_sync minz"))
-    record("hash_keys_winmin_sync", err,
+    record("hash_keys_winmin_sync", err, nbytes(blocks, k, m),
            lambda: tk.hash_keys_winmin_sync(blocks, width, WINDOW, stride),
            lambda: tk.hash_keys_winmin_sync_twin(blocks, width, WINDOW,
                                                  stride))
@@ -142,28 +175,29 @@ def kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int) -> dict:
         exact(torch, tk.neighbor_unsort_keys(slk, lbits, 1),
               tk.neighbor_unsort_keys_twin(slk, lbits, 1),
               "neighbor_unsort_keys (LDM rows)"))
-    record("neighbor_unsort_keys", err,
+    record("neighbor_unsort_keys", err, 2 * nbytes(sk),
            lambda: tk.neighbor_unsort_keys(sk, pbits, 1, WINDOW - 1),
            lambda: tk.neighbor_unsort_keys_twin(sk, pbits, 1, WINDOW - 1))
 
-    # K3 on the corpus's minimizer plane.
+    # K3 on the corpus's minimizer plane: it needs the sampled words only.
     err = exact(torch, lk, tk.ldm_keys_twin(m, span, stride), "ldm_keys")
-    record("ldm_keys", err, lambda: tk.ldm_keys(m, span, stride),
+    record("ldm_keys", err, nbytes(m) // stride + nbytes(lk),
+           lambda: tk.ldm_keys(m, span, stride),
            lambda: tk.ldm_keys_twin(m, span, stride))
 
     # K4 with ragged lengths, with and without LDM estimates.
     su = tk._sort_rows(tk.neighbor_unsort_keys(sk, pbits, 1, WINDOW - 1))
     su_l = tk._sort_rows(tk.neighbor_unsort_keys(slk, lbits, 1))
     est, off = tk._ldm_est(su_l, ragged, N, span, 1 << 19)
+    out = tk.compact_slots_sync(su, WINDOW, ragged, width, est, off)
     err = max(
-        exact(torch, tk.compact_slots_sync(su, WINDOW, ragged, width, est,
-                                           off),
+        exact(torch, out,
               tk.compact_slots_sync_twin(su, WINDOW, ragged, width, est, off),
               "compact_slots_sync (LDM)"),
         exact(torch, tk.compact_slots_sync(su, WINDOW, ragged, width),
               tk.compact_slots_sync_twin(su, WINDOW, ragged, width),
               "compact_slots_sync"))
-    record("compact_slots_sync", err,
+    record("compact_slots_sync", err, nbytes(su, ragged, est, off, out),
            lambda: tk.compact_slots_sync(su, WINDOW, ragged, width, est, off),
            lambda: tk.compact_slots_sync_twin(su, WINDOW, ragged, width,
                                               est, off))
@@ -171,44 +205,61 @@ def kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int) -> dict:
     return results
 
 
+class Cases:
+    """Phase 2 cases of the B=64 kernels: one line per case with its
+    times; the case marked main is the kernel's row in the results."""
+
+    def __init__(self, results: dict):
+        self.results = results
+
+    def __call__(self, kernel: str, name: str, err: int, moved: int,
+                 kernel_fn, twin_fn, main: bool = False) -> None:
+        from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
+        r = {"max_abs_err": err, "ms": cuda_ms(kernel_fn),
+             "plain_ms": cuda_ms(twin_fn), **bound(moved)}
+        phase("kernel_case", kernel=kernel, case=name, **r)
+        prev = self.results.get(kernel)
+        if main or prev is None:
+            self.results[kernel] = {**r, "max_abs_err": max(
+                err, prev["max_abs_err"] if prev else 0)}
+        else:
+            prev["max_abs_err"] = max(prev["max_abs_err"], err)
+
+
+def _test_bytes(torch, corpus, rng):
+    """Random bytes, and the corpus with an all-same block and runs past
+    the caps (16383 and 65535), one across a segment boundary and one to
+    the row's end."""
+    B, N = corpus.shape
+    rand = torch.from_numpy(rng.integers(0, 256, (B, N), np.uint8)) \
+        .to(corpus.device)
+    mixed = corpus.clone()
+    mixed[1] = 0x41
+    mixed[2, 20000:60000] = 7
+    mixed[3, N - 20000:] = 9
+    mixed[4, 1000:70000] = 0xC3
+    return rand, mixed
+
+
 def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
                            results: dict) -> None:
     """Phase 2, the level 2-4 kernels (and K2, K3 at their level 2-4
-    arguments) against their twins on the card, at B=64 × 128 KiB. Adds
-    to `results`; prints one line per case with its times."""
-    from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
+    arguments) against their twins on the card, at B=64 × 128 KiB."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 2)
     B, N = blocks_np.shape
     pbits = (WINDOW - 1).bit_length()
     corpus = torch.from_numpy(blocks_np).to(dev)
-    rand = torch.from_numpy(rng.integers(0, 256, (B, N), np.uint8)).to(dev)
-    # The corpus with an all-same block and runs past the 16383 cap, one
-    # across a segment boundary and one to the row's end.
-    mixed = corpus.clone()
-    mixed[1] = 0x41
-    mixed[2, 20000:60000] = 7
-    mixed[3, N - 20000:] = 9
+    rand, mixed = _test_bytes(torch, corpus, rng)
     ragged = _ragged(torch, rng, B, N, dev)
-
-    def case(kernel: str, name: str, err: int, kernel_fn, twin_fn,
-             main: bool = False) -> None:
-        r = {"max_abs_err": err, "ms": cuda_ms(kernel_fn),
-             "plain_ms": cuda_ms(twin_fn)}
-        phase("kernel_case", kernel=kernel, case=name, **r)
-        prev = results.get(kernel)
-        if main or prev is None:
-            results[kernel] = {**r, "max_abs_err": max(
-                err, prev["max_abs_err"] if prev else 0)}
-        else:
-            prev["max_abs_err"] = max(prev["max_abs_err"], err)
+    case = Cases(results)
 
     # B5 at every width, on the corpus and on random bytes.
     for width in (4, 5, 6, 8):
         err = max(exact(torch, tk.hash_keys(x, width, WINDOW),
                         tk.hash_keys_twin(x, width, WINDOW),
                         f"hash_keys width {width}") for x in (corpus, rand))
-        case("hash_keys", f"width {width}", err,
+        case("hash_keys", f"width {width}", err, 5 * nbytes(corpus),
              lambda: tk.hash_keys(corpus, width, WINDOW),
              lambda: tk.hash_keys_twin(corpus, width, WINDOW),
              main=width == 6)
@@ -223,7 +274,7 @@ def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
             err = max(err, exact(torch, k, tw_k, "hash_keys_winmin keys"),
                       exact(torch, m, tw_m, f"hash_keys_winmin minz {stride}"))
         minz[stride] = m
-        case("hash_keys_winmin", f"stride {stride}", err,
+        case("hash_keys_winmin", f"stride {stride}", err, 9 * nbytes(mixed),
              lambda: tk.hash_keys_winmin(mixed, 4, WINDOW, stride),
              lambda: tk.hash_keys_winmin_twin(mixed, 4, WINDOW, stride),
              main=stride == 64)
@@ -234,7 +285,7 @@ def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
                 tk.neighbor_unsort_keys_twin(sk, pbits, 2),
                 "neighbor_unsort_keys (full-resolution rows, neighbors 2)")
     case("neighbor_unsort_keys", "full-resolution rows, neighbors 2", err,
-         lambda: tk.neighbor_unsort_keys(sk, pbits, 2),
+         2 * nbytes(sk), lambda: tk.neighbor_unsort_keys(sk, pbits, 2),
          lambda: tk.neighbor_unsort_keys_twin(sk, pbits, 2))
 
     # K3 at spans 8 and 16 (levels 3 and 4), and the LDM estimates of
@@ -250,6 +301,7 @@ def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
                                                     stride),
                         f"ldm_keys span {span}")
             case("ldm_keys", f"span {span}", err,
+                 nbytes(minz[stride]) // stride + nbytes(lk),
                  lambda: tk.ldm_keys(minz[stride], span, stride),
                  lambda: tk.ldm_keys_twin(minz[stride], span, stride))
         if span != 8:
@@ -270,6 +322,7 @@ def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
                       exact(torch, ml, tw_ml, f"finalize mlen {widths}"),
                       exact(torch, mo, tw_mo, f"finalize moff {widths}"))
         case("finalize_candidates", f"widths {widths}", err,
+             nbytes(*sus, x, ragged, ml, mo),
              lambda: tk.finalize_candidates(sus, x, ragged, widths, WINDOW),
              lambda: tk.finalize_candidates_twin(sus, x, ragged, widths,
                                                  WINDOW),
@@ -285,6 +338,7 @@ def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
                 tk.compact_slots_dense_twin(ml, mo, WINDOW, est, off, cap),
                 f"compact_slots_dense cap {cap} span {span}")
             case("compact_slots_dense", f"cap {cap}, LDM span {span}", err,
+                 nbytes(ml, mo, est, off) + nbytes(ml) // 4,
                  lambda: tk.compact_slots_dense(ml, mo, WINDOW, est, off,
                                                 cap),
                  lambda: tk.compact_slots_dense_twin(ml, mo, WINDOW, est,
@@ -293,11 +347,85 @@ def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
     torch.cuda.synchronize()
 
 
+def _crafted_lengths(B: int, N: int, rng) -> np.ndarray:
+    """Candidate lengths for B10: all-zero rows, rows with every length
+    >= 4, matches across the kernel's 4096-position chunk edges, lazy ties,
+    strictly longer look-aheads, and matches that end exactly at N or
+    pass it."""
+    m = np.where(rng.random((B, N)) < 0.3, rng.integers(0, 40, (B, N)), 0)
+    m = m.astype(np.int32)
+    m[0] = 0
+    m[1] = rng.integers(4, 9, N)
+    m[2, :] = 7                                   # lazy ties everywhere
+    for edge in range(4096, N, 4096):
+        m[3, edge - 5] = 30                      # crosses the staging edge
+        m[4, edge - 1] = 4                       # look-ahead on the next chunk
+        m[4, edge] = 5
+    m[5, N - 20] = 20                            # ends exactly at N
+    m[6, N - 3:] = 60                            # passes N
+    m[7, :] = np.arange(N) % 64                  # rising runs
+    return m
+
+
+def _visited(torch, chosen, mlen) -> int:
+    """Positions the parse's cursor visits: all but the interiors of the
+    chosen matches (the data-dependent reads of B10)."""
+    N = mlen.shape[1]
+    pos = torch.arange(N, device=mlen.device)
+    inner = torch.where(chosen, torch.clamp(pos + mlen, max=N) - pos - 1, 0)
+    return int(chosen.numel() - inner.sum())
+
+
+def content_kernels_vs_twins(torch, tk, pk, mp, blocks_np: np.ndarray,
+                             seed: int, results: dict) -> None:
+    """Phase 2, the level 5-12 kernels against their twins on the card, at
+    B=64 × 128 KiB."""
+    from qat_zstd_plugin_tpu_torch.runtime.levels import (TPU_LEVEL_TABLE,
+                                                          level_params)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 3)
+    B, N = blocks_np.shape
+    corpus = torch.from_numpy(blocks_np).to(dev)
+    rand, mixed = _test_bytes(torch, corpus, rng)
+    case = Cases(results)
+
+    # B9 at the strides of spans 4 (32) and 16 (64).
+    for stride in (32, 64):
+        err = max(exact(torch, tk.ldm_winmin(x, stride),
+                        tk.ldm_winmin_twin(x, stride),
+                        f"ldm_winmin stride {stride}")
+                  for x in (corpus, rand, mixed))
+        case("ldm_winmin", f"stride {stride}", err, 5 * nbytes(corpus),
+             lambda: tk.ldm_winmin(corpus, stride),
+             lambda: tk.ldm_winmin_twin(corpus, stride), main=stride == 32)
+
+    # B10 on the L5 and L12 parse inputs of the batch and on crafted rows.
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    inputs = {}
+    for level in (5, 12):
+        p = TPU_LEVEL_TABLE[level]
+        inputs[f"L{level} candidates"] = mp.content_candidates(
+            corpus, lengths, p.neighbors, p.stride, p.window, p.ldm,
+            1 << level_params(level).window_log)[0]
+    inputs["crafted rows"] = torch.from_numpy(
+        _crafted_lengths(B, N, rng)).to(dev)
+    for what, mlen in inputs.items():
+        for lazy in (False, True):
+            chosen = pk.parse_greedy(mlen, lazy)
+            err = exact(torch, chosen, pk.parse_greedy_twin(mlen, lazy),
+                        f"parse_greedy {what} lazy={lazy}")
+            case("parse_greedy", f"{what}, lazy={lazy}", err,
+                 4 * _visited(torch, chosen, mlen) + nbytes(chosen),
+                 lambda: pk.parse_greedy(mlen, lazy),
+                 lambda: pk.parse_greedy_twin(mlen, lazy),
+                 main=(what, lazy) == ("L5 candidates", True))
+    torch.cuda.synchronize()
+
+
 def device_half(torch, qzt, level: int, blocks_np: np.ndarray) -> dict:
-    """Phase 3: the composed slot words of `level`'s pipeline, kernels on
-    the card vs twins on the CPU. Returns the claimed slots and the
-    median time of the kernels' composition on the card, input already
-    on the card."""
+    """Phase 3: the composed output of `level`'s device half, kernels on
+    the card vs twins on the CPU. Returns its size and the median time of
+    the kernels' composition on the card, input already on the card."""
     from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
     B = len(blocks_np)
     lengths_np = np.full(B, BLOCK, np.int32)
@@ -308,30 +436,19 @@ def device_half(torch, qzt, level: int, blocks_np: np.ndarray) -> dict:
     lengths = torch.from_numpy(lengths_np).to(dev)
     got = on_card(blocks, lengths).cpu()
     want = on_cpu(torch.from_numpy(blocks_np), torch.from_numpy(lengths_np))
-    exact(torch, got, want, f"find_matches_positions L{level} B={B}")
+    exact(torch, got, want, f"device half L{level} B={B}")
     ms = cuda_ms(lambda: on_card(blocks, lengths))
-    return {"level": level, "batch": B, "claims": int((got != -1).sum()),
-            "ms": ms, "mbs": B * BLOCK / ms / 1e3}
+    if level >= 5:  # packed sequences: [nseq, last_literals << 1 | overflow]
+        size = {"sequences": int(got[:, 0, 0].sum()),
+                "overflow_blocks": int((got[:, 0, 1] & 1).sum())}
+    else:  # slot words
+        size = {"claims": int((got != -1).sum())}
+    return {"level": level, "batch": B, **size, "ms": ms,
+            "mbs": B * BLOCK / ms / 1e3}
 
 
-def decode(data: bytes, frame: bytes, level: int, batch: int) -> str:
-    """Bit-exact decode through stock libzstd; without it, a 4 MiB prefix
-    frame through the in-repo golden decoder. Returns the decoder used."""
-    from qat_zstd_plugin_tpu import oracle
-    if oracle.available():
-        if oracle.decompress(frame, len(data)) != data:
-            raise AssertionError("libzstd decode differs from the input")
-        return "libzstd"
-    import qat_zstd_plugin_tpu_torch as qzt
-    from qat_zstd_plugin_tpu.golden import decoder
-    prefix = data[:4 << 20]
-    small = qzt.compress(prefix, level=level, batch=batch, device="cuda")
-    if decoder.decompress(small, max_output=len(prefix)) != prefix:
-        raise AssertionError("golden decode differs from the input")
-    return "golden (4 MiB prefix)"
-
-
-def main_path(torch, qzt, tk, level: int, batch: int, data: bytes) -> dict:
+def main_path(torch, qzt, tk, oracle, level: int, batch: int,
+              data: bytes) -> dict:
     """Phase 4 for one level: compress on the card with the launch counts
     reset just before; decode; no fallback; the level's kernels ran.
     Returns the launch counts of the run."""
@@ -344,14 +461,16 @@ def main_path(torch, qzt, tk, level: int, batch: int, data: bytes) -> dict:
     frame = codec.compress(data)
     seconds = time.perf_counter() - t0
     launches = dict(tk.launches)
-    used = decode(data, frame, level, batch)
+    # Bit-exact decode through stock libzstd (raises without it).
+    if oracle.decompress(frame, len(data)) != data:
+        raise AssertionError("libzstd decode differs from the input")
     phase("main_path", level=level, batch=batch, input_bytes=len(data),
           frame_bytes=len(frame), ratio=len(frame) / len(data),
-          seconds=seconds, e2e_mbs=len(data) / seconds / 1e6, decoder=used,
-          device_blocks=codec.device_blocks,
-          fallback_batches=codec.fallback_batches,
+          seconds=seconds, e2e_mbs=len(data) / seconds / 1e6,
+          decoder="libzstd", device_blocks=codec.device_blocks,
+          overflow_blocks=codec.overflow_blocks,
           fallback_blocks=codec.stats.fallback_blocks, launches=launches)
-    if codec.fallback_batches or codec.stats.fallback_blocks:
+    if codec.stats.fallback_blocks:
         raise AssertionError(f"level {level}: the main path fell back to "
                              "the CPU matcher")
     if codec.device_blocks != len(data) // BLOCK:
@@ -394,13 +513,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, root)
     import qat_zstd_plugin_tpu_torch as qzt
-    from qat_zstd_plugin_tpu import native
+    from qat_zstd_plugin_tpu_torch import native, oracle
     from qat_zstd_plugin_tpu_torch.corpus import make_corpus
     from qat_zstd_plugin_tpu_torch.ops import _build
     from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
+    from qat_zstd_plugin_tpu_torch.ops import match_pipeline as mp
+    from qat_zstd_plugin_tpu_torch.ops import parse_kernel as pk
     from qat_zstd_plugin_tpu_torch.profile_l1 import card_line
 
-    # 1. Card and build.
+    # 1. Card and builds.
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card, flush=True)
@@ -410,9 +531,9 @@ def main() -> int:
           nvcc_s=_build.build_seconds,
           load_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    if not native.available():
-        raise RuntimeError("native host runtime did not build")
-    phase("native", load_s=time.perf_counter() - t0)
+    native.load()
+    phase("native", library=os.path.relpath(native.library_path(), root),
+          load_s=time.perf_counter() - t0)
 
     # 2. Kernel vs twin at the main paths' shapes.
     corpus = make_corpus((args.mb << 20) + TAIL, args.seed)
@@ -423,21 +544,26 @@ def main() -> int:
         .reshape(DENSE_BATCH, BLOCK).copy()
     kernels = kernels_vs_twins(torch, tk, blocks_np, args.seed)
     dense_kernels_vs_twins(torch, tk, dense_np, args.seed, kernels)
+    content_kernels_vs_twins(torch, tk, pk, mp, dense_np, args.seed,
+                             kernels)
     for name, r in kernels.items():
         phase("kernel_vs_twin", kernel=name, **r)
 
-    # 3. Device half: slot words, kernels vs twins.
+    # 3. Device half: composed outputs, kernels vs twins.
     for level, x in ((1, blocks_np), (1, blocks_np[:6].copy()),
                      *((lv, dense_np) for lv in DENSE_LEVELS),
-                     (4, dense_np[:8].copy())):
+                     (4, dense_np[:8].copy()),
+                     *((lv, dense_np) for lv in CONTENT_LEVELS),
+                     (5, dense_np[:6].copy())):
         phase("device_half", equal=True, **device_half(torch, qzt, level, x))
 
     # 4. Main paths on the card, launch counts per path.
     launches = dict.fromkeys(KERNELS, 0)
     runs = [(1, BATCH, corpus)] + [(lv, DENSE_BATCH, dense_corpus)
-                                   for lv in DENSE_LEVELS]
+                                   for lv in DENSE_LEVELS + CONTENT_LEVELS]
     for level, batch, data in runs:
-        for k, n in main_path(torch, qzt, tk, level, batch, data).items():
+        for k, n in main_path(torch, qzt, tk, oracle, level, batch,
+                              data).items():
             launches[k] += n
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
@@ -447,9 +573,13 @@ def main() -> int:
     card_vs_cpu(qzt, 1, 8, corpus[:8 * BLOCK + TAIL])
     card_vs_cpu(qzt, 4, 16, dense_corpus[:16 * BLOCK + TAIL])
     card_vs_cpu(qzt, 3, 8, dense_corpus[:9 * BLOCK])
+    card_vs_cpu(qzt, 5, 8, dense_corpus[:9 * BLOCK])
+    card_vs_cpu(qzt, 12, 4, dense_corpus[:4 * BLOCK + TAIL])
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    ref = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "qat_zstd_plugin_tpu")]
+    if ref:
+        raise AssertionError(f"the port imported {sorted(ref)[:5]}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name], **r}

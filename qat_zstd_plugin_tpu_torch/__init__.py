@@ -1,16 +1,18 @@
 """qat_zstd_plugin_tpu_torch — the PyTorch/CUDA port of qat_zstd_plugin_tpu.
 
-The device half of the codec's hash-matcher levels 1-4 (level 1's
-syncmer slot pipeline and the full-resolution dense hash pipeline of
-levels 2-4) runs here as hand-written CUDA kernels for Hopper (csrc/)
-with PyTorch ops between them; the host half (claim extension, gap fill,
-entropy coding, frame assembly) and the zstd format code are imported
-from qat_zstd_plugin_tpu unchanged. Nothing here imports jax.
+The codec's twelve levels with their device half as hand-written CUDA
+kernels for Hopper (csrc/) and PyTorch ops between them: level 1's
+syncmer slot pipeline, the full-resolution dense hash pipeline of levels
+2-4, and the exact-LCP content matcher with the greedy/lazy parse of
+levels 5-12. The host half (claim extension, gap fill, entropy coding)
+is the package's own build of the native runtime (native/), and frame
+assembly is format.py. The package imports neither jax nor
+qat_zstd_plugin_tpu.
 
-    compress(data, level=1..4, device="cuda") -> zstd frame (bytes),
+    compress(data, level=1..12, device="cuda") -> zstd frame (bytes),
         equal byte for byte to qat_zstd_plugin_tpu's TpuCodec frame at the
         same level and batch size
-    decompress(frame)                      -> bytes (stock libzstd)
+    decompress(frame)                       -> bytes (stock libzstd)
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qat_zstd_plugin_tpu import BLOCK_SIZE_MAX, __version__, decompress
-
+from .format import BLOCK_SIZE_MAX
+from .oracle import decompress
 from .runtime.device import Status, start_device, status, stop_device
 from .runtime.gpu_codec import GpuCodec
+
+__version__ = "0.5.0"
 
 __all__ = ["BLOCK_SIZE_MAX", "GpuCodec", "Status", "compress", "decompress",
            "start_device", "status", "stop_device", "version"]

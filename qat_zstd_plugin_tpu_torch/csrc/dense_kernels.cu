@@ -30,84 +30,9 @@ constexpr int kChainSteps = 2;  // glue_kernels.CHAIN_STEPS
 // B5 hash_keys and B6 hash_keys_winmin: full-resolution sort keys (+ the
 // windowed-minimum plane of the 8-gram hash).
 // Replaces glue_kernels.hash_keys and glue_kernels.hash_keys_winmin
-// (Pallas).
-//
-// One thread per 4 consecutive positions; a CTA covers kHashSpan
-// positions of one row. It stages the tile's bytes plus a halo in shared
-// memory (zero past the row's end, as the reference's shifted reads), and
-// each thread writes (hash_w(i) << pbits | i & pmask) for its four
-// positions with one 16-byte store: the (rows * nseg, w) key layout is the
-// (rows, n) row-major one. With kMinz the CTA first hashes every 8-gram of
-// the tile plus a stride-wide halo once into shared memory (0xFFFFFFFF at
-// or past n, the reference's fill) and each thread writes minz[i..i+3],
-// the minimum over [i+k, i+k+stride): the inner [i+3, i+stride) is shared
-// by the four. Bound: reads n bytes, writes 4n (keys) + 4n (minz) per row.
+// (Pallas). The templated body, shared with B9 ldm_winmin, is
+// hash_keys_kernel in common.cuh: kKeys for B5, kKeys and kMinz for B6.
 // ---------------------------------------------------------------------------
-
-constexpr int kHashThreads = 256;
-constexpr int kHashSpan = 4 * kHashThreads;
-
-template <bool kMinz>
-__global__ void __launch_bounds__(kHashThreads)
-hash_keys_kernel(const uint8_t* __restrict__ blocks,
-                 uint32_t* __restrict__ keys, uint32_t* __restrict__ minz,
-                 int n, int width, int pbits, uint32_t pmask, int stride) {
-    extern __shared__ uint32_t smem[];
-    const int nh = kMinz ? kHashSpan + stride : 0;  // h8 entries
-    uint32_t* h8 = smem;
-    uint8_t* bytes = reinterpret_cast<uint8_t*>(smem + nh);
-    const int nb = (kMinz ? nh : kHashSpan) + 7;
-    const int row = blockIdx.y;
-    const int base = blockIdx.x * kHashSpan;
-    const uint8_t* x = blocks + size_t(row) * n;
-
-    for (int j = threadIdx.x; j < nb; j += kHashThreads) {
-        const int p = base + j;
-        bytes[j] = p < n ? x[p] : 0;
-    }
-    __syncthreads();
-    if (kMinz) {
-        for (int j = threadIdx.x; j < nh; j += kHashThreads)
-            h8[j] = base + j < n ? gram_hash(bytes + j, 8, 32) : kEmpty;
-        __syncthreads();
-    }
-
-    const int t = 4 * threadIdx.x;
-    const int i = base + t;
-    if (i >= n) return;  // n % 4 == 0: positions i..i+3 are all in the row
-    const int hbits = 32 - pbits;
-    uint4 k;
-    k.x = (gram_hash(bytes + t, width, hbits) << pbits) | (uint32_t(i) & pmask);
-    k.y = (gram_hash(bytes + t + 1, width, hbits) << pbits) |
-          (uint32_t(i + 1) & pmask);
-    k.z = (gram_hash(bytes + t + 2, width, hbits) << pbits) |
-          (uint32_t(i + 2) & pmask);
-    k.w = (gram_hash(bytes + t + 3, width, hbits) << pbits) |
-          (uint32_t(i + 3) & pmask);
-    const size_t at = (size_t(row) * n + i) >> 2;
-    reinterpret_cast<uint4*>(keys)[at] = k;
-
-    if (kMinz) {
-        uint4 m;
-        if (stride >= 4) {
-            uint32_t inner = kEmpty;  // min over [t+3, t+stride)
-            for (int q = 3; q < stride; ++q) inner = min(inner, h8[t + q]);
-            const uint32_t a0 = h8[t], a1 = h8[t + 1], a2 = h8[t + 2];
-            const uint32_t b0 = h8[t + stride], b1 = h8[t + stride + 1],
-                           b2 = h8[t + stride + 2];
-            m.x = min(inner, min(a0, min(a1, a2)));
-            m.y = min(inner, min(a1, min(a2, b0)));
-            m.z = min(inner, min(a2, min(b0, b1)));
-            m.w = min(inner, min(b0, min(b1, b2)));
-        } else {
-            uint32_t v[4] = {kEmpty, kEmpty, kEmpty, kEmpty};
-            for (int p = 0; p < 4; ++p)
-                for (int q = 0; q < stride; ++q) v[p] = min(v[p], h8[t + p + q]);
-            m = make_uint4(v[0], v[1], v[2], v[3]);
-        }
-        reinterpret_cast<uint4*>(minz)[at] = m;
-    }
-}
 
 // ---------------------------------------------------------------------------
 // B7 finalize_candidates: per-width chain doubling, cross-width merge, cost
@@ -282,37 +207,21 @@ __global__ void compact_slots_dense_kernel(const int32_t* __restrict__ mlen,
     out[idx] = best;
 }
 
-template <bool kMinz>
-int launch_hash_keys(const void* blocks, void* keys, void* minz, int rows,
-                     int n, int width, int pbits, int pmask, int stride,
-                     void* stream) {
-    const int nh = kMinz ? kHashSpan + stride : 0;
-    const int nb = (kMinz ? nh : kHashSpan) + 7;
-    const size_t smem = size_t(nh) * 4 + ((size_t(nb) + 3) & ~size_t(3));
-    const dim3 grid((n + kHashSpan - 1) / kHashSpan, rows);
-    hash_keys_kernel<kMinz><<<grid, kHashThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(blocks), static_cast<uint32_t*>(keys),
-        static_cast<uint32_t*>(minz), n, width, pbits, uint32_t(pmask),
-        stride);
-    return int(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
 int qz_hash_keys(const void* blocks, void* keys, int rows, int n, int width,
                  int pbits, int pmask, void* stream) {
-    return launch_hash_keys<false>(blocks, keys, nullptr, rows, n, width,
-                                   pbits, pmask, 0, stream);
+    return launch_hash_keys<true, false>(blocks, keys, nullptr, rows, n,
+                                         width, pbits, pmask, 0, stream);
 }
 
 int qz_hash_keys_winmin(const void* blocks, void* keys, void* minz, int rows,
                         int n, int width, int pbits, int pmask, int stride,
                         void* stream) {
-    return launch_hash_keys<true>(blocks, keys, minz, rows, n, width, pbits,
-                                  pmask, stride, stream);
+    return launch_hash_keys<true, true>(blocks, keys, minz, rows, n, width,
+                                        pbits, pmask, stride, stream);
 }
 
 int qz_finalize_candidates(const void* su0, const void* su1, const void* su2,

@@ -1,0 +1,255 @@
+"""The port's native host runtime: ctypes over its own build of qz_entropy.cc.
+
+Copy of qat_zstd_plugin_tpu.native, restricted to the entry points the
+port calls (xxh64, block_body, extend_sequences, fill_gaps,
+find_sequences, find_sequences_hinted). `qz_entropy.cc` here is a
+byte-for-byte copy of the JAX package's source; the differences are in
+the build:
+
+  * it is compiled at first use with g++ and the flags of the JAX
+    package's native/build.sh into build/torch_native/<key>/ beside the
+    package, where <key> hashes the source, the flags and the host CPU
+    (its model name and feature flags from /proc/cpuinfo), so a library
+    built with -march=native on another CPU is never loaded;
+  * the library is written to a temporary name and renamed into place,
+    so processes that build at once never load a half-written file;
+  * without g++, or when the build fails, load() raises: the port never
+    goes on without its host runtime.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(_DIR, "qz_entropy.cc")
+BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
+                          "torch_native")
+LIB_NAME = "libqz_entropy.so"
+CXX = "g++"
+CXX_FLAGS = ("-O3", "-march=native", "-DNDEBUG", "-std=c++17", "-shared",
+             "-fPIC", "-fstack-protector-strong", "-fwrapv")
+LINK_FLAGS = ("-lpthread",)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+_P, _S, _I, _U32 = (ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
+                    ctypes.c_uint32)
+_SIGNATURES = {  # name: (restype, argtypes)
+    "qz_xxh64": (ctypes.c_uint64, (_P, _S, ctypes.c_uint64)),
+    "qz_block_body": (_S, (_P, _S, _P, _P, _P, _S, _U32, _I, _I, _I, _P,
+                           _S)),
+    "qz_find_sequences": (_S, (_P, _S, _S, _I, _I, _I, _P, _P, _P, _S,
+                               _P)),
+    "qz_find_sequences_hinted": (_S, (_P, _S, _S, _I, _I, _I, _P, _P, _P,
+                                      _S, _P, _P, _P, _S, _P)),
+    "qz_extend_sequences": (_S, (_P, _S, _S, _P, _P, _P, _S, _P, _S)),
+    "qz_fill_gaps": (_S, (_P, _S, _S, _P, _P, _P, _S, _P, _S, _I, _I, _I,
+                          _I)),
+}
+_FAIL = ctypes.c_size_t(-1).value
+
+
+def _cpu_id() -> bytes:
+    """The host CPU's model name and feature flags (what -march=native
+    compiles for)."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return os.uname().machine.encode()
+    keep = [ln for ln in lines if ln.startswith((b"model name", b"flags"))]
+    return b"\n".join(sorted(set(keep))) or os.uname().machine.encode()
+
+
+def library_path(src: str = SRC) -> str:
+    """Where the library for `src`, the flags and this CPU goes."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS + LINK_FLAGS).encode() + b"\0")
+    h.update(_cpu_id() + b"\0")
+    with open(src, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], LIB_NAME)
+
+
+def build() -> str:
+    """Compile qz_entropy.cc unless the library for this source, these
+    flags and this CPU exists; returns its path."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+    cmd = [CXX, *CXX_FLAGS, SRC, "-o", tmp, *LINK_FLAGS]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"native host runtime: {CXX} not found; the "
+                           "port cannot run without it") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"native host runtime: build failed "
+                           f"({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The host runtime, built on first use; raises if it cannot be."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = list(argtypes)
+            _lib = lib
+    return _lib
+
+
+def xxh64(data, seed: int = 0) -> int:
+    """XXH64 over bytes or a uint8 numpy array (zero-copy for arrays)."""
+    lib = load()
+    if isinstance(data, np.ndarray):
+        arr = np.ascontiguousarray(data, np.uint8)
+        return int(lib.qz_xxh64(arr.ctypes.data, arr.size, seed))
+    return int(lib.qz_xxh64(data, len(data), seed))
+
+
+def block_body(block: np.ndarray, lit_lens: np.ndarray, offsets: np.ndarray,
+               match_lens: np.ndarray, last_literals: int,
+               allow_custom: bool = True, try_huffman: bool = True,
+               first_block: bool = False) -> bytes | None:
+    """Compressed block body from sequences; None -> caller emits raw."""
+    lib = load()
+    block = np.ascontiguousarray(block, np.uint8)
+    ll = np.ascontiguousarray(lit_lens, np.uint32)
+    of = np.ascontiguousarray(offsets, np.uint32)
+    ml = np.ascontiguousarray(match_lens, np.uint32)
+    cap = len(block) + 512
+    dst = np.empty(cap, np.uint8)
+    n = lib.qz_block_body(
+        block.ctypes.data, len(block), ll.ctypes.data, of.ctypes.data,
+        ml.ctypes.data, len(ll), last_literals, int(allow_custom),
+        int(try_huffman), int(first_block), dst.ctypes.data, cap)
+    if n == 0:
+        return None
+    return dst[:n].tobytes()
+
+
+def find_sequences_hinted(block: np.ndarray, chain_depth: int, lazy: bool,
+                          hint_pos: np.ndarray, hint_len: np.ndarray,
+                          hint_off: np.ndarray,
+                          cap: int | None = None, ctx_len: int = 0,
+                          mml: int = 4):
+    """Chain matcher with device-candidate hints competing inside the
+    parse (see qz_find_sequences_hinted). hint_pos is block-relative
+    ascending match starts, hint_len the claim spans, hint_off the
+    device's source distances. Returns (lit, off, ml, last_literals)."""
+    lib = load()
+    block = np.ascontiguousarray(block, np.uint8)
+    hp = np.ascontiguousarray(hint_pos, np.uint32)
+    hl = np.ascontiguousarray(hint_len, np.uint32)
+    ho = np.ascontiguousarray(hint_off, np.uint32)
+    n = len(block) - ctx_len
+    if cap is None:
+        cap = max(16, n // 3 + 2)
+    ll = np.empty(cap, np.uint32)
+    of = np.empty(cap, np.uint32)
+    ml = np.empty(cap, np.uint32)
+    lastlit = ctypes.c_uint32(0)
+    got = lib.qz_find_sequences_hinted(
+        block.ctypes.data, ctx_len, n, chain_depth, int(lazy), mml,
+        hp.ctypes.data, hl.ctypes.data, ho.ctypes.data, len(hp),
+        ll.ctypes.data, of.ctypes.data, ml.ctypes.data, cap,
+        ctypes.byref(lastlit))
+    if got == _FAIL:
+        raise OverflowError("sequence capacity exceeded")
+    return (ll[:got].astype(np.int64), of[:got].astype(np.int64),
+            ml[:got].astype(np.int64), int(lastlit.value))
+
+
+def extend_sequences(block: np.ndarray, lit: np.ndarray, off: np.ndarray,
+                     ml: np.ndarray, last_literals: int,
+                     ctx_len: int = 0, max_off: int = 0):
+    """Re-extend capped matches with real byte compares (see
+    qz_extend_sequences). `block` may carry ctx_len bytes of window
+    context at the front; the sequences cover only the trailing block.
+    max_off caps offsets the slide probe may synthesize (the frame
+    window; 0 = unlimited). Returns (lit, off, ml, last_literals)."""
+    lib = load()
+    block = np.ascontiguousarray(block, np.uint8)
+    ll = np.ascontiguousarray(lit, np.uint32)
+    of = np.ascontiguousarray(off, np.uint32)
+    mm = np.ascontiguousarray(ml, np.uint32)
+    lastlit = ctypes.c_uint32(last_literals)
+    # The C pass only shrinks/merges; arrays are modified in place.
+    new_n = lib.qz_extend_sequences(
+        block.ctypes.data, ctx_len, len(block) - ctx_len, ll.ctypes.data,
+        of.ctypes.data, mm.ctypes.data, len(ll), ctypes.byref(lastlit),
+        max_off)
+    return (ll[:new_n].astype(np.int64), of[:new_n].astype(np.int64),
+            mm[:new_n].astype(np.int64), int(lastlit.value))
+
+
+def fill_gaps(block: np.ndarray, lit: np.ndarray, off: np.ndarray,
+              ml: np.ndarray, last_literals: int, ctx_len: int = 0,
+              chain_depth: int = 8, mml: int = 6, min_gap: int = 32,
+              relaxed: bool = False):
+    """Re-match long literal runs against the cross-block window context
+    (see qz_fill_gaps). `block` = ctx_len context bytes + the block.
+    relaxed=True swaps in the extension walk's cost model (the hash
+    levels). Returns (lit, off, ml, last_literals)."""
+    lib = load()
+    block = np.ascontiguousarray(block, np.uint8)
+    n = len(block) - ctx_len
+    cap = max(64, len(lit) + n // 8 + 8)
+    ll = np.zeros(cap, np.uint32)
+    of = np.zeros(cap, np.uint32)
+    mm = np.zeros(cap, np.uint32)
+    ll[:len(lit)] = lit
+    of[:len(off)] = off
+    mm[:len(ml)] = ml
+    lastlit = ctypes.c_uint32(last_literals)
+    new_n = lib.qz_fill_gaps(
+        block.ctypes.data, ctx_len, n, ll.ctypes.data, of.ctypes.data,
+        mm.ctypes.data, len(lit), ctypes.byref(lastlit), cap, chain_depth,
+        mml, min_gap, int(relaxed))
+    if new_n == _FAIL:
+        return (np.asarray(lit), np.asarray(off), np.asarray(ml),
+                last_literals)  # overflow: keep the original parse
+    return (ll[:new_n].astype(np.int64), of[:new_n].astype(np.int64),
+            mm[:new_n].astype(np.int64), int(lastlit.value))
+
+
+def find_sequences(block: np.ndarray, chain_depth: int, lazy: bool,
+                   cap: int | None = None, ctx_len: int = 0,
+                   mml: int = 4):
+    """Native hash-chain matcher. `block` = ctx_len context bytes + the
+    block itself; matches may reference the context (cross-block window).
+    Returns (lit, off, ml, last_literals) covering the block only."""
+    lib = load()
+    block = np.ascontiguousarray(block, np.uint8)
+    n = len(block) - ctx_len
+    if cap is None:
+        cap = max(16, n // 3 + 2)
+    ll = np.empty(cap, np.uint32)
+    of = np.empty(cap, np.uint32)
+    ml = np.empty(cap, np.uint32)
+    lastlit = ctypes.c_uint32(0)
+    got = lib.qz_find_sequences(
+        block.ctypes.data, ctx_len, n, chain_depth, int(lazy), mml,
+        ll.ctypes.data, of.ctypes.data, ml.ctypes.data, cap,
+        ctypes.byref(lastlit))
+    if got == _FAIL:
+        raise OverflowError("sequence capacity exceeded")
+    return (ll[:got].astype(np.int64), of[:got].astype(np.int64),
+            ml[:got].astype(np.int64), int(lastlit.value))

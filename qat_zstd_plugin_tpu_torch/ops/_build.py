@@ -40,6 +40,8 @@ SIGNATURES = {
     "qz_hash_keys_winmin": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "qz_finalize_candidates": (_P,) * 8 + (_I,) * 8 + (_P,),
     "qz_compact_slots_dense": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "qz_ldm_winmin": (_P, _P, _I, _I, _I, _P),
+    "qz_parse_greedy": (_P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -20,7 +20,12 @@ Levels 2-4, sync=False (full-resolution keys, csrc/dense_kernels.cu):
 Without LDM (a batch that is no whole number of spans) every width takes
 hash_keys and compact_slots_dense gets no estimates.
 
-Each of the eight kernels has here
+Levels 5-12 (the content path, ops/match_pipeline.find_matches_packed)
+take their LDM claims from here: ldm_winmin (csrc/content_kernels.cu) ->
+ldm_unsorted -> merge_ldm folds them into the exact-LCP candidates.
+
+Each kernel has here (parse_greedy in ops/parse_kernel.py, which counts
+its launches in `launches` below as well)
   * a wrapper with the reference's name, which checks device, dtype,
     shape and contiguity and launches the kernel of csrc/ on PyTorch's
     current stream (counting the launch in `launches`);
@@ -54,7 +59,7 @@ _C3 = 3266489917
 launches = {"hash_keys_winmin_sync": 0, "neighbor_unsort_keys": 0,
             "ldm_keys": 0, "compact_slots_sync": 0, "hash_keys": 0,
             "hash_keys_winmin": 0, "finalize_candidates": 0,
-            "compact_slots_dense": 0}
+            "compact_slots_dense": 0, "ldm_winmin": 0, "parse_greedy": 0}
 
 MIN_MATCH = 4  # qat_zstd_plugin_tpu.ops.match_pipeline.MIN_MATCH
 
@@ -327,6 +332,34 @@ def hash_keys_winmin(blocks: torch.Tensor, width: int, window: int,
 
 
 # ---------------------------------------------------------------------------
+# B9 ldm_winmin
+# ---------------------------------------------------------------------------
+
+def ldm_winmin_twin(blocks: torch.Tensor, stride: int) -> torch.Tensor:
+    """Plain-torch B9 (see ldm_winmin)."""
+    h8 = _hash_tile(blocks.to(torch.int64), 8, 32)
+    return _i32(_winmin_tail(h8, stride))
+
+
+def ldm_winmin(blocks: torch.Tensor, stride: int) -> torch.Tensor:
+    """B9. (B, N) uint8 blocks -> (B, N) int32 windowed-minimum plane:
+    entry i holds the minimum 8-gram hash over [i, i+stride) (0xFFFFFFFF
+    past the row's end), the same words as hash_keys_winmin's second
+    output. Port of the Pallas kernel of the same name."""
+    _check(blocks, "ldm_winmin", torch.uint8, 2)
+    _check_stride(stride)
+    B, N = blocks.shape
+    if N % 4:
+        raise ValueError(f"ldm_winmin: block length {N} must be a "
+                         "multiple of 4")
+    if _use_twin(blocks, "ldm_winmin"):
+        return ldm_winmin_twin(blocks, stride)
+    minz = torch.empty((B, N), dtype=torch.int32, device=blocks.device)
+    _launch("ldm_winmin", blocks, minz, B, N, stride)
+    return minz
+
+
+# ---------------------------------------------------------------------------
 # K2 neighbor_unsort_keys
 # ---------------------------------------------------------------------------
 
@@ -430,7 +463,8 @@ def ldm_unsorted(minz: torch.Tensor, span_blocks: int = 4,
     """LDM candidate chain: keys -> sort -> neighbor/un-sort keys -> sort.
     Returns (B/span_blocks, sps) int32, entry j = (j << hbits | sample
     offset), position-ordered. The reference computes the minimizer plane
-    itself when none is given; the L1 path always has K1's."""
+    itself when none is given; here the caller always passes one (K1's,
+    B6's or B9's)."""
     stride = ldm_stride(span_blocks, minz.shape[1])
     key = ldm_keys(minz, span_blocks, stride)
     pbits = (key.shape[1] - 1).bit_length()
@@ -472,6 +506,26 @@ def _ldm_est(su: torch.Tensor, lengths: torch.Tensor, n: int,
     est_b = torch.where(posb[None, :] + 40 <= lengths.to(torch.int32)[:, None],
                         est_b, 0)
     return est_b, off_b
+
+
+def merge_ldm(mlen: torch.Tensor, moff: torch.Tensor, su: torch.Tensor,
+              lengths: torch.Tensor, span_blocks: int, local_cap: int,
+              max_off: int = 1 << 19):
+    """Fold LDM claims into the full-resolution (mlen, moff) candidate
+    planes (reference: glue_kernels.merge_ldm, XLA there and torch ops
+    here). The estimates sit on the sample grid (every ldm_stride-th
+    position, zeros between); one takes a position where it is longer
+    than the local candidate and the local one is unsaturated (< local_cap)
+    or the estimate shows >= 128 bytes."""
+    B, N = mlen.shape
+    stride = ldm_stride(span_blocks, N)
+    est_b, off_b = _ldm_est(su, lengths, N, span_blocks, max_off)
+    up_est = torch.zeros_like(mlen)
+    up_off = torch.zeros_like(moff)
+    up_est[:, ::stride] = est_b
+    up_off[:, ::stride] = off_b
+    take = (up_est > mlen) & ((mlen < local_cap) | (up_est >= 128))
+    return torch.where(take, up_est, mlen), torch.where(take, up_off, moff)
 
 
 # ---------------------------------------------------------------------------

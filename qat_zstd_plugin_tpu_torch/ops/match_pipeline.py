@@ -1,9 +1,19 @@
-"""Match-finding entry point of the port and the host unpack of its output.
+"""Match-finding entry points of the port and the host unpack of their
+output.
 
-Port of the segment-slots part of qat_zstd_plugin_tpu.ops.match_pipeline
-(`find_matches_positions`, `unpack_segments`). The reference module
-imports jax at the top, so the numpy unpack is repeated here rather than
-imported.
+Port of two contracts of qat_zstd_plugin_tpu.ops.match_pipeline:
+
+* segment slots, levels 1-4 (`find_matches_positions`,
+  `unpack_segments`): the hash matcher's claim positions;
+* packed sequences, levels 5-12 (`find_matches_packed`,
+  `unpack_outputs`): the exact-LCP content matcher. `candidates` carries
+  the content words through a gram sort for exact match lengths up to 16
+  bytes, `glue_kernels.merge_ldm` folds in the long-distance claims,
+  `parse_kernel.parse_greedy` (B10) picks the matches, `compact` packs
+  them per block and `pack_outputs` puts every field into one array.
+
+The reference module imports jax at the top, so its numpy unpacks are
+repeated here rather than imported.
 """
 
 from __future__ import annotations
@@ -11,7 +21,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import glue_kernels
+from . import glue_kernels, parse_kernel
+from .glue_kernels import MIN_MATCH, _shr
+
+LCP_CAP = 16
+BIG = 1 << 30
+MAX_LEN = 65535  # the packed (lit << 16 | ml) word's field limit
 
 
 def find_matches_positions(blocks: torch.Tensor, lengths: torch.Tensor,
@@ -52,3 +67,227 @@ def unpack_segments(slot_keys: np.ndarray, nblocks: int, window: int
     counts = np.bincount(rows // nseg, minlength=nblocks)
     splits = np.cumsum(counts)[:-1]
     return list(zip(np.split(pos, splits), np.split(off, splits)))
+
+
+# ---------------------------------------------------------------------------
+# The content matcher (levels 5-12)
+# ---------------------------------------------------------------------------
+
+def _lcp_word(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Leading equal bytes (0..4) of two big-endian-packed int32 words.
+    0xFF000000 - (1 << 32) is that mask's int32 bit pattern."""
+    xor = x ^ y
+    n0 = (xor & (0xFF000000 - (1 << 32))) == 0
+    n1 = n0 & ((xor & 0x00FF0000) == 0)
+    n2 = n1 & ((xor & 0x0000FF00) == 0)
+    n3 = n2 & ((xor & 0x000000FF) == 0)
+    return (n0.to(torch.int32) + n1.to(torch.int32) + n2.to(torch.int32)
+            + n3.to(torch.int32))
+
+
+def _grams(blocks: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Big-endian 4-byte grams at t, t+4, t+8, t+12 (zero-padded tail) as
+    int32 bit patterns: a byte >= 0x80 on top makes a gram negative."""
+    B, N = blocks.shape
+    xp = torch.cat([blocks.to(torch.int64),
+                    torch.zeros((B, LCP_CAP), dtype=torch.int64,
+                                device=blocks.device)], dim=1)
+
+    def word(s: int) -> torch.Tensor:
+        w = ((xp[:, s:s + N] << 24) | (xp[:, s + 1:s + 1 + N] << 16)
+             | (xp[:, s + 2:s + 2 + N] << 8) | xp[:, s + 3:s + 3 + N])
+        return glue_kernels._i32(w)
+
+    return word(0), word(4), word(8), word(12)
+
+
+def candidates(blocks: torch.Tensor, lengths: torch.Tensor,
+               neighbors: int = 4, stride: int = 1,
+               window: int = 1 << 30) -> tuple[torch.Tensor, torch.Tensor]:
+    """Best (match_len, offset) candidate per position (reference:
+    match_pipeline.candidates, XLA there and torch ops here).
+
+    blocks (B, N) uint8, lengths (B,) int32 -> (mlen, moff), (B, N) int32
+    each; mlen == 0 where no candidate. A stable sort by the signed first
+    gram, position breaking ties, groups equal grams in position order, so
+    the k-th sorted predecessor in a group is the k-th most recent earlier
+    occurrence; the carried words give the exact common prefix up to 16
+    bytes, longer and then nearer wins. Offset-1 runs get exact lengths up
+    to 65535. Only the unsegmented, unstrided form that every content
+    level takes (stride 1, window >= N) is ported."""
+    B, N = blocks.shape
+    if stride != 1 or window < N:
+        raise ValueError(f"candidates: stride {stride} and window {window} "
+                         f"< {N} (segmented sorts) are not ported")
+    dev = blocks.device
+    g0, g1, g2, g3 = _grams(blocks)
+    pos = torch.arange(N, device=dev)
+    # (g0 << 17 | pos) orders as the stable sort on g0 does, and is unique
+    # per row (pos < 2^17), so any sort gives that order.
+    order = torch.sort((g0.to(torch.int64) << 17) | pos, dim=1).indices
+    sk = g0.gather(1, order)
+    sp = order.to(torch.int32)
+    s1, s2, s3 = (g.gather(1, order) for g in (g1, g2, g3))
+    blen = lengths.to(torch.int32)[:, None]
+    best = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    for k in range(1, neighbors + 1):
+        pk = _shr(sp, k, BIG)
+        p1, p2, p3 = (_shr(s, k, 0) for s in (s1, s2, s3))
+        f1 = s1 == p1
+        f2 = s2 == p2
+        lcp = (4 + _lcp_word(s1, p1)
+               + torch.where(f1, _lcp_word(s2, p2), 0)
+               + torch.where(f1 & f2, _lcp_word(s3, p3), 0))
+        lcp = torch.minimum(lcp, blen - sp)  # stay inside the block
+        valid = (sk == _shr(sk, k, 0)) & (pk < sp) & (lcp >= MIN_MATCH)
+        # Longer first, then the nearest source (capped long matches chain
+        # at a constant offset for the host coalesce).
+        best = torch.maximum(best, torch.where(valid, (lcp << 18) | pk, 0))
+    cand_len = best >> 18
+    cand_off = torch.where(cand_len > 0, sp - (best & ((1 << 18) - 1)), 0)
+    # Cost model: short matches only near (match_pipeline.candidates).
+    worth = ((cand_len >= 7)
+             | ((cand_len >= 6) & (cand_off <= 32768))
+             | ((cand_len >= 5) & (cand_off <= 4096))
+             | ((cand_len >= 4) & (cand_off <= 256)))
+    packed = torch.where(worth, (cand_len << 17) | cand_off, 0)
+    # Un-sort: scatter back to position order.
+    pc = torch.empty_like(packed).scatter_(1, order, packed)
+    mlen = pc >> 17
+    moff = pc & ((1 << 17) - 1)
+
+    # Offset-1 runs: exact lengths from the next byte change (the row's
+    # last byte always counts as one), capped at 65535.
+    x = blocks.to(torch.int32)
+    idx = pos.to(torch.int32)
+    chg = torch.ones((B, N), dtype=torch.bool, device=dev)
+    chg[:, :-1] = x[:, :-1] != x[:, 1:]
+    big = torch.full_like(x, BIG)
+    run_end = torch.where(chg, idx, big).flip(1).cummin(1).values.flip(1)
+    len1 = torch.minimum(run_end - idx + 1, blen - idx).clamp(max=MAX_LEN)
+    prev_eq = torch.zeros((B, N), dtype=torch.bool, device=dev)
+    prev_eq[:, 1:] = x[:, 1:] == x[:, :-1]
+    use1 = prev_eq & (len1 >= MIN_MATCH) & (len1 > mlen)
+    return torch.where(use1, len1, mlen), torch.where(use1, 1, moff)
+
+
+def compact(chosen: torch.Tensor, mlen: torch.Tensor, moff: torch.Tensor,
+            lengths: torch.Tensor, max_seq: int, window: int = 1 << 30):
+    """Pack the chosen matches into per-block sequence arrays (reference:
+    match_pipeline.compact, unsegmented and without coalesce, the form
+    every content level takes). The reference sorts chosen positions to
+    the front; here each chosen position goes to its rank (a running
+    count), which is the same order. Returns a dict of lit_len, offset,
+    match_len (B, max_seq) int32, nseq, last_literals (B,) int32 and
+    overflow (B,) bool; a block with more than min(max_seq, N) matches
+    sets overflow."""
+    B, N = chosen.shape
+    if window < N:
+        raise ValueError(f"compact: segmented compaction (window {window} "
+                         f"< {N}) is not ported; no content level takes it")
+    dev = chosen.device
+    req_seq = max_seq
+    max_seq = min(max_seq, N)
+    rank = chosen.to(torch.int64).cumsum(1) - 1
+    slot = torch.where(chosen & (rank < max_seq), rank, max_seq)
+    t2 = torch.full((B, max_seq + 1), BIG, dtype=torch.int32, device=dev)
+    l2 = torch.zeros((B, max_seq + 1), dtype=torch.int32, device=dev)
+    o2 = torch.zeros_like(l2)
+    idx = torch.arange(N, dtype=torch.int32, device=dev).expand(B, N)
+    t2.scatter_(1, slot, idx)
+    l2.scatter_(1, slot, mlen)
+    o2.scatter_(1, slot, moff)
+    t2, l2, o2 = t2[:, :max_seq], l2[:, :max_seq], o2[:, :max_seq]
+    nseq = chosen.sum(1).to(torch.int32)
+    valid = torch.arange(max_seq, device=dev)[None, :] < nseq[:, None]
+    end = t2 + l2
+    prev_end = torch.zeros_like(end)
+    prev_end[:, 1:] = end[:, :-1]
+    lit = torch.where(valid, t2 - prev_end, 0)
+    ml = torch.where(valid, l2, 0)
+    off = torch.where(valid, o2, 0)
+    last_end = torch.where(valid, end, 0).amax(1)
+    if req_seq > max_seq:
+        pad = (0, req_seq - max_seq)
+        lit, off, ml = (torch.nn.functional.pad(a, pad)
+                        for a in (lit, off, ml))
+    return {
+        "lit_len": lit, "offset": off, "match_len": ml,
+        "nseq": torch.clamp(nseq, max=max_seq),
+        "last_literals": lengths.to(torch.int32) - last_end,
+        "overflow": nseq > max_seq,
+    }
+
+
+def pack_outputs(out: dict, max_seq: int) -> torch.Tensor:
+    """All compaction outputs in ONE (B, max_seq+1, 2) int32 array, one
+    device-to-host copy (reference: match_pipeline.pack_outputs):
+      row 0:   [nseq, last_literals << 1 | overflow]
+      row s+1: [lit_len << 16 | match_len, offset]
+    Match lengths are capped at 65535 (longer ones continue as chained
+    same-offset sequences that the host coalesce merges); a literal run
+    longer than 65535 sets overflow."""
+    lit = out["lit_len"].to(torch.int64)
+    ml = out["match_len"].to(torch.int64).clamp(max=MAX_LEN)
+    overflow = out["overflow"] | (lit > MAX_LEN).any(1)
+    word0 = glue_kernels._i32((lit.clamp(max=MAX_LEN) << 16) | ml)
+    body = torch.stack([word0, out["offset"]], dim=-1)
+    hdr1 = (out["last_literals"] << 1) | overflow.to(torch.int32)
+    hdr = torch.stack([out["nseq"], hdr1], dim=-1)[:, None, :]
+    return torch.cat([hdr, body], dim=1)
+
+
+def find_matches_packed(blocks: torch.Tensor, lengths: torch.Tensor,
+                        neighbors: int = 4, max_seq: int = 16384,
+                        lazy: bool = False, stride: int = 1,
+                        window: int = 1 << 30, ldm: int = 0,
+                        ldm_max_off: int = 1 << 18) -> torch.Tensor:
+    """Content-matcher pipeline of levels 5-12, packed-sequences contract:
+    (B, N) uint8 blocks and (B,) int32 lengths -> (B, max_seq+1, 2) int32
+    (see pack_outputs). Port of the reference's find_matches_packed /
+    find_matches_fused content branch: candidates, then with LDM the
+    minimizer plane (B9) -> ldm_unsorted (K3, K2) -> merge_ldm, then the
+    parse (B10), compact and pack."""
+    mlen, moff = content_candidates(blocks, lengths, neighbors, stride,
+                                    window, ldm, ldm_max_off)
+    chosen = parse_kernel.parse_greedy(mlen, lazy)
+    return pack_outputs(compact(chosen, mlen, moff, lengths, max_seq,
+                                window), max_seq)
+
+
+def content_candidates(blocks: torch.Tensor, lengths: torch.Tensor,
+                       neighbors: int = 4, stride: int = 1,
+                       window: int = 1 << 30, ldm: int = 0,
+                       ldm_max_off: int = 1 << 18):
+    """The (mlen, moff) planes the content path's parse reads: candidates,
+    with the LDM claims merged in when the batch is a whole number of
+    `ldm`-block spans."""
+    if ldm and blocks.shape[0] % ldm:
+        ldm = 0  # spans need whole block groups; partial batches skip LDM
+    mlen, moff = candidates(blocks, lengths, neighbors, stride, window)
+    if ldm:
+        # (1 << 18) - 1: an offset of 2^18 would not fit the reference's
+        # segmented payload; the bound is kept so the claims are equal.
+        max_off = min(ldm_max_off, (1 << 18) - 1)
+        minz = glue_kernels.ldm_winmin(
+            blocks, glue_kernels.ldm_stride(ldm, blocks.shape[1]))
+        su_l = glue_kernels.ldm_unsorted(minz, ldm, neighbors=1)
+        mlen, moff = glue_kernels.merge_ldm(mlen, moff, su_l, lengths, ldm,
+                                            local_cap=LCP_CAP,
+                                            max_off=max_off)
+    return mlen, moff
+
+
+def unpack_outputs(packed: np.ndarray) -> dict:
+    """Host-side unpack of pack_outputs (numpy)."""
+    packed = np.asarray(packed)
+    hdr = packed[:, 0, :]
+    word0 = packed[:, 1:, 0].astype(np.int64) & 0xFFFFFFFF
+    return {
+        "nseq": hdr[:, 0],
+        "last_literals": (hdr[:, 1] >> 1).astype(np.int64),
+        "overflow": (hdr[:, 1] & 1).astype(bool),
+        "lit_len": (word0 >> 16).astype(np.int64),
+        "match_len": (word0 & 0xFFFF).astype(np.int64),
+        "offset": packed[:, 1:, 1].astype(np.int64),
+    }

@@ -1,5 +1,4 @@
-"""Where the time of a hash-matcher level's main path goes, on one CUDA
-device.
+"""Where the time of a level's main path goes, on one CUDA device.
 
     python3 -m qat_zstd_plugin_tpu_torch.profile_l1 [--level 1]
         [--seed S] [--mb 64] [--reps 3] [--trace-dir build/profile]
@@ -7,21 +6,26 @@ device.
 Run from the repository root on a machine with a CUDA device. By default
 it drives the same configuration as chip_smoke.py's level-1 main path
 (level 1, 128 KiB blocks, batch 128, the seeded corpus plus a 5000-byte
-tail); --level 2..4 --mb 32 drives the level 2-4 ones (batch 64). It
+tail); --level 2..12 --mb 32 drives the level 2-12 ones (batch 64). It
 prints one JSON object per line:
 
   card          the card's name and power limit, as nvidia-smi gives them;
-  device_half   CUDA-event median ms of find_matches_positions for one
-                batch, its input already on the card;
+  device_half   CUDA-event median ms of the device half (levels 1-4
+                find_matches_positions, 5-12 find_matches_packed) for
+                one batch, its input already on the card;
   device_ops    torch.profiler over 10 such batches: the device time of
                 each kernel (memcpys included) and its share of the total;
   stages        per repetition, seconds per corpus of each host-visible
                 step of the main path, run one after the other and each
                 synchronised: np stack, host-to-device copy, the device
-                half, device-to-host copy, unpack_segments,
-                device_positions_to_claims;
+                half, device-to-host copy, then at levels 1-4
+                unpack_segments and device_positions_to_claims, at 5-12
+                unpack_outputs and the coalesce of each block's
+                sequences (device_outputs_to_sequences);
   host_half     per repetition, seconds of finish_block_host over every
-                full block on a thread pool, from claims made beforehand;
+                full block on a thread pool, from the claims or sequences
+                made beforehand (at 5-12 a block whose device output
+                overflowed is matched on the host here);
   e2e           per repetition, seconds and MB/s of GpuCodec.compress;
   e2e_profiled  one more e2e call under torch.profiler: the card's busy
                 time (union of its kernel and memcpy intervals) against
@@ -46,7 +50,7 @@ import torch
 
 BLOCK = 131072
 BATCH = 128  # level 1 (bench.py's headline batch)
-DENSE_BATCH = 64  # levels 2-4 (bench.py's device level ladder)
+DENSE_BATCH = 64  # levels 2-12 (bench.py's device level ladder)
 TAIL = 5000
 
 
@@ -109,12 +113,10 @@ def _write_table(prof, path: str) -> None:
 
 def profile(seed: int, mb: int, reps: int, trace_dir: str,
             level: int = 1) -> None:
-    from qat_zstd_plugin_tpu.runtime.tpu_codec import \
-        device_positions_to_claims
-
     from .corpus import make_corpus
     from .ops import _build, match_pipeline
-    from .runtime.gpu_codec import GpuCodec
+    from .runtime.gpu_codec import (GpuCodec, device_outputs_to_sequences,
+                                    device_positions_to_claims)
 
     batch = BATCH if level == 1 else DENSE_BATCH
 
@@ -130,6 +132,7 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
     buf = np.frombuffer(corpus, np.uint8)
     codec = GpuCodec(level=level, batch=batch, device="cuda")
     run = codec._pipeline()
+    content = codec.params.matcher != "hash"
     nfull = len(buf) // BLOCK
     starts = range(0, nfull, batch)
 
@@ -169,13 +172,20 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
             xb, xl = timed(acc, "h2d", lambda: (
                 torch.from_numpy(blk).to(dev),
                 torch.from_numpy(lens).to(dev)), sync=True)
-            slots = timed(acc, "device_half", lambda: run(xb, xl), sync=True)
-            words = timed(acc, "d2h",
-                          lambda: slots.cpu().numpy().view(np.uint32))
-            per = timed(acc, "unpack", lambda: match_pipeline.unpack_segments(
-                words, b, codec.params.window))
-            got = timed(acc, "claims", lambda: [
-                device_positions_to_claims(p, o, BLOCK) for p, o in per])
+            res = timed(acc, "device_half", lambda: run(xb, xl), sync=True)
+            host = timed(acc, "d2h", lambda: res.cpu().numpy())
+            if content:
+                out = timed(acc, "unpack_outputs",
+                            lambda: match_pipeline.unpack_outputs(host))
+                got = timed(acc, "coalesce", lambda: [
+                    device_outputs_to_sequences(out, i) for i in range(b)])
+            else:
+                per = timed(acc, "unpack", lambda: match_pipeline
+                            .unpack_segments(host.view(np.uint32), b,
+                                             codec.params.window))
+                got = timed(acc, "claims", lambda: [
+                    device_positions_to_claims(p, o, BLOCK)
+                    for p, o in per])
             claims.update((s + i, c) for i, c in enumerate(got))
         emit("stages", rep=rep, batches=len(starts), seconds=acc,
              total_s=sum(acc.values()))
@@ -186,7 +196,7 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
         with ThreadPoolExecutor(workers) as pool:
             t0 = time.perf_counter()
             list(pool.map(lambda i: codec.finish_block_host(
-                buf, i, claims[i], None), range(nfull)))
+                buf, i, claims[i]), range(nfull)))
             seconds = time.perf_counter() - t0
         emit("host_half", rep=rep, blocks=nfull, seconds=seconds,
              workers=workers)
@@ -201,7 +211,8 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
         seconds = time.perf_counter() - t0
         emit("e2e", rep=rep, seconds=seconds,
              mbs=len(corpus) / seconds / 1e6, ratio=len(frame) / len(corpus),
-             device_blocks=c.device_blocks)
+             device_blocks=c.device_blocks,
+             overflow_blocks=c.overflow_blocks)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -218,7 +229,7 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--level", type=int, default=1, choices=(1, 2, 3, 4))
+    ap.add_argument("--level", type=int, default=1, choices=range(1, 13))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mb", type=int, default=64,
                     help="corpus size in MiB (plus a tail)")

@@ -1,5 +1,6 @@
 """Process-level device state on torch.cuda (reference:
-qat_zstd_plugin_tpu.runtime.device).
+qat_zstd_plugin_tpu.runtime.device, whose `Status` and
+`RETRY_INTERVAL_BLOCKS` are copied here).
 
 The same tri-state contract: OK when a CUDA device is present, STARTED
 (degraded) when torch runs but sees none, FAIL before a start or after a
@@ -9,12 +10,23 @@ for device="cuda" gets the CUDA kernels or an error.
 
 from __future__ import annotations
 
+import enum
 import threading
 from dataclasses import dataclass, field
 
 import torch
 
-from qat_zstd_plugin_tpu.runtime.device import RETRY_INTERVAL_BLOCKS, Status
+
+class Status(enum.Enum):
+    """Tri-state init result (QZSTD_Status_e of the reference plugin)."""
+    OK = 0        # accelerator up and usable
+    STARTED = 1   # runtime up but no accelerator (degraded)
+    FAIL = 2      # not started
+
+
+# Restart cadence after repeated offload failures (the reference plugin's
+# NUM_BLOCK_OF_RETRY_INTERVAL).
+RETRY_INTERVAL_BLOCKS = 1000
 
 __all__ = ["RETRY_INTERVAL_BLOCKS", "Status", "devices",
            "note_offload_failure", "start_device", "status", "stop_device"]

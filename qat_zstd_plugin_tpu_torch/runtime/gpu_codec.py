@@ -1,17 +1,27 @@
-"""GpuCodec: the reference codec's host orchestration around the port's
-device pipeline.
+"""GpuCodec: batched block compression with the device half on one torch
+device.
 
-`GpuCodec` is `TpuCodec` with the device half swapped: full blocks go in
-batches through ops.match_pipeline.find_matches_positions on an explicit
-torch device (the CUDA kernels on "cuda", their plain-torch twins on
-"cpu"), and everything after the slot words (claims, native extension,
-gap fill, entropy, frame) is the reference's own code, so the frames are
-byte-identical to TpuCodec's at the same level and batch size.
+Port of qat_zstd_plugin_tpu.runtime.tpu_codec (`TpuCodec` and the module
+functions its device path reaches), restricted to the branches the port
+takes: host entropy coding through the port's native runtime, no golden
+Python path, no device entropy, no second parse. Full blocks go in
+batches through the device half on an explicit torch device (the CUDA
+kernels on "cuda", their plain-torch twins on "cpu"):
 
-Unlike TpuCodec it hides no device failure: it requires the native host
-runtime (TpuCodec silently swaps to the content matcher without it), and
-its own compress_bodies loop raises an error from the device pipeline
-where the reference's re-matches the batch on the CPU.
+  * levels 1-4, the hash matcher: ops.match_pipeline.find_matches_positions
+    -> slot words -> claim positions, which the native extension walk
+    verifies and extends, then gap fill;
+  * levels 5-12, the content matcher: ops.match_pipeline.find_matches_packed
+    -> packed sequences -> coalesced, then the deep-level selector picks
+    the hinted chain parse or the extension walk plus gap fill per block.
+
+The frames equal TpuCodec's byte for byte at the same level, batch size
+and max_seq. The short tail block is matched on the host, and so is a
+content-level block whose device output overflows (more sequences than
+max_seq, or a literal run over 65535): that is the packed output's
+format contract, as in the reference, and such blocks are counted in
+`overflow_blocks`. A device error is raised where it happens; no batch is
+re-matched on the CPU.
 """
 
 from __future__ import annotations
@@ -21,54 +31,112 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from qat_zstd_plugin_tpu import native
-from qat_zstd_plugin_tpu.golden import codec as golden_codec
-from qat_zstd_plugin_tpu.runtime.tpu_codec import (TpuCodec,
-                                                   device_positions_to_claims)
-from qat_zstd_plugin_tpu.utils.profiling import Timer
-
+from .. import native
+from ..format import BLOCK_SIZE_MAX, BlockSequences, assemble_frame
 from ..ops import match_pipeline
+from .levels import TPU_LEVEL_TABLE, level_params
+from .stats import BlockStats, Timer
+
+QUEUE_DEPTH = 3  # device batches in flight
 
 
-class GpuCodec(TpuCodec):
+def coalesce_sequences(lit: np.ndarray, off: np.ndarray, ml: np.ndarray
+                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Merge chains of capped matches: zero-literal successors with the
+    same offset extend the previous match."""
+    if len(lit) == 0:
+        return lit, off, ml
+    same = (lit == 0) & (off == np.roll(off, 1))
+    same[0] = False
+    starts = np.flatnonzero(~same)
+    return lit[starts], off[starts], np.add.reduceat(ml, starts)
+
+
+def device_positions_to_claims(pos: np.ndarray, off: np.ndarray,
+                               block_len: int) -> BlockSequences:
+    """Segment-slots unpack: length-less claims from claim positions. Each
+    claim spans to the next one (the last gets 4 bytes); the native
+    extension pass recomputes true literal runs and match lengths."""
+    ns = len(pos)
+    lit = np.zeros(ns, np.int64)
+    ml = np.empty(ns, np.int64)
+    last_lit = block_len
+    if ns:
+        lit[0] = pos[0]
+        ml[:-1] = pos[1:] - pos[:-1]
+        ml[-1] = 4
+        last_lit = block_len - int(pos[-1]) - 4
+    return BlockSequences(lit, off, ml, last_lit)
+
+
+def deep_parse_pick(level: int, share: float, ctx_find: int,
+                    block_size: int) -> bool:
+    """Deep-level (L5+) parse selector: True -> hinted chain parse, False
+    -> the extension walk over the device parse. Dense text-like parses
+    (low literal share) want the chain parse, as do the first two blocks
+    of a window (little context behind their device claims)."""
+    bar = 0.13 if level >= 7 else 0.05
+    return share < bar or (ctx_find < 2 * block_size and share < 0.40)
+
+
+def device_outputs_to_sequences(out: dict, block_index: int
+                                ) -> BlockSequences | None:
+    """One block's coalesced sequences from unpacked device outputs; None
+    when the device flagged overflow."""
+    if bool(out["overflow"][block_index]):
+        return None
+    ns = int(out["nseq"][block_index])
+    lit, off, ml = coalesce_sequences(
+        out["lit_len"][block_index, :ns].astype(np.int64),
+        out["offset"][block_index, :ns].astype(np.int64),
+        out["match_len"][block_index, :ns].astype(np.int64))
+    return BlockSequences(lit, off, ml,
+                          int(out["last_literals"][block_index]))
+
+
+class GpuCodec:
     """Batched block compressor on one torch device."""
 
     def __init__(self, level: int = 1, batch: int | None = None,
-                 block_size: int | None = None,
+                 block_size: int | None = None, max_seq: int = 16384,
                  device: str | torch.device = "cuda"):
-        super().__init__(level=level, batch=batch, block_size=block_size,
-                         use_device=True, device_entropy=False)
-        if self.params.matcher != "hash":
-            raise NotImplementedError(
-                f"level {level}: only the hash-matcher levels 1-4 are "
-                "ported")
+        if level not in TPU_LEVEL_TABLE:
+            raise ValueError(f"unsupported level {level}: supported range "
+                             "1..12")
+        self.level = level
+        self.params = TPU_LEVEL_TABLE[level]
+        self.host = level_params(level)
+        self.batch = 8 if batch is None else batch
+        self.block_size = BLOCK_SIZE_MAX if block_size is None else block_size
+        self.max_seq = max_seq
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device={str(self.device)!r}: torch sees no "
                                "CUDA device")
-        if not native.available():
-            raise RuntimeError("the native host runtime is required: it "
-                               "verifies the device's hash claims")
-        self.device_blocks = 0  # full blocks matched by the device pipeline
-
-    def _resolve_parser(self) -> str:
-        # Dense claims: no parser runs on the device. (The inherited
-        # version asks JAX for its backend.)
-        return "none"
+        native.load()  # the host half; raises if it cannot be built
+        self.stats = BlockStats()
+        self.device_blocks = 0    # full blocks matched by the device half
+        self.overflow_blocks = 0  # of those, re-matched on the host
+        self._fn = None
 
     def _pipeline(self):
         if self._fn is None:
             p = self.params
-            wlog = golden_codec.level_params(self.level).window_log
-
-            def run(blocks, lengths):
-                return match_pipeline.find_matches_positions(
-                    blocks, lengths, widths=p.widths, neighbors=p.neighbors,
-                    window=p.window, ldm=p.ldm, ldm_max_off=1 << wlog,
-                    dense=p.dense, sync=p.sync)
-
+            wlog = self.host.window_log
+            if p.matcher == "hash":
+                def run(blocks, lengths):
+                    return match_pipeline.find_matches_positions(
+                        blocks, lengths, widths=p.widths,
+                        neighbors=p.neighbors, window=p.window, ldm=p.ldm,
+                        ldm_max_off=1 << wlog, dense=p.dense, sync=p.sync)
+            else:
+                def run(blocks, lengths):
+                    return match_pipeline.find_matches_packed(
+                        blocks, lengths, neighbors=p.neighbors,
+                        max_seq=self.max_seq, lazy=p.lazy, stride=p.stride,
+                        window=p.window, ldm=p.ldm, ldm_max_off=1 << wlog)
             self._fn = run
         return self._fn
 
@@ -86,38 +154,103 @@ class GpuCodec(TpuCodec):
         lengths = torch.from_numpy(lengths_np).to(self.device)
         return b, lengths_np, self._pipeline()(blocks, lengths)
 
-    def collect_batch(self, handle):
-        """Wait for a submitted batch; returns (claims, None) per block."""
-        b, lengths, slots = handle
-        words = slots.cpu().numpy().view(np.uint32)
-        per_block = match_pipeline.unpack_segments(words, self.batch,
-                                                   self.params.window)
+    def collect_batch(self, handle) -> list[BlockSequences | None]:
+        """Wait for a submitted batch; returns each block's sequences
+        (claims at levels 1-4), None for a block that overflowed."""
+        b, lengths, result = handle
         self.device_blocks += b
-        return [(device_positions_to_claims(p, o, lengths[i]), None)
-                for i, (p, o) in enumerate(per_block[:b])]
+        if self.params.matcher == "hash":
+            words = result.cpu().numpy().view(np.uint32)
+            per_block = match_pipeline.unpack_segments(words, self.batch,
+                                                       self.params.window)
+            return [device_positions_to_claims(p, o, lengths[i])
+                    for i, (p, o) in enumerate(per_block[:b])]
+        out = match_pipeline.unpack_outputs(result.cpu().numpy())
+        seqs = [device_outputs_to_sequences(out, i) for i in range(b)]
+        self.overflow_blocks += sum(s is None for s in seqs)
+        return seqs
 
-    def compress_bodies(self, buf: np.ndarray, validate: bool = False,
-                        frame_start: bool = True) -> list[bytes | None]:
+    def compress(self, data: bytes | np.ndarray,
+                 checksum: bool = True) -> bytes:
+        buf = np.frombuffer(data, dtype=np.uint8) if not isinstance(
+            data, np.ndarray) else np.ascontiguousarray(data, np.uint8)
+        bodies = self.compress_bodies(buf)
+        return assemble_frame(buf, bodies, self.block_size, checksum,
+                              window_log=self.host.window_log)
+
+    def finish_block_host(self, buf: np.ndarray, i: int,
+                          seqs: BlockSequences | None) -> bytes | None:
+        """Host half of block i of the whole frame buffer `buf`: the deep
+        selector's chain parse, or extension plus gap fill, of the device
+        sequences; or, for seqs None (the tail block, an overflowed
+        block), the host matcher; then the entropy coder. None => raw."""
+        n = len(buf)
+        bs = self.block_size
+        gp = self.host
+        # Cross-block context: matchers that discover offsets get
+        # ctx <= window - block so every find stays inside the frame
+        # window; the extension pass only verifies device offsets and may
+        # see the full window (LDM claims reach (window - block, window]).
+        win = 1 << gp.window_log
+        blk = buf[i * bs:min((i + 1) * bs, n)]
+        if len(blk) < 64:
+            return None
+        ctx = min(i * bs, win)
+        ctx_find = min(i * bs, max(0, win - bs))
+        cblk = buf[i * bs - ctx:min((i + 1) * bs, n)]
+        deep_hinted = False
+        if seqs is not None and seqs.nseq and self.level >= 5:
+            share = float(seqs.lit_lengths.sum()
+                          + seqs.last_literals) / len(blk)
+            deep_hinted = deep_parse_pick(self.level, share, ctx_find, bs)
+        if deep_hinted:
+            hpos = (np.cumsum(seqs.lit_lengths + seqs.match_lengths)
+                    - seqs.match_lengths)
+            seqs = BlockSequences(*native.find_sequences_hinted(
+                cblk[ctx - ctx_find:], gp.chain_depth, gp.lazy, hpos,
+                seqs.match_lengths, seqs.offsets, ctx_len=ctx_find,
+                mml=gp.mml))
+        elif seqs is not None and seqs.nseq:
+            ll, of, ml, lastlit = native.extend_sequences(
+                cblk, seqs.lit_lengths, seqs.offsets, seqs.match_lengths,
+                seqs.last_literals, ctx_len=ctx, max_off=win)
+            # Re-match the literal runs left behind against the whole
+            # block and the window context; the hash levels scan with the
+            # extension walk's relaxed economics and a deeper chain.
+            fast = self.params.matcher == "hash"
+            seqs = BlockSequences(*native.fill_gaps(
+                cblk[ctx - ctx_find:], ll, of, ml, lastlit,
+                ctx_len=ctx_find,
+                chain_depth=max(gp.chain_depth, 8 if fast else 16),
+                mml=gp.mml, min_gap=4, relaxed=fast))
+        if seqs is None:
+            try:
+                seqs = BlockSequences(*native.find_sequences(
+                    cblk[ctx - ctx_find:], gp.chain_depth, gp.lazy,
+                    ctx_len=ctx_find, mml=gp.mml))
+            except OverflowError:
+                return None
+        return native.block_body(
+            blk, seqs.lit_lengths, seqs.offsets, seqs.match_lengths,
+            seqs.last_literals, self.params.custom_tables
+            and gp.custom_tables, self.params.huffman, first_block=i == 0)
+
+    def compress_bodies(self, buf: np.ndarray) -> list[bytes | None]:
         """Per-block Compressed_Block bodies (None => raw block).
 
-        TpuCodec.compress_bodies without its CPU re-match: the full blocks
-        go to the device in batches, QUEUE_DEPTH batches in flight while
-        earlier ones are collected and finished on a host thread pool, and
-        a device error is raised where it happens. The short tail block is
-        matched on the host, as in the reference: that is the format's
-        contract, not a fallback."""
+        The full blocks go to the device in batches, QUEUE_DEPTH batches
+        in flight while earlier ones are collected and finished on a host
+        thread pool, and a device error is raised where it happens. The
+        short tail block is matched on the host."""
         buf = np.ascontiguousarray(buf, np.uint8)
         n = len(buf)
         bs = self.block_size
         nblocks = max(1, -(-n // bs))
         nfull = n // bs
-        QUEUE_DEPTH = 3
 
-        def finish_block(i: int, seqs, dev_section=None) -> bytes | None:
+        def finish_block(i: int, seqs) -> bytes | None:
             with Timer() as tm:
-                body = self.finish_block_host(buf, i, seqs, dev_section,
-                                              frame_start=frame_start,
-                                              validate=validate)
+                body = self.finish_block_host(buf, i, seqs)
             self.stats.record(min(n - i * bs, bs),
                               len(body) if body else None, tm.elapsed)
             return body
@@ -128,8 +261,8 @@ class GpuCodec(TpuCodec):
 
             def collect_one() -> None:
                 ids, handle = inflight.pop(0)
-                for i, (sq, sec) in zip(ids, self.collect_batch(handle)):
-                    futures[i] = pool.submit(finish_block, i, sq, sec)
+                for i, sq in zip(ids, self.collect_batch(handle)):
+                    futures[i] = pool.submit(finish_block, i, sq)
 
             for s in range(0, nfull, self.batch):
                 ids = range(s, min(s + self.batch, nfull))

@@ -45,7 +45,8 @@ def test_a_source_edit_or_new_file_changes_the_library(tmp_path):
 def test_every_source_is_compiled_and_bound():
     """One nvcc per .cu file; every entry point has argument types."""
     names = [os.path.basename(s) for s in _build._sources()]
-    assert names == ["dense_kernels.cu", "l1_kernels.cu"]
+    assert names == ["content_kernels.cu", "dense_kernels.cu",
+                     "l1_kernels.cu"]
     text = "".join(open(s).read() for s in _build._sources())
     for name, argtypes in _build.SIGNATURES.items():
         assert f"int {name}(" in text, name

@@ -1,18 +1,17 @@
-"""The port's frames at levels 1-4 against the JAX package's, on the CPU.
+"""The port's frames at levels 1-12 against the JAX package's, on the CPU.
 
 GpuCodec(device="cpu") runs the kernels' plain-torch twins; TpuCodec runs
-the Pallas kernels in interpret mode. Both share the host half, so their
-frames must be equal byte for byte at the same batch size, and stock
-libzstd must decode them.
+the Pallas kernels in interpret mode. Their host halves are the same code
+(the port's own copy), so their frames must be equal byte for byte at the
+same batch size, and stock libzstd must decode them.
 """
 
 import numpy as np
 import pytest
 
-from qat_zstd_plugin_tpu import native, oracle
+from qat_zstd_plugin_tpu import oracle
 from qat_zstd_plugin_tpu.runtime.tpu_codec import TpuCodec
-from qat_zstd_plugin_tpu.runtime import device as jax_device
-from qat_zstd_plugin_tpu_torch import GpuCodec, compress, decompress
+from qat_zstd_plugin_tpu_torch import GpuCodec, compress, decompress, native
 from qat_zstd_plugin_tpu_torch.corpus import make_corpus as make_data
 
 BLOCK = 131072
@@ -35,7 +34,7 @@ def test_frames_equal_tpu_codec(case):
     assert got == want
     assert oracle.decompress(got, len(data)) == data
     assert codec.device_blocks == nbytes // BLOCK
-    assert codec.fallback_batches == 0
+    assert codec.overflow_blocks == 0
     assert codec.stats.fallback_blocks == 0
 
 
@@ -59,8 +58,35 @@ def test_dense_level_frames_equal_tpu_codec(case):
     assert got == want
     assert oracle.decompress(got, len(data)) == data
     assert codec.device_blocks == nfull
-    assert codec.fallback_batches == 0
+    assert codec.overflow_blocks == 0
     assert codec.stats.fallback_blocks == 0
+
+
+CONTENT_CASES = {  # level, full blocks, tail bytes, batch, max_seq
+    "L5_8_blocks_tail_batch4": (5, 8, 5000, 4, 16384),
+    "L9_8_blocks_tail_batch4": (9, 8, 5000, 4, 16384),
+    "L12_8_blocks_tail_batch8": (12, 8, 5000, 8, 16384),
+    "L5_8_blocks_tail_batch6_no_ldm": (5, 8, 5000, 6, 16384),  # 6 % 4
+    "L9_max_seq_1024_overflow": (9, 8, 5000, 4, 1024),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONTENT_CASES))
+def test_content_level_frames_equal_tpu_codec(case):
+    """Levels 5-12, the exact-LCP content path with the greedy/lazy parse:
+    the frames equal TpuCodec's at the same level, batch size and max_seq
+    and decode. With max_seq 1024 every block's device output overflows
+    and both codecs re-match those blocks on the host."""
+    level, nfull, tail, batch, max_seq = CONTENT_CASES[case]
+    data = make_data(nfull * BLOCK + tail, seed=level + batch)
+    want = TpuCodec(level=level, batch=batch, max_seq=max_seq).compress(data)
+    codec = GpuCodec(level=level, batch=batch, max_seq=max_seq, device="cpu")
+    got = codec.compress(data)
+    assert got == want
+    assert oracle.decompress(got, len(data)) == data
+    assert codec.device_blocks == nfull
+    assert codec.stats.fallback_blocks == 0
+    assert (codec.overflow_blocks > 0) == (max_seq < 16384)
 
 
 def test_compress_entry_point_and_decompress():
@@ -82,23 +108,18 @@ def test_short_input_stays_on_host():
 
 
 def _no_cpu_rematch(codec, monkeypatch):
-    """Make a CPU re-match of a full block, or a call into the reference's
-    JAX device state, fail the test; returns the blocks the host finished."""
+    """Make a CPU re-match of a full block fail the test; returns the
+    blocks the host finished."""
     finished = []
     host = codec.finish_block_host
 
-    def finish(buf, i, seqs, *a, **k):
+    def finish(buf, i, seqs):
         if seqs is None and (i + 1) * BLOCK <= len(buf):
             raise AssertionError(f"full block {i} re-matched on the CPU")
         finished.append(i)
-        return host(buf, i, seqs, *a, **k)
-
-    def jax_state(*a, **k):
-        raise AssertionError("the reference's device state was touched")
+        return host(buf, i, seqs)
 
     monkeypatch.setattr(codec, "finish_block_host", finish)
-    for name in ("note_offload_failure", "stop_device", "start_device"):
-        monkeypatch.setattr(jax_device, name, jax_state)
     return finished
 
 
@@ -115,7 +136,7 @@ def test_device_error_propagates(nblocks, monkeypatch):
     monkeypatch.setattr(codec, "_pipeline", lambda: broken)
     with pytest.raises(RuntimeError, match="device lost"):
         codec.compress(make_data(nblocks * BLOCK + 100, seed=13))
-    assert finished == [] and codec.fallback_batches == 0
+    assert finished == [] and codec.device_blocks == 0
     assert codec.stats.fallback_blocks == 0
 
 
@@ -131,7 +152,7 @@ def test_collect_error_propagates(monkeypatch):
     with pytest.raises(RuntimeError, match="lost at collect"):
         codec.compress(make_data(7 * BLOCK + 100, seed=14))
     assert finished == []  # batch 0 is collected before the tail is queued
-    assert codec.fallback_batches == 0
+    assert codec.stats.fallback_blocks == 0
 
 
 def test_error_in_a_later_batch_propagates(monkeypatch):
@@ -155,15 +176,20 @@ def test_error_in_a_later_batch_propagates(monkeypatch):
     assert codec.device_blocks == 2
 
 
-def test_requires_native_runtime(monkeypatch):
-    monkeypatch.setattr(native, "available", lambda: False)
+def test_requires_native_runtime(monkeypatch, tmp_path):
+    """Without a compiler for the port's own host runtime, the codec
+    raises; it never goes on without it."""
+    monkeypatch.setattr(native, "CXX", "no-such-compiler")
+    monkeypatch.setattr(native, "BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(native, "_lib", None)
     with pytest.raises(RuntimeError, match="native"):
         GpuCodec(level=1, device="cpu")
 
 
 def test_only_level_1_is_ported():
-    """Levels 1-4 (the hash matcher) are ported; the content levels
-    5-12 are not."""
-    for level in (5, 12):
-        with pytest.raises(NotImplementedError):
+    """Levels 1-12 construct; 0 and 13 raise ValueError."""
+    for level in range(1, 13):
+        assert GpuCodec(level=level, device="cpu").level == level
+    for level in (0, 13):
+        with pytest.raises(ValueError):
             GpuCodec(level=level, device="cpu")

@@ -13,6 +13,7 @@ import torch
 from qat_zstd_plugin_tpu_torch import compress
 from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
 from qat_zstd_plugin_tpu_torch.ops import match_pipeline as tmp
+from qat_zstd_plugin_tpu_torch.ops import parse_kernel as pk
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +62,7 @@ def test_neighbor_unsort_and_ldm_keys(cuda):
 LENGTHS = np.array([N, N - 1, N // 2, 100, 0, N, N, 7], np.int32)
 L1_KERNELS = ("hash_keys_winmin_sync", "neighbor_unsort_keys", "ldm_keys",
               "compact_slots_sync")
+CONTENT_KERNELS = ("ldm_winmin", "parse_greedy")
 
 
 def test_slot_words_card_vs_cpu(cuda):
@@ -134,5 +136,48 @@ def test_l4_frames_card_vs_cpu(cuda):
     tk.reset_launches()
     on_card = compress(data, level=4, batch=8, device="cuda")
     assert all(n > 0 for k, n in tk.launches.items() if k not in L1_KERNELS
-               and k != "hash_keys_winmin")  # batch 8 < 16: no LDM
+               + CONTENT_KERNELS and k != "hash_keys_winmin")  # 8 < 16: no LDM
     assert on_card == compress(data, level=4, batch=8, device="cpu")
+
+
+@pytest.mark.parametrize("stride", [32, 64])
+def test_ldm_winmin(cuda, stride):
+    x = torch.from_numpy(_blocks()).to(cuda)
+    assert torch.equal(tk.ldm_winmin(x, stride), tk.ldm_winmin_twin(x, stride))
+    assert torch.equal(tk.ldm_winmin(x, stride),
+                       tk.hash_keys_winmin(x, 6, WINDOW, stride)[1])
+
+
+def _parse_rows(B=8, n=N, seed=3):
+    """All-zero rows, rows with every length >= 4, matches across the
+    kernel's 4096-position chunk edges, lazy ties, a match that ends exactly
+    at n and one that passes it."""
+    rng = np.random.default_rng(seed)
+    m = np.where(rng.random((B, n)) < 0.3, rng.integers(0, 40, (B, n)), 0)
+    m = m.astype(np.int32)
+    m[0] = 0
+    m[1] = rng.integers(4, 9, n)
+    m[2] = 7
+    m[3, 4096 - 5::4096] = 30
+    m[4, n - 20] = 20
+    m[5, n - 3:] = 60
+    return m
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+def test_parse_greedy(cuda, lazy):
+    for mlen in (_parse_rows(), _parse_rows(B=6, n=20000, seed=4)):
+        m = torch.from_numpy(mlen).to(cuda)
+        got = pk.parse_greedy(m, lazy)
+        assert torch.equal(got, pk.parse_greedy_twin(m, lazy))
+        assert torch.equal(got.cpu(), pk.parse_greedy(m.cpu(), lazy))
+
+
+def test_content_frames_card_vs_cpu(cuda):
+    data = _blocks(B=8, seed=5).tobytes() + b"tail" * 1000
+    tk.reset_launches()
+    on_card = compress(data, level=5, batch=4, device="cuda")
+    assert all(tk.launches[k] > 0 for k in ("ldm_winmin", "ldm_keys",
+                                            "neighbor_unsort_keys",
+                                            "parse_greedy"))
+    assert on_card == compress(data, level=5, batch=4, device="cpu")

@@ -6,7 +6,11 @@ import torch
 import qat_zstd_plugin_tpu_torch as qzt
 from qat_zstd_plugin_tpu.runtime import device as jax_device
 from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
+from qat_zstd_plugin_tpu_torch.ops import parse_kernel as pk
 from qat_zstd_plugin_tpu_torch.runtime import device
+
+# The module that holds each kernel's wrapper and twin.
+MODULE = {name: pk if name == "parse_greedy" else tk for name in tk.launches}
 
 
 def test_start_device_status():
@@ -22,7 +26,11 @@ def test_start_device_status():
 
 
 def test_status_is_shared_with_the_reference():
-    assert device.Status is jax_device.Status
+    """The port keeps its own copy of the reference's Status and restart
+    cadence; both equal the reference's, member for member."""
+    assert device.Status is not jax_device.Status
+    assert [(s.name, s.value) for s in device.Status] == \
+        [(s.name, s.value) for s in jax_device.Status]
     assert device.RETRY_INTERVAL_BLOCKS == jax_device.RETRY_INTERVAL_BLOCKS
 
 
@@ -68,6 +76,8 @@ def _meta_calls():
             [keys, keys], u8, lengths, (5, 8), 32768),
         "compact_slots_dense": lambda: tk.compact_slots_dense(
             minz, minz, 32768),
+        "ldm_winmin": lambda: tk.ldm_winmin(u8, 32),
+        "parse_greedy": lambda: pk.parse_greedy(minz, True),
     }
 
 
@@ -77,7 +87,7 @@ def test_wrapper_raises_off_cpu_and_cuda(name, monkeypatch):
     def no_twin(*a, **k):
         raise AssertionError("twin called for a non-CPU tensor")
 
-    monkeypatch.setattr(tk, f"{name}_twin", no_twin)
+    monkeypatch.setattr(MODULE[name], f"{name}_twin", no_twin)
     before = dict(tk.launches)
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         _meta_calls()[name]()
@@ -107,6 +117,10 @@ def test_wrapper_rejects_wrong_dtype(name):
         "compact_slots_dense": lambda: tk.compact_slots_dense(
             torch.zeros((2, 64), dtype=torch.int32),
             torch.zeros((2, 64), dtype=torch.uint8), 64),
+        "ldm_winmin": lambda: tk.ldm_winmin(
+            torch.zeros((2, 64), dtype=torch.int32), 32),
+        "parse_greedy": lambda: pk.parse_greedy(
+            torch.zeros((2, 64), dtype=torch.int64)),
     }[name]
     with pytest.raises(ValueError):
         call()
@@ -120,4 +134,5 @@ def test_cpu_run_counts_no_launch():
     tk.find_matches_positions(blocks, lengths, widths=(5, 8), ldm=4,
                               dense=True)
     tk.find_matches_positions(blocks, lengths, widths=(5, 8), dense=True)
+    qzt.compress(bytes(range(256)) * 1100, level=5, batch=4, device="cpu")
     assert all(n == 0 for n in tk.launches.values())

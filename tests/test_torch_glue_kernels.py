@@ -290,17 +290,17 @@ def test_unpack_segments_matches_reference():
 
 def test_only_the_sync_path_is_ported():
     """Only the dense branches of find_matches_positions are ported (sync
-    and full resolution); GpuCodec takes the hash-matcher levels, which
-    are all dense, and refuses the content levels."""
+    and full resolution); the hash-matcher levels are all dense, and the
+    content levels take find_matches_packed, not this path."""
     from qat_zstd_plugin_tpu.runtime.tpu_codec import TPU_LEVEL_TABLE
     from qat_zstd_plugin_tpu_torch import GpuCodec
     for level, p in sorted(TPU_LEVEL_TABLE.items()):
+        codec = GpuCodec(level=level, device="cpu")
+        assert codec.level == level
         if p.matcher == "hash":
             assert p.dense
-            assert GpuCodec(level=level, device="cpu").level == level
         else:
-            with pytest.raises(NotImplementedError):
-                GpuCodec(level=level, device="cpu")
+            assert codec.params.matcher == "content" and level >= 5
     assert [lv for lv, p in TPU_LEVEL_TABLE.items() if p.sync] == [1]
     blocks = torch.zeros((4, WINDOW), dtype=torch.uint8)
     with pytest.raises(NotImplementedError):

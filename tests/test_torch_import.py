@@ -1,10 +1,13 @@
-"""The port runs with jax unimportable.
+"""The port runs with jax and the JAX package unimportable.
 
 tests/conftest.py imports jax into this process, so each check runs in a
-subprocess whose import hook refuses jax and jaxlib.
+subprocess whose import hook refuses jax, jaxlib and qat_zstd_plugin_tpu
+(the exact top-level name: the port, qat_zstd_plugin_tpu_torch, stays
+importable).
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -17,8 +20,8 @@ BLOCK_JAX = """
 import sys
 class _NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split('.')[0] in ('jax', 'jaxlib'):
-            raise ImportError('jax is blocked')
+        if name.split('.')[0] in ('jax', 'jaxlib', 'qat_zstd_plugin_tpu'):
+            raise ImportError(name + ' is blocked')
         return None
 sys.meta_path.insert(0, _NoJax())
 sys.path.insert(0, {repo!r})
@@ -27,11 +30,14 @@ sys.path.insert(0, {repo!r})
 SCRIPTS = {
     "import": """
 import qat_zstd_plugin_tpu_torch as qzt
-from qat_zstd_plugin_tpu_torch.ops import _build, glue_kernels, match_pipeline
-from qat_zstd_plugin_tpu_torch.runtime import device, gpu_codec
-from qat_zstd_plugin_tpu_torch import corpus, profile_l1
+from qat_zstd_plugin_tpu_torch.ops import (_build, glue_kernels,
+                                          match_pipeline, parse_kernel)
+from qat_zstd_plugin_tpu_torch.runtime import device, gpu_codec, levels, stats
+from qat_zstd_plugin_tpu_torch import (corpus, format, native, oracle,
+                                       profile_l1)
 assert qzt.GpuCodec is gpu_codec.GpuCodec
 assert 'jax' not in sys.modules
+assert 'qat_zstd_plugin_tpu' not in sys.modules
 print('ok')
 """,
     "compress": """
@@ -39,11 +45,13 @@ import numpy as np
 import qat_zstd_plugin_tpu_torch as qzt
 rng = np.random.default_rng(0)
 data = (rng.integers(0, 8, 131072 * 4 + 999, np.uint8)).tobytes()
-codec = qzt.GpuCodec(level=1, batch=4, device='cpu')
-frame = codec.compress(data)
-assert qzt.decompress(frame, len(data)) == data
-assert codec.device_blocks == 4
+for level in (1, 5):
+    codec = qzt.GpuCodec(level=level, batch=4, device='cpu')
+    frame = codec.compress(data)
+    assert qzt.decompress(frame, len(data)) == data
+    assert codec.device_blocks == 4
 assert 'jax' not in sys.modules
+assert not any(m.split('.')[0] == 'qat_zstd_plugin_tpu' for m in sys.modules)
 print('ok')
 """,
 }
@@ -58,11 +66,23 @@ def test_runs_with_jax_blocked(name):
     assert proc.stdout.strip().endswith("ok")
 
 
-def test_no_jax_import_in_the_port():
+def _port_sources():
+    """Every .py of the port, and chip_smoke.py."""
     for root, _, files in os.walk(PKG):
         for f in files:
             if f.endswith(".py"):
-                with open(os.path.join(root, f)) as fh:
-                    src = fh.read()
-                assert "import jax" not in src, f
-                assert "from jax" not in src, f
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_jax_import_in_the_port():
+    """No import of jax, and none of the JAX package (only of the port,
+    qat_zstd_plugin_tpu_torch), in any .py of the port or chip_smoke.py."""
+    pattern = re.compile(r"^\s*(?:from|import)\s+(jax|qat_zstd_plugin_tpu)"
+                         r"(?![\w])", re.M)
+    for path in _port_sources():
+        with open(path) as fh:
+            src = fh.read()
+        assert "import jax" not in src, path
+        assert "from jax" not in src, path
+        assert not pattern.findall(src), path
