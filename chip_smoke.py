@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the CUDA kernels
 and the host runtime, checks each kernel against its plain-torch twin,
 drives levels 1-4 (the hash matcher) and 5, 9 and 12 (the content
-matcher) end to end and checks every frame with stock libzstd.
+matcher) end to end, and levels 1 and 9 with hybrid device entropy (the
+FSE sequence sections encoded on the card), and checks every frame with
+stock libzstd.
 
     python3 chip_smoke.py [--seed S] [--mb 64]
 
@@ -12,22 +14,29 @@ Run from the repository root on a machine with one CUDA device. Phases
   1. card and build: the card's name and power limit, the nvcc build of
      qat_zstd_plugin_tpu_torch/csrc/ and the g++ build of the port's
      native host runtime;
-  2. kernel vs twin: each of the ten kernels against its plain-torch
+  2. kernel vs twin: each of the fourteen kernels against its plain-torch
      twin on the card, exactly equal, with median CUDA-event times of
      both and the least time the card could take (the bytes the function
      must move at 3.35 TB/s): K1-K4 at level 1's shapes (B=128 blocks of
-     128 KiB), B5-B10 at the level 2-12 shapes (B=64 blocks of 128 KiB,
-     bench.py's device level ladder), on the corpus and on random bytes;
-     K2 also with neighbors=2 on full-resolution rows, K3 also at spans 8
-     and 16; B9 at strides 32 and 64 on corpus, random and mixed bytes;
-     B10 on the L5 and L12 candidate lengths of the B=64 batch and on
-     crafted rows, lazy on and off;
+     128 KiB), B5-B14 at the level 2-12 shapes (B=64 blocks of 128 KiB,
+     bench.py's device level ladder and its hybrid row), on the corpus
+     and on random bytes; K2 also with neighbors=2 on full-resolution
+     rows, K3 also at spans 8 and 16; B9 at strides 32 and 64 on corpus,
+     random and mixed bytes; B10 on the L5 and L12 candidate lengths of
+     the B=64 batch and on crafted rows, lazy on and off; B11 and B13
+     (full and ragged lengths) on corpus, random and mixed bytes; B12 at
+     neighbors 1 and 2; B14 on the L1 and L9 sequences of the batch and
+     on crafted blocks of 0, 1 and 16384 sequences, custom tables on and
+     off (its twin is a Python loop over the steps, timed in its one
+     checking run);
   3. device half: the composed output of each level's device half from
      the kernels on the card against the twins on the CPU, with the ms
      per batch: level 1 at B=128 (LDM on) and B=6 (no whole number of
      LDM spans: LDM off), levels 2, 3 and 4 at B=64 (LDM on), level 4 at
      B=8 (LDM off), levels 5, 9 and 12 at B=64 (LDM on) and level 5 at
-     B=6 (LDM off);
+     B=6 (LDM off); with hybrid device entropy, levels 1 and 9 at B=64
+     (packed sequences, section words and bits, overflow flags and the
+     table plan);
   4. main paths: compress(level=1, batch=128, device="cuda") on a --mb MiB
      corpus plus a 5000-byte tail, then compress(level=L, batch=64) for
      L = 2, 3, 4, 5, 9, 12 on a 32 MiB corpus plus a tail. The launch
@@ -35,11 +44,17 @@ Run from the repository root on a machine with one CUDA device. Phases
      is decoded bit-exactly by stock libzstd, no block may have fallen
      back to the CPU matcher (a content-level block whose device output
      overflows is re-matched on the host by the format's contract and
-     counted apart), and each level's kernels must have launched;
+     counted apart), and each level's kernels must have launched; then
+     compress(level=L, batch=64, device_entropy="hybrid") for L = 1 and
+     9 on the 32 MiB corpus, where at least one block must carry the
+     card's sequence section (a block whose compaction or section
+     overflows is re-matched on the host, the reference's contract);
   5. port on card vs port on CPU, frames equal: level 1 at batch 8 on 8
      blocks + tail, level 4 at batch 16 on 16 blocks + tail, level 3 at
      batch 8 on 9 blocks (a padded partial batch), level 5 at batch 8 on
-     9 blocks and level 12 at batch 4 on 4 blocks + tail.
+     9 blocks and level 12 at batch 4 on 4 blocks + tail; in hybrid
+     mode level 1 at batch 8 on 8 blocks + tail and level 5 at batch 4
+     on 4 blocks + tail.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -68,7 +83,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 L1_SRC = "qat_zstd_plugin_tpu_torch/csrc/l1_kernels.cu"
 DENSE_SRC = "qat_zstd_plugin_tpu_torch/csrc/dense_kernels.cu"
 CONTENT_SRC = "qat_zstd_plugin_tpu_torch/csrc/content_kernels.cu"
+VERIFIED_SRC = "qat_zstd_plugin_tpu_torch/csrc/verified_kernels.cu"
+FSE_SRC = "qat_zstd_plugin_tpu_torch/csrc/fse_kernels.cu"
 REF = "qat_zstd_plugin_tpu/ops/glue_kernels.py"
+HYBRID_LEVELS = (1, 9)  # hybrid device entropy: the hash and content paths
+MAX_SEQ = 16384  # GpuCodec's max_seq, bench.py's hybrid row
 # Each CUDA kernel: its source and the Pallas kernel it replaces.
 KERNELS = {
     "hash_keys_winmin_sync": (L1_SRC, f"{REF}:192"),
@@ -82,6 +101,10 @@ KERNELS = {
     "ldm_winmin": (CONTENT_SRC, f"{REF}:1088"),
     "parse_greedy": (CONTENT_SRC,
                      "qat_zstd_plugin_tpu/ops/parse_kernel.py:35"),
+    "gram_pos_planes": (VERIFIED_SRC, f"{REF}:282"),
+    "neighbor_verify_keys": (VERIFIED_SRC, f"{REF}:335"),
+    "finalize_verified": (VERIFIED_SRC, f"{REF}:382"),
+    "fse_state": (FSE_SRC, "qat_zstd_plugin_tpu/ops/fse_kernel.py:102"),
 }
 # The kernels each level's main path must launch.
 _DENSE = ("hash_keys_winmin", "neighbor_unsort_keys", "ldm_keys",
@@ -94,6 +117,12 @@ LEVEL_KERNELS = {
     3: _DENSE + ("hash_keys",),
     4: _DENSE + ("hash_keys",),
     **dict.fromkeys(CONTENT_LEVELS, _CONTENT),
+}
+# With hybrid device entropy (no LDM in that mode).
+HYBRID_KERNELS = {
+    1: ("gram_pos_planes", "neighbor_verify_keys", "finalize_verified",
+        "parse_greedy", "fse_state"),
+    9: ("parse_greedy", "fse_state"),
 }
 
 
@@ -213,11 +242,14 @@ class Cases:
         self.results = results
 
     def __call__(self, kernel: str, name: str, err: int, moved: int,
-                 kernel_fn, twin_fn, main: bool = False) -> None:
+                 kernel_fn, twin_fn, main: bool = False, **extra) -> None:
+        """twin_fn is the twin to time, or its time in ms when the check
+        already timed it (B14's twin runs for seconds)."""
         from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
         r = {"max_abs_err": err, "ms": cuda_ms(kernel_fn),
-             "plain_ms": cuda_ms(twin_fn), **bound(moved)}
-        phase("kernel_case", kernel=kernel, case=name, **r)
+             "plain_ms": twin_fn if isinstance(twin_fn, float)
+             else cuda_ms(twin_fn), **bound(moved)}
+        phase("kernel_case", kernel=kernel, case=name, **r, **extra)
         prev = self.results.get(kernel)
         if main or prev is None:
             self.results[kernel] = {**r, "max_abs_err": max(
@@ -422,6 +454,160 @@ def content_kernels_vs_twins(torch, tk, pk, mp, blocks_np: np.ndarray,
     torch.cuda.synchronize()
 
 
+def _crafted_sequences(torch, rng, B: int, dev) -> dict:
+    """Compacted sequences for B14: blocks of 0, 1 and MAX_SEQ sequences
+    and counts in between, literal and match lengths past 65535, offsets
+    up to 2^17."""
+    S = MAX_SEQ
+    nseq = rng.integers(0, S + 1, B).astype(np.int32)
+    nseq[:4] = (0, 1, S, S - 1)
+    ll = rng.integers(0, 300, (B, S)).astype(np.int32)
+    ll[:, ::7] = rng.integers(0, 70000, (B, -(-S // 7)))
+    ml = rng.integers(3, 40, (B, S)).astype(np.int32)
+    ml[:, ::11] = rng.integers(3, 70000, (B, -(-S // 11)))
+    of = rng.integers(1, 1 << 17, (B, S)).astype(np.int32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in (
+        ("lit_len", ll), ("offset", of), ("match_len", ml), ("nseq", nseq))}
+
+
+def _timed_once(torch, fn):
+    """(fn(), its ms on the card by CUDA events), one run, no warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _fse_moved(torch, args) -> int:
+    """The bytes B14 must move for these inputs: the codes of the active
+    steps (1 <= j < nseq) read, the tables, initial states and counts
+    read, both (S+1, B) item planes written."""
+    codes, tables, inits, nseq = args
+    active = int(torch.clamp(nseq.to(torch.int64) - 1, min=0).sum())
+    return (12 * active + nbytes(*(t for tb in tables for t in tb), *inits,
+                                 nseq) + 2 * nbytes(codes[0]))
+
+
+def hybrid_kernels_vs_twins(torch, tk, fk, blocks_np: np.ndarray,
+                            seed: int, results: dict) -> None:
+    """Phase 2, the hybrid device-entropy kernels (B11-B14) against their
+    twins on the card, at B=64 x 128 KiB."""
+    from qat_zstd_plugin_tpu_torch import GpuCodec
+    from qat_zstd_plugin_tpu_torch.profile_l1 import hybrid_first_stage
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 4)
+    B, N = blocks_np.shape
+    pbits = (WINDOW - 1).bit_length()
+    corpus = torch.from_numpy(blocks_np).to(dev)
+    rand, mixed = _test_bytes(torch, corpus, rng)
+    ragged = _ragged(torch, rng, B, N, dev)
+    full = torch.full((B,), N, dtype=torch.int32, device=dev)
+    case = Cases(results)
+
+    # B11 on random, mixed and corpus bytes.
+    err = 0
+    for x in (rand, mixed, corpus):
+        g, p = tk.gram_pos_planes(x, WINDOW)
+        tw_g, tw_p = tk.gram_pos_planes_twin(x, WINDOW)
+        err = max(err, exact(torch, g, tw_g, "gram_pos_planes grams"),
+                  exact(torch, p, tw_p, "gram_pos_planes positions"))
+    case("gram_pos_planes", "corpus, random and mixed bytes", err,
+         nbytes(corpus, g, p), lambda: tk.gram_pos_planes(corpus, WINDOW),
+         lambda: tk.gram_pos_planes_twin(corpus, WINDOW), main=True)
+
+    # B12 at neighbors 1 and 2 on the (gram, pos)-sorted rows.
+    rows = {name: tk._sort_rows2(*tk.gram_pos_planes(x, WINDOW), pbits)
+            for name, x in (("mixed", mixed), ("corpus", corpus))}
+    sg, sp = rows["corpus"]
+    for neighbors in (1, 2):
+        err = max(exact(torch, tk.neighbor_verify_keys(a, b, pbits,
+                                                       neighbors),
+                        tk.neighbor_verify_keys_twin(a, b, pbits, neighbors),
+                        f"neighbor_verify_keys {name} rows, neighbors "
+                        f"{neighbors}") for name, (a, b) in rows.items())
+        case("neighbor_verify_keys", f"neighbors {neighbors}", err,
+             nbytes(sg, sp, sg),
+             lambda: tk.neighbor_verify_keys(sg, sp, pbits, neighbors),
+             lambda: tk.neighbor_verify_keys_twin(sg, sp, pbits, neighbors),
+             main=neighbors == 2)
+
+    # B13 with full and ragged lengths.
+    err = 0
+    for name, x in (("mixed", mixed), ("corpus", corpus)):
+        su = tk._sort_rows(tk.neighbor_verify_keys(*rows[name], pbits, 2))
+        for lens in (full, ragged):
+            ml, mo = tk.finalize_verified(su, x, lens)
+            tw_ml, tw_mo = tk.finalize_verified_twin(su, x, lens)
+            err = max(err, exact(torch, ml, tw_ml,
+                                 f"finalize_verified mlen ({name})"),
+                      exact(torch, mo, tw_mo,
+                            f"finalize_verified moff ({name})"))
+    case("finalize_verified", "corpus and mixed, full and ragged lengths",
+         err, nbytes(su, corpus, full, ml, mo),
+         lambda: tk.finalize_verified(su, corpus, full),
+         lambda: tk.finalize_verified_twin(su, corpus, full), main=True)
+
+    # B14 on the L1 and L9 sequences of the batch and on crafted blocks,
+    # custom tables on and off.
+    batches = {f"L{level} sequences": hybrid_first_stage(
+        GpuCodec(level=level, batch=B, max_seq=MAX_SEQ,
+                 device_entropy="hybrid"), corpus, full)
+        for level in HYBRID_LEVELS}
+    batches["crafted"] = _crafted_sequences(torch, rng, B, dev)
+    for what, out in batches.items():
+        seqs = (out["lit_len"], out["offset"], out["match_len"], out["nseq"])
+        for custom in (False, True):
+            args = fk.prepare_sections(*seqs, custom=custom)["state_args"]
+            lo, nb = fk.run_state_kernel(*args)
+            (tw_lo, tw_nb), twin_ms = _timed_once(
+                torch, lambda: fk.run_state_kernel_twin(*args))
+            err = max(exact(torch, lo, tw_lo, f"fse_state items ({what})"),
+                      exact(torch, nb, tw_nb, f"fse_state bits ({what})"))
+            case("fse_state", f"{what}, custom={custom}", err,
+                 _fse_moved(torch, args), lambda: fk.run_state_kernel(*args),
+                 twin_ms, main=(what, custom) == ("L1 sequences", True),
+                 chain_steps=int(args[3].max()))
+    torch.cuda.synchronize()
+
+
+def hybrid_device_half(torch, qzt, level: int, blocks_np: np.ndarray
+                       ) -> dict:
+    """Phase 3 in hybrid mode: the device half's outputs (packed sequences,
+    section words and bits, overflow flags, table plan), kernels on the
+    card vs twins on the CPU, and the median ms of one batch on the
+    card."""
+    from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
+    B = len(blocks_np)
+    lengths_np = np.full(B, BLOCK, np.int32)
+    kw = dict(level=level, batch=B, device_entropy="hybrid")
+    on_card = qzt.GpuCodec(device="cuda", **kw)._pipeline()
+    on_cpu = qzt.GpuCodec(device="cpu", **kw)._pipeline()
+    dev = torch.device("cuda")
+    blocks = torch.from_numpy(blocks_np).to(dev)
+    lengths = torch.from_numpy(lengths_np).to(dev)
+    got = on_card(blocks, lengths)
+    want = on_cpu(torch.from_numpy(blocks_np), torch.from_numpy(lengths_np))
+    for name, g, w in zip(("packed", "words", "bits", "sec_over"), got,
+                          want):
+        exact(torch, g.cpu(), w, f"hybrid device half L{level} {name}")
+    if sorted(got[4]) != sorted(want[4]):
+        raise AssertionError(f"hybrid device half L{level}: plan keys")
+    for k in want[4]:
+        exact(torch, got[4][k].cpu(), want[4][k],
+              f"hybrid device half L{level} plan {k}")
+    ms = cuda_ms(lambda: on_card(blocks, lengths))
+    packed = want[0]
+    over = (packed[:, 0, 1] & 1).bool() | want[3]
+    return {"level": level, "batch": B, "device_entropy": "hybrid",
+            "sequences": int(packed[:, 0, 0].sum()),
+            "overflow_blocks": int(over.sum()),
+            "section_bits": int(want[2][~over].sum()), "ms": ms,
+            "mbs": B * BLOCK / ms / 1e3}
+
+
 def device_half(torch, qzt, level: int, blocks_np: np.ndarray) -> dict:
     """Phase 3: the composed output of `level`'s device half, kernels on
     the card vs twins on the CPU. Returns its size and the median time of
@@ -448,14 +634,16 @@ def device_half(torch, qzt, level: int, blocks_np: np.ndarray) -> dict:
 
 
 def main_path(torch, qzt, tk, oracle, level: int, batch: int,
-              data: bytes) -> dict:
+              data: bytes, device_entropy=False) -> dict:
     """Phase 4 for one level: compress on the card with the launch counts
-    reset just before; decode; no fallback; the level's kernels ran.
-    Returns the launch counts of the run."""
+    reset just before; decode; no fallback; the level's kernels ran; in
+    hybrid mode at least one block carries the card's section. Returns
+    the launch counts of the run."""
     qzt.compress(data[:BLOCK + TAIL], level=level, batch=batch,
-                 device="cuda")  # warm-up: CUDA context, allocator, build
+                 device="cuda", device_entropy=device_entropy)  # warm-up
     torch.cuda.synchronize()
-    codec = qzt.GpuCodec(level=level, batch=batch, device="cuda")
+    codec = qzt.GpuCodec(level=level, batch=batch, device="cuda",
+                         device_entropy=device_entropy)
     tk.reset_launches()
     t0 = time.perf_counter()
     frame = codec.compress(data)
@@ -464,11 +652,13 @@ def main_path(torch, qzt, tk, oracle, level: int, batch: int,
     # Bit-exact decode through stock libzstd (raises without it).
     if oracle.decompress(frame, len(data)) != data:
         raise AssertionError("libzstd decode differs from the input")
-    phase("main_path", level=level, batch=batch, input_bytes=len(data),
+    phase("main_path", level=level, batch=batch,
+          device_entropy=device_entropy, input_bytes=len(data),
           frame_bytes=len(frame), ratio=len(frame) / len(data),
           seconds=seconds, e2e_mbs=len(data) / seconds / 1e6,
           decoder="libzstd", device_blocks=codec.device_blocks,
           overflow_blocks=codec.overflow_blocks,
+          section_blocks=codec.section_blocks,
           fallback_blocks=codec.stats.fallback_blocks, launches=launches)
     if codec.stats.fallback_blocks:
         raise AssertionError(f"level {level}: the main path fell back to "
@@ -476,23 +666,30 @@ def main_path(torch, qzt, tk, oracle, level: int, batch: int,
     if codec.device_blocks != len(data) // BLOCK:
         raise AssertionError(f"level {level}: device produced "
                              f"{codec.device_blocks} blocks")
-    missing = [k for k in LEVEL_KERNELS[level] if launches[k] == 0]
+    if device_entropy and not codec.section_blocks:
+        raise AssertionError(f"level {level}: no block carried the card's "
+                             "sequence section")
+    wanted = HYBRID_KERNELS[level] if device_entropy else LEVEL_KERNELS[level]
+    missing = [k for k in wanted if launches[k] == 0]
     if missing:
         raise AssertionError(f"level {level}: kernels never launched on "
                              f"the main path: {missing}")
     return launches
 
 
-def card_vs_cpu(qzt, level: int, batch: int, data: bytes) -> None:
+def card_vs_cpu(qzt, level: int, batch: int, data: bytes,
+                device_entropy=False) -> None:
     """Phase 5 for one level: the port's frame on the card equals its
     frame on the CPU."""
-    on_card = qzt.compress(data, level=level, batch=batch, device="cuda")
-    on_cpu = qzt.compress(data, level=level, batch=batch, device="cpu")
+    kw = dict(level=level, batch=batch, device_entropy=device_entropy)
+    on_card = qzt.compress(data, device="cuda", **kw)
+    on_cpu = qzt.compress(data, device="cpu", **kw)
     if on_card != on_cpu:
         raise AssertionError(f"level {level}: frames differ between "
                              "device='cuda' and device='cpu'")
-    phase("card_vs_cpu", level=level, batch=batch, input_bytes=len(data),
-          equal=True, frame_bytes=len(on_card))
+    phase("card_vs_cpu", level=level, batch=batch,
+          device_entropy=device_entropy, input_bytes=len(data), equal=True,
+          frame_bytes=len(on_card))
 
 
 def main() -> int:
@@ -516,6 +713,7 @@ def main() -> int:
     from qat_zstd_plugin_tpu_torch import native, oracle
     from qat_zstd_plugin_tpu_torch.corpus import make_corpus
     from qat_zstd_plugin_tpu_torch.ops import _build
+    from qat_zstd_plugin_tpu_torch.ops import fse_kernel as fk
     from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
     from qat_zstd_plugin_tpu_torch.ops import match_pipeline as mp
     from qat_zstd_plugin_tpu_torch.ops import parse_kernel as pk
@@ -546,6 +744,7 @@ def main() -> int:
     dense_kernels_vs_twins(torch, tk, dense_np, args.seed, kernels)
     content_kernels_vs_twins(torch, tk, pk, mp, dense_np, args.seed,
                              kernels)
+    hybrid_kernels_vs_twins(torch, tk, fk, dense_np, args.seed, kernels)
     for name, r in kernels.items():
         phase("kernel_vs_twin", kernel=name, **r)
 
@@ -556,14 +755,19 @@ def main() -> int:
                      *((lv, dense_np) for lv in CONTENT_LEVELS),
                      (5, dense_np[:6].copy())):
         phase("device_half", equal=True, **device_half(torch, qzt, level, x))
+    for level in HYBRID_LEVELS:
+        phase("device_half", equal=True,
+              **hybrid_device_half(torch, qzt, level, dense_np))
 
     # 4. Main paths on the card, launch counts per path.
     launches = dict.fromkeys(KERNELS, 0)
-    runs = [(1, BATCH, corpus)] + [(lv, DENSE_BATCH, dense_corpus)
-                                   for lv in DENSE_LEVELS + CONTENT_LEVELS]
-    for level, batch, data in runs:
-        for k, n in main_path(torch, qzt, tk, oracle, level, batch,
-                              data).items():
+    runs = [(1, BATCH, corpus, False)] + [
+        (lv, DENSE_BATCH, dense_corpus, False)
+        for lv in DENSE_LEVELS + CONTENT_LEVELS] + [
+        (lv, DENSE_BATCH, dense_corpus, "hybrid") for lv in HYBRID_LEVELS]
+    for level, batch, data, entropy in runs:
+        for k, n in main_path(torch, qzt, tk, oracle, level, batch, data,
+                              entropy).items():
             launches[k] += n
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
@@ -575,6 +779,8 @@ def main() -> int:
     card_vs_cpu(qzt, 3, 8, dense_corpus[:9 * BLOCK])
     card_vs_cpu(qzt, 5, 8, dense_corpus[:9 * BLOCK])
     card_vs_cpu(qzt, 12, 4, dense_corpus[:4 * BLOCK + TAIL])
+    card_vs_cpu(qzt, 1, 8, corpus[:8 * BLOCK + TAIL], "hybrid")
+    card_vs_cpu(qzt, 5, 4, dense_corpus[:4 * BLOCK + TAIL], "hybrid")
 
     ref = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "qat_zstd_plugin_tpu")]

@@ -1,7 +1,8 @@
 // Helpers shared by the port's CUDA sources: the hash constants and gram
 // hash of qat_zstd_plugin_tpu.ops.glue_kernels._hash_tile, the launch
-// shape of the one-thread-per-element kernels, and the templated body of
-// the full-resolution key and minimizer-plane kernels (B5, B6, B9).
+// shape of the one-thread-per-element kernels, the templated body of the
+// full-resolution key and minimizer-plane kernels (B5, B6, B9), and the
+// offset-1 run scan of B7 and B13.
 
 #pragma once
 
@@ -144,6 +145,69 @@ int launch_hash_keys(const void* blocks, void* keys, void* minz, int rows,
         static_cast<uint32_t*>(minz), n, width, pbits, uint32_t(pmask),
         stride);
     return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The offset-1 run scan of B7 finalize_candidates and B13 finalize_verified
+// (their second pass), one CTA per row. The reference takes, for each i,
+// the first byte change in [i, i + 2^14) by 14 doubling steps of a suffix
+// minimum; the length it gives is capped at 16383, so the exact next
+// change gives the same length. A per-thread forward walk would read up to
+// 16384 bytes per position (2^31 reads for a 128 KiB all-same block), so
+// each thread takes a chunk of the row: it finds the first change in its
+// chunk, a shared-memory suffix minimum over the chunks gives each thread
+// the first change after its chunk, and a backward walk over the chunk
+// then knows the next change at every position. n reads per row plus the
+// mlen/moff read-modify-write where the byte repeats.
+// ---------------------------------------------------------------------------
+
+constexpr int kRunCap = 16383;  // longest run / length finalize writes
+constexpr int kBig = 1 << 30;   // "no change" in the run scan
+
+constexpr int kRunThreads = 1024;
+
+__global__ void __launch_bounds__(kRunThreads)
+finalize_runs_kernel(const uint8_t* __restrict__ blocks,
+                     const int32_t* __restrict__ lengths,
+                     int32_t* __restrict__ mlen, int32_t* __restrict__ moff,
+                     int n) {
+    __shared__ int after[kRunThreads];
+    const int row = blockIdx.x;
+    const uint8_t* x = blocks + size_t(row) * n;
+    int32_t* ml = mlen + size_t(row) * n;
+    int32_t* mo = moff + size_t(row) * n;
+    const int blen = lengths[row];
+    const int chunk = (n + kRunThreads - 1) / kRunThreads;
+    const int lo = min(n, int(threadIdx.x) * chunk);
+    const int hi = min(n, lo + chunk);
+    // A change at j: x[j] != x[j+1]; the row's last byte is always one.
+    auto change = [&](int j) { return j == n - 1 || x[j] != x[j + 1]; };
+
+    int first = kBig;
+    for (int j = lo; j < hi; ++j) {
+        if (change(j)) {
+            first = j;
+            break;
+        }
+    }
+    after[threadIdx.x] = first;
+    __syncthreads();
+    for (int s = 1; s < kRunThreads; s *= 2) {  // suffix minimum
+        const int v = threadIdx.x + s < kRunThreads ? after[threadIdx.x + s]
+                                                    : kBig;
+        __syncthreads();
+        after[threadIdx.x] = min(after[threadIdx.x], v);
+        __syncthreads();
+    }
+    int next = threadIdx.x + 1 < kRunThreads ? after[threadIdx.x + 1] : kBig;
+    for (int j = hi - 1; j >= lo; --j) {
+        if (change(j)) next = j;  // first change at or after j
+        const int len1 = min(min(next - j + 1, blen - j), kRunCap);
+        if (j > 0 && x[j] == x[j - 1] && len1 >= 4 && len1 > ml[j]) {
+            ml[j] = len1;
+            mo[j] = 1;
+        }
+    }
 }
 
 }  // namespace

@@ -22,8 +22,6 @@
 namespace {
 
 constexpr int kMinMatch = 4;    // match_pipeline.MIN_MATCH
-constexpr int kRunCap = 16383;  // longest run / estimate finalize writes
-constexpr int kBig = 1 << 30;   // "no change" in the run scan
 constexpr int kChainSteps = 2;  // glue_kernels.CHAIN_STEPS
 
 // ---------------------------------------------------------------------------
@@ -51,16 +49,8 @@ constexpr int kChainSteps = 2;  // glue_kernels.CHAIN_STEPS
 // nearer); then the cost filter and the 16383 cap. Coalesced reads of
 // 16 * widths bytes per position, mostly L1/L2 hits.
 //
-// Pass 2, one CTA per row: the offset-1 run scan. The reference takes, for
-// each i, the first byte change in [i, i + 2^14) by 14 doubling steps of a
-// suffix minimum; the length it gives is capped at 16383, so the exact
-// next change gives the same length. A per-thread forward walk would read
-// up to 16384 bytes per position (2^31 reads for a 128 KiB all-same
-// block), so each thread takes a chunk of the row: it finds the first
-// change in its chunk, a shared-memory suffix minimum over the chunks
-// gives each thread the first change after its chunk, and a backward walk
-// over the chunk then knows the next change at every position. n reads per
-// row plus the mlen/moff read-modify-write where the byte repeats.
+// Pass 2, one CTA per row: the offset-1 run scan, finalize_runs_kernel in
+// common.cuh (shared with B13 finalize_verified).
 // ---------------------------------------------------------------------------
 
 struct WidthKeys {
@@ -114,52 +104,6 @@ __global__ void finalize_merge_kernel(WidthKeys keys, int nw,
                        (ml >= 5 && mo <= 4096) || (ml >= 4 && mo <= 256);
     mlen[idx] = worth ? min(ml, kRunCap) : 0;
     moff[idx] = worth ? mo : 0;
-}
-
-constexpr int kRunThreads = 1024;
-
-__global__ void __launch_bounds__(kRunThreads)
-finalize_runs_kernel(const uint8_t* __restrict__ blocks,
-                     const int32_t* __restrict__ lengths,
-                     int32_t* __restrict__ mlen, int32_t* __restrict__ moff,
-                     int n) {
-    __shared__ int after[kRunThreads];
-    const int row = blockIdx.x;
-    const uint8_t* x = blocks + size_t(row) * n;
-    int32_t* ml = mlen + size_t(row) * n;
-    int32_t* mo = moff + size_t(row) * n;
-    const int blen = lengths[row];
-    const int chunk = (n + kRunThreads - 1) / kRunThreads;
-    const int lo = min(n, int(threadIdx.x) * chunk);
-    const int hi = min(n, lo + chunk);
-    // A change at j: x[j] != x[j+1]; the row's last byte is always one.
-    auto change = [&](int j) { return j == n - 1 || x[j] != x[j + 1]; };
-
-    int first = kBig;
-    for (int j = lo; j < hi; ++j) {
-        if (change(j)) {
-            first = j;
-            break;
-        }
-    }
-    after[threadIdx.x] = first;
-    __syncthreads();
-    for (int s = 1; s < kRunThreads; s *= 2) {  // suffix minimum
-        const int v = threadIdx.x + s < kRunThreads ? after[threadIdx.x + s]
-                                                    : kBig;
-        __syncthreads();
-        after[threadIdx.x] = min(after[threadIdx.x], v);
-        __syncthreads();
-    }
-    int next = threadIdx.x + 1 < kRunThreads ? after[threadIdx.x + 1] : kBig;
-    for (int j = hi - 1; j >= lo; --j) {
-        if (change(j)) next = j;  // first change at or after j
-        const int len1 = min(min(next - j + 1, blen - j), kRunCap);
-        if (j > 0 && x[j] == x[j - 1] && len1 >= 4 && len1 > ml[j]) {
-            ml[j] = len1;
-            mo[j] = 1;
-        }
-    }
 }
 
 // ---------------------------------------------------------------------------

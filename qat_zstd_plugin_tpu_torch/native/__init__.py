@@ -1,10 +1,10 @@
 """The port's native host runtime: ctypes over its own build of qz_entropy.cc.
 
 Copy of qat_zstd_plugin_tpu.native, restricted to the entry points the
-port calls (xxh64, block_body, extend_sequences, fill_gaps,
-find_sequences, find_sequences_hinted). `qz_entropy.cc` here is a
-byte-for-byte copy of the JAX package's source; the differences are in
-the build:
+port calls (xxh64, block_body, block_body_external_seqsec,
+extend_sequences, fill_gaps, find_sequences, find_sequences_hinted).
+`qz_entropy.cc` here is a byte-for-byte copy of the JAX package's
+source; the differences are in the build:
 
   * it is compiled at first use with g++ and the flags of the JAX
     package's native/build.sh into build/torch_native/<key>/ beside the
@@ -46,6 +46,9 @@ _SIGNATURES = {  # name: (restype, argtypes)
     "qz_xxh64": (ctypes.c_uint64, (_P, _S, ctypes.c_uint64)),
     "qz_block_body": (_S, (_P, _S, _P, _P, _P, _S, _U32, _I, _I, _I, _P,
                            _S)),
+    "qz_block_body_external_seqsec": (_S, (_P, _S, _P, _P, _S, _U32,
+                                           ctypes.c_char_p, _S, _I, _P,
+                                           _S)),
     "qz_find_sequences": (_S, (_P, _S, _S, _I, _I, _I, _P, _P, _P, _S,
                                _P)),
     "qz_find_sequences_hinted": (_S, (_P, _S, _S, _I, _I, _I, _P, _P, _P,
@@ -140,6 +143,27 @@ def block_body(block: np.ndarray, lit_lens: np.ndarray, offsets: np.ndarray,
         block.ctypes.data, len(block), ll.ctypes.data, of.ctypes.data,
         ml.ctypes.data, len(ll), last_literals, int(allow_custom),
         int(try_huffman), int(first_block), dst.ctypes.data, cap)
+    if n == 0:
+        return None
+    return dst[:n].tobytes()
+
+
+def block_body_external_seqsec(block: np.ndarray, lit_lens: np.ndarray,
+                               match_lens: np.ndarray, last_literals: int,
+                               seq_section: bytes,
+                               try_huffman: bool = True) -> bytes | None:
+    """Body = host literals section + a finished Sequences_Section (the
+    device's, in hybrid device entropy); None -> caller emits raw."""
+    lib = load()
+    block = np.ascontiguousarray(block, np.uint8)
+    ll = np.ascontiguousarray(lit_lens, np.uint32)
+    ml = np.ascontiguousarray(match_lens, np.uint32)
+    cap = len(block) + 512 + len(seq_section)
+    dst = np.empty(cap, np.uint8)
+    n = lib.qz_block_body_external_seqsec(
+        block.ctypes.data, len(block), ll.ctypes.data, ml.ctypes.data,
+        len(ll), last_literals, seq_section, len(seq_section),
+        int(try_huffman), dst.ctypes.data, cap)
     if n == 0:
         return None
     return dst[:n].tobytes()

@@ -42,6 +42,10 @@ SIGNATURES = {
     "qz_compact_slots_dense": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "qz_ldm_winmin": (_P, _P, _I, _I, _I, _P),
     "qz_parse_greedy": (_P, _P, _I, _I, _I, _P),
+    "qz_gram_pos_planes": (_P, _P, _P, _I, _I, _I, _P),
+    "qz_neighbor_verify_keys": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "qz_finalize_verified": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "qz_fse_state": (_P,) * 18 + (_I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -24,8 +24,15 @@ Levels 5-12 (the content path, ops/match_pipeline.find_matches_packed)
 take their LDM claims from here: ldm_winmin (csrc/content_kernels.cu) ->
 ldm_unsorted -> merge_ldm folds them into the exact-LCP candidates.
 
-Each kernel has here (parse_greedy in ops/parse_kernel.py, which counts
-its launches in `launches` below as well)
+Levels 1-4 with hybrid device entropy take the byte-verified matcher
+(candidates_hash_verified, csrc/verified_kernels.cu):
+
+  gram_pos_planes -> (gram, pos) sort -> neighbor_verify_keys -> sort
+    -> finalize_verified -> (mlen, moff), every claim a true match
+
+Each kernel has here (parse_greedy in ops/parse_kernel.py and the FSE
+state machine in ops/fse_kernel.py, which count their launches in
+`launches` below as well)
   * a wrapper with the reference's name, which checks device, dtype,
     shape and contiguity and launches the kernel of csrc/ on PyTorch's
     current stream (counting the launch in `launches`);
@@ -59,7 +66,9 @@ _C3 = 3266489917
 launches = {"hash_keys_winmin_sync": 0, "neighbor_unsort_keys": 0,
             "ldm_keys": 0, "compact_slots_sync": 0, "hash_keys": 0,
             "hash_keys_winmin": 0, "finalize_candidates": 0,
-            "compact_slots_dense": 0, "ldm_winmin": 0, "parse_greedy": 0}
+            "compact_slots_dense": 0, "ldm_winmin": 0, "parse_greedy": 0,
+            "gram_pos_planes": 0, "neighbor_verify_keys": 0,
+            "finalize_verified": 0, "fse_state": 0}
 
 MIN_MATCH = 4  # qat_zstd_plugin_tpu.ops.match_pipeline.MIN_MATCH
 
@@ -360,6 +369,177 @@ def ldm_winmin(blocks: torch.Tensor, stride: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The byte-verified matcher: B11 gram_pos_planes, B12 neighbor_verify_keys,
+# B13 finalize_verified
+# ---------------------------------------------------------------------------
+
+VERIFIED_CHAIN_STEPS = 3  # the reference's chain_steps default, every level's
+
+
+def gram_pos_planes_twin(blocks: torch.Tensor, window: int):
+    """Plain-torch B11 (see gram_pos_planes)."""
+    B, N, w, _ = _dense_geometry(blocks, window)
+    x = blocks.to(torch.int64)
+    g = (x << 24) | (_shl(x, 1, 0) << 16) | (_shl(x, 2, 0) << 8) \
+        | _shl(x, 3, 0)
+    pos = (torch.arange(N, device=blocks.device) & (w - 1)).expand(B, N)
+    return (_i32(g).reshape(B * (N // w), w),
+            pos.to(torch.int32).reshape(B * (N // w), w))
+
+
+def gram_pos_planes(blocks: torch.Tensor, window: int):
+    """B11. (B, N) uint8 blocks -> ((B*nseg, w) int32 big-endian 4-byte
+    grams, (B*nseg, w) int32 positions i & (w - 1)), position i of a block
+    at row i // w, column i % w of its segments. A gram reads along the
+    whole block row, zero past its end (the last three grams of a segment
+    read the next segment's bytes). Port of the Pallas kernel of the same
+    name."""
+    _check(blocks, "gram_pos_planes", torch.uint8, 2)
+    B, N, w, _ = _dense_geometry(blocks, window)
+    if _use_twin(blocks, "gram_pos_planes"):
+        return gram_pos_planes_twin(blocks, window)
+    g = torch.empty((B * (N // w), w), dtype=torch.int32,
+                    device=blocks.device)
+    p = torch.empty_like(g)
+    _launch("gram_pos_planes", blocks, g, p, B, N, w - 1)
+    return g, p
+
+
+def _sort_rows2(g: torch.Tensor, pos: torch.Tensor, pbits: int):
+    """Lexicographic (unsigned gram, position) row sort (the reference's
+    two-key jax.lax.sort): one int64 key (gram << pbits | pos), unique per
+    row, so any sort gives the reference's order. The gram is unsigned
+    here, where the content path's sorts the signed one."""
+    key = torch.sort((_u32(g) << pbits) | pos.to(torch.int64), dim=1).values
+    return _i32(key >> pbits), (key & ((1 << pbits) - 1)).to(torch.int32)
+
+
+def _b12_params(sg: torch.Tensor, sp: torch.Tensor, pbits: int,
+                neighbors: int) -> None:
+    if sg.shape != sp.shape:
+        raise ValueError(f"neighbor_verify_keys: grams {tuple(sg.shape)} "
+                         f"and positions {tuple(sp.shape)} differ")
+    if not 2 <= pbits <= 31 or neighbors < 1:
+        raise ValueError(f"pbits {pbits} or neighbors {neighbors} out of "
+                         "range")
+
+
+def neighbor_verify_keys_twin(sg: torch.Tensor, sp: torch.Tensor,
+                              pbits: int, neighbors: int = 1
+                              ) -> torch.Tensor:
+    """Plain-torch B12 (see neighbor_verify_keys)."""
+    _b12_params(sg, sp, pbits, neighbors)
+    g = _u32(sg)
+    p = _u32(sp)
+    i = torch.arange(g.shape[1], device=g.device)
+    off = torch.zeros_like(p)
+    for k in range(1, neighbors + 1):
+        eq = (i >= k) & (g == _shr(g, k, _M32)) & (_shr(p, k, 0) < p)
+        off = torch.where((off == 0) & eq, p - _shr(p, k, 0), off)
+    return _i32(((p << (32 - pbits)) | off) & _M32)
+
+
+def neighbor_verify_keys(sg: torch.Tensor, sp: torch.Tensor, pbits: int,
+                         neighbors: int = 1) -> torch.Tensor:
+    """B12. (gram, pos)-sorted rows (R, w) of grams and positions -> un-sort
+    keys (pos << (32 - pbits) | off) truncated to u32: entry i claims off =
+    pos - prev for the nearest of the `neighbors` entries before it in
+    its row that carries an equal gram, so every claim is a true 4-byte
+    match. Port of the Pallas kernel of the same name, with one repair:
+    the reference reads a missing neighbour (i < k) as gram 0xFFFFFFFF at
+    position 0, which claims a false match to position 0 when a segment
+    holds exactly one gram below 0xFFFFFFFF; here a claim needs i >= k."""
+    _check(sg, "neighbor_verify_keys", torch.int32, 2)
+    _check(sp, "neighbor_verify_keys", torch.int32, 2)
+    _b12_params(sg, sp, pbits, neighbors)
+    if _use_twin(sg, "neighbor_verify_keys"):
+        return neighbor_verify_keys_twin(sg, sp, pbits, neighbors)
+    out = torch.empty_like(sg)
+    _launch("neighbor_verify_keys", sg, sp, out, sg.shape[0], sg.shape[1],
+            pbits, neighbors)
+    return out
+
+
+VERIFIED_NEAR_OFF = 32768  # finalize_verified's near_off default
+VERIFIED_FAR_MIN = 4       # and far_min
+
+
+def _verified_geometry(su, blocks, lengths):
+    name = "finalize_verified"
+    _check(su, name, torch.int32, 2)
+    _check(blocks, name, torch.uint8, 2)
+    _check(lengths, name, torch.int32, 1)
+    B, N = blocks.shape
+    if su.numel() != B * N or su.shape[0] % B or lengths.shape != (B,):
+        raise ValueError(f"{name}: keys {tuple(su.shape)}, blocks "
+                         f"{tuple(blocks.shape)} and lengths "
+                         f"{tuple(lengths.shape)} do not fit")
+    w = su.shape[1]
+    return B, N, (w - 1).bit_length()
+
+
+def finalize_verified_twin(su: torch.Tensor, blocks: torch.Tensor,
+                           lengths: torch.Tensor):
+    """Plain-torch B13 (see finalize_verified): the reference's kernel
+    body, whole-row shifts and all, on int64 planes."""
+    B, N, pbits = _verified_geometry(su, blocks, lengths)
+    dev = blocks.device
+    gp = torch.arange(N, device=dev)
+    blen = lengths.to(torch.int64)[:, None]
+    offs = (su.to(torch.int64) & ((1 << pbits) - 1)).reshape(B, N)
+    offs = torch.where(gp + 4 <= blen, offs, 0)
+    reach = (offs > 0).to(torch.int64)
+    span = 1
+    for _ in range(VERIFIED_CHAIN_STEPS):
+        nxt_off = _shl(offs, span * 4, 0)
+        nxt_reach = _shl(reach, span * 4, 0)
+        cont = (offs > 0) & (reach == span) & (nxt_off == offs)
+        reach = torch.where(cont, reach + nxt_reach, reach)
+        span *= 2
+    mlen = reach * 4
+    worth = (mlen >= VERIFIED_FAR_MIN) | ((mlen >= 4)
+                                          & (offs <= VERIFIED_NEAR_OFF))
+    mlen = torch.where(worth, mlen, 0).clamp(max=RUN_CAP)
+    moff = torch.where(worth, offs, 0)
+    mlen, moff = _offset1_runs(blocks, blen, mlen, moff)
+    return mlen.to(torch.int32), moff.to(torch.int32)
+
+
+def finalize_verified(su: torch.Tensor, blocks: torch.Tensor,
+                      lengths: torch.Tensor):
+    """B13. Position-ordered verified claims (B*nseg, w), entry j = (pos <<
+    hbits | off), + (B, N) uint8 blocks + (B,) int32 lengths -> (mlen,
+    moff), two (B, N) int32 planes of true matches: claims whose gram
+    passes the block's length are dropped, same-offset claims 4, 8 and 16
+    positions on along the whole row chain into lengths in 4-byte units
+    (at most 32 bytes), capped at 16383, and the exact offset-1 run scan
+    takes over where it is longer. Port of the Pallas kernel of the same
+    name at its defaults (chain_steps 3, far_min 4, near_off 32768), the
+    arguments of every level."""
+    B, N, pbits = _verified_geometry(su, blocks, lengths)
+    if _use_twin(blocks, "finalize_verified"):
+        return finalize_verified_twin(su, blocks, lengths)
+    mlen = torch.empty((B, N), dtype=torch.int32, device=blocks.device)
+    moff = torch.empty_like(mlen)
+    _launch("finalize_verified", su, blocks, lengths, mlen, moff, B, N,
+            pbits)
+    return mlen, moff
+
+
+def candidates_hash_verified(blocks: torch.Tensor, lengths: torch.Tensor,
+                             neighbors: int = 2, window: int = 32768):
+    """Byte-verified hash-path candidates (reference:
+    glue_kernels.candidates_hash_verified): B11 -> (gram, pos) row sort ->
+    B12 -> u32 row sort -> B13. Every (mlen, moff) is a true match, so the
+    device may encode the sequence sections with no host pass."""
+    pbits = (min(window, blocks.shape[1]) - 1).bit_length()
+    g, pos = gram_pos_planes(blocks, window)
+    sg, sp = _sort_rows2(g, pos, pbits)
+    su = _sort_rows(neighbor_verify_keys(sg, sp, pbits, neighbors))
+    return finalize_verified(su, blocks, lengths)
+
+
+# ---------------------------------------------------------------------------
 # K2 neighbor_unsort_keys
 # ---------------------------------------------------------------------------
 
@@ -655,20 +835,28 @@ def _finalize_chunk_twin(sus, blocks: torch.Tensor, lengths: torch.Tensor,
                  | ((mlen >= 4) & (moff <= 256)))
         mlen = torch.where(worth, mlen, 0).clamp(max=RUN_CAP)
         moff = torch.where(worth, moff, 0)
-        # Offset-1 runs: r[i] = first change in [i, i + 2^nsteps), by
-        # doubling; the row's last byte always counts as a change.
-        x = blocks.to(torch.int64)
-        big = 1 << 30
-        r = torch.where(x != _shl(x, 1, -1), gp, big)
-        step = 1
-        for _ in range(min(14, max(1, (N - 1).bit_length()))):
-            r = torch.minimum(r, _shl(r, step, big))
-            step *= 2
-        len1 = torch.minimum(r - gp + 1, blen - gp).clamp(max=RUN_CAP)
-        use1 = (x == _shr(x, 1, -1)) & (len1 >= 4) & (len1 > mlen)
-        mlen = torch.where(use1, len1, mlen)
-        moff = torch.where(use1, 1, moff)
+        mlen, moff = _offset1_runs(blocks, blen, mlen, moff)
     return mlen.to(torch.int32), moff.to(torch.int32)
+
+
+def _offset1_runs(blocks: torch.Tensor, blen: torch.Tensor,
+                  mlen: torch.Tensor, moff: torch.Tensor):
+    """The offset-1 run scan of B7 and B13: r[i] = first byte change in
+    [i, i + 2^nsteps), by doubling (the row's last byte always counts as
+    a change); len1 = min(r - i + 1, blen - i, 16383) takes over where the
+    byte repeats and len1 >= 4 beats mlen. int64 planes in and out."""
+    B, N = blocks.shape
+    gp = torch.arange(N, device=blocks.device)
+    x = blocks.to(torch.int64)
+    big = 1 << 30
+    r = torch.where(x != _shl(x, 1, -1), gp, big)
+    step = 1
+    for _ in range(min(14, max(1, (N - 1).bit_length()))):
+        r = torch.minimum(r, _shl(r, step, big))
+        step *= 2
+    len1 = torch.minimum(r - gp + 1, blen - gp).clamp(max=RUN_CAP)
+    use1 = (x == _shr(x, 1, -1)) & (len1 >= 4) & (len1 > mlen)
+    return torch.where(use1, len1, mlen), torch.where(use1, 1, moff)
 
 
 def finalize_candidates_twin(sus, blocks: torch.Tensor,

@@ -1,7 +1,7 @@
 """Match-finding entry points of the port and the host unpack of their
 output.
 
-Port of two contracts of qat_zstd_plugin_tpu.ops.match_pipeline:
+Port of three contracts of qat_zstd_plugin_tpu.ops.match_pipeline:
 
 * segment slots, levels 1-4 (`find_matches_positions`,
   `unpack_segments`): the hash matcher's claim positions;
@@ -10,7 +10,11 @@ Port of two contracts of qat_zstd_plugin_tpu.ops.match_pipeline:
   the content words through a gram sort for exact match lengths up to 16
   bytes, `glue_kernels.merge_ldm` folds in the long-distance claims,
   `parse_kernel.parse_greedy` (B10) picks the matches, `compact` packs
-  them per block and `pack_outputs` puts every field into one array.
+  them per block and `pack_outputs` puts every field into one array;
+* hybrid device entropy, levels 1-12 (`find_matches_with_seqsec_hash`,
+  `find_matches_with_seqsec`, `unpack_outputs_wide`): the coalesced
+  sequences' literal and match lengths (`pack_wide`) beside each block's
+  finished FSE sequence-section stream (ops/fse_kernel.py).
 
 The reference module imports jax at the top, so its numpy unpacks are
 repeated here rather than imported.
@@ -21,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import glue_kernels, parse_kernel
+from . import fse_kernel, glue_kernels, parse_kernel
 from .glue_kernels import MIN_MATCH, _shr
 
 LCP_CAP = 16
@@ -171,33 +175,83 @@ def candidates(blocks: torch.Tensor, lengths: torch.Tensor,
     return torch.where(use1, len1, mlen), torch.where(use1, 1, moff)
 
 
+def _to_front(keep: torch.Tensor, width: int, *planes: torch.Tensor):
+    """Per row, the entries where `keep` is set, in order, scattered to the
+    front of `width` columns (the rest zero): each kept entry goes to its
+    rank, a running count. This is the order of the reference's sort of
+    the kept entries' indices to the front; entries past `width` drop."""
+    B = keep.shape[0]
+    rank = keep.to(torch.int64).cumsum(1) - 1
+    slot = torch.where(keep & (rank < width), rank, width)
+    out = []
+    for p in planes:
+        o = torch.zeros((B, width + 1), dtype=p.dtype, device=p.device)
+        o.scatter_(1, slot, p)
+        out.append(o[:, :width])
+    return out
+
+
+def _segmented_sum(vals: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """Inclusive sum along dim 1 that restarts at each start (reference:
+    match_pipeline._segmented_sum, an associative scan there): the running
+    sum less its value just before the latest start."""
+    cs = vals.to(torch.int64).cumsum(1)
+    idx = torch.arange(vals.shape[1], device=vals.device).expand_as(cs)
+    last = torch.where(starts, idx, -1).cummax(1).values
+    before = (cs - vals).gather(1, last.clamp(min=0))
+    return torch.where(last >= 0, cs - before, cs)
+
+
+def _coalesce(lit, off, ml, valid, nseq):
+    """Merge chains of capped matches on the device (reference: compact's
+    coalesce branch): a zero-literal successor with the same offset
+    extends the previous match; each group's summed literal run and
+    match length move to the front, in order. Returns (lit, off, ml,
+    nseq), int64."""
+    B, S = lit.shape
+    srow = torch.arange(S, device=lit.device)[None, :]
+    prev_off = torch.zeros_like(off)
+    prev_off[:, 1:] = off[:, :-1]
+    same = valid & (lit == 0) & (off == prev_off) & (srow > 0)
+    start = valid & ~same
+    seg_lit = _segmented_sum(lit, start)  # == lit at the group's start
+    seg_ml = _segmented_sum(ml, start)
+    nxt_start = torch.ones_like(start)
+    nxt_start[:, :-1] = start[:, 1:]
+    # The row after the last valid one is no start: close the last group.
+    is_end = valid & (nxt_start | (srow == nseq[:, None] - 1))
+    lit, off, ml = _to_front(is_end, S, seg_lit, off, seg_ml)
+    return lit, off, ml, start.sum(1)
+
+
 def compact(chosen: torch.Tensor, mlen: torch.Tensor, moff: torch.Tensor,
-            lengths: torch.Tensor, max_seq: int, window: int = 1 << 30):
+            lengths: torch.Tensor, max_seq: int, window: int = 1 << 30,
+            coalesce: bool = False):
     """Pack the chosen matches into per-block sequence arrays (reference:
-    match_pipeline.compact, unsegmented and without coalesce, the form
-    every content level takes). The reference sorts chosen positions to
-    the front; here each chosen position goes to its rank (a running
-    count), which is the same order. Returns a dict of lit_len, offset,
-    match_len (B, max_seq) int32, nseq, last_literals (B,) int32 and
-    overflow (B,) bool; a block with more than min(max_seq, N) matches
-    sets overflow."""
+    match_pipeline.compact). Returns a dict of lit_len, offset, match_len
+    (B, max_seq) int32, nseq, last_literals (B,) int32 and overflow (B,)
+    bool; a block with more than min(max_seq, N) matches sets overflow
+    (counted before coalescing; nseq after it).
+
+    The reference sorts the chosen positions to the front, per block or,
+    with window < N, per window-wide segment and then across segments
+    with the match length and offset packed into one payload word (ml <<
+    15 | off). Here each chosen position goes to its rank, which is the
+    same order on both branches: the parse puts chosen positions >= 4
+    apart, so a segment never holds more than window / 4 of them, and the
+    payload is lossless because every caller's lengths stay below 2^17
+    and its offsets below 2^15 (the verified hash path's: 16383 and
+    32767). coalesce=True merges chains of capped matches as the host's
+    coalesce_sequences does (see _coalesce)."""
     B, N = chosen.shape
-    if window < N:
-        raise ValueError(f"compact: segmented compaction (window {window} "
-                         f"< {N}) is not ported; no content level takes it")
+    if window < N and (N % window or window > 32768):
+        raise ValueError(f"compact: block length {N} must be a multiple of "
+                         f"a segment width {window} <= 32768")
     dev = chosen.device
     req_seq = max_seq
     max_seq = min(max_seq, N)
-    rank = chosen.to(torch.int64).cumsum(1) - 1
-    slot = torch.where(chosen & (rank < max_seq), rank, max_seq)
-    t2 = torch.full((B, max_seq + 1), BIG, dtype=torch.int32, device=dev)
-    l2 = torch.zeros((B, max_seq + 1), dtype=torch.int32, device=dev)
-    o2 = torch.zeros_like(l2)
     idx = torch.arange(N, dtype=torch.int32, device=dev).expand(B, N)
-    t2.scatter_(1, slot, idx)
-    l2.scatter_(1, slot, mlen)
-    o2.scatter_(1, slot, moff)
-    t2, l2, o2 = t2[:, :max_seq], l2[:, :max_seq], o2[:, :max_seq]
+    t2, l2, o2 = _to_front(chosen, max_seq, idx, mlen, moff)
     nseq = chosen.sum(1).to(torch.int32)
     valid = torch.arange(max_seq, device=dev)[None, :] < nseq[:, None]
     end = t2 + l2
@@ -207,6 +261,10 @@ def compact(chosen: torch.Tensor, mlen: torch.Tensor, moff: torch.Tensor,
     ml = torch.where(valid, l2, 0)
     off = torch.where(valid, o2, 0)
     last_end = torch.where(valid, end, 0).amax(1)
+    overflow = nseq > max_seq
+    if coalesce:
+        lit, off, ml, nseq = (a.to(torch.int32) for a in _coalesce(
+            lit, off, ml, valid, nseq))
     if req_seq > max_seq:
         pad = (0, req_seq - max_seq)
         lit, off, ml = (torch.nn.functional.pad(a, pad)
@@ -215,7 +273,7 @@ def compact(chosen: torch.Tensor, mlen: torch.Tensor, moff: torch.Tensor,
         "lit_len": lit, "offset": off, "match_len": ml,
         "nseq": torch.clamp(nseq, max=max_seq),
         "last_literals": lengths.to(torch.int32) - last_end,
-        "overflow": nseq > max_seq,
+        "overflow": overflow,
     }
 
 
@@ -276,6 +334,103 @@ def content_candidates(blocks: torch.Tensor, lengths: torch.Tensor,
                                             local_cap=LCP_CAP,
                                             max_off=max_off)
     return mlen, moff
+
+
+# ---------------------------------------------------------------------------
+# Hybrid device entropy: the device emits each block's final FSE
+# Sequences_Section; the host adds the literals section.
+# ---------------------------------------------------------------------------
+
+SEQ_WORDS = 8192  # u32 words of a block's section stream (262144 bits)
+
+
+def pack_wide(out: dict) -> torch.Tensor:
+    """The coalesced compaction in one (B, max_seq+1, 2) int32 array for
+    the host (reference: match_pipeline._pack_wide_jit): row 0 [nseq,
+    last_literals << 1 | overflow], row s+1 [lit_len, match_len]. The
+    offsets stay on the device: the section holds them."""
+    hdr1 = (out["last_literals"] << 1) | out["overflow"].to(torch.int32)
+    hdr = torch.stack([out["nseq"], hdr1], dim=-1)[:, None, :]
+    body = torch.stack([out["lit_len"], out["match_len"]], dim=-1)
+    return torch.cat([hdr, body], dim=1)
+
+
+def unpack_outputs_wide(packed: np.ndarray) -> dict:
+    """Host-side unpack of pack_wide (numpy)."""
+    packed = np.asarray(packed)
+    hdr = packed[:, 0, :]
+    return {
+        "nseq": hdr[:, 0],
+        "last_literals": (hdr[:, 1] >> 1).astype(np.int64),
+        "overflow": (hdr[:, 1] & 1).astype(bool),
+        "lit_len": packed[:, 1:, 0].astype(np.int64),
+        "match_len": packed[:, 1:, 1].astype(np.int64),
+    }
+
+
+def sections(out: dict, seq_words: int = SEQ_WORDS,
+             custom_tables: bool = True):
+    """The hybrid device half's second stage: the coalesced compaction
+    `out` (compact(..., coalesce=True)) -> (packed (B, max_seq+1, 2) int32
+    (see pack_wide), words (B, seq_words) int32, bits (B,) int32,
+    sec_over (B,) bool, plan), the FSE sequence sections of
+    fse_kernel.encode_sequence_sections (B14)."""
+    words, bits, sec_over, plan = fse_kernel.encode_sequence_sections(
+        out["lit_len"], out["offset"], out["match_len"], out["nseq"],
+        max_words=seq_words, custom=custom_tables)
+    return pack_wide(out), words, bits, sec_over, plan
+
+
+def verified_sequences(blocks: torch.Tensor, lengths: torch.Tensor,
+                       neighbors: int = 2, max_seq: int = 16384,
+                       lazy: bool = False, window: int = 32768) -> dict:
+    """The first stage at levels 1-4: the byte-verified matcher
+    (glue_kernels.candidates_hash_verified: B11, B12, B13), the parse
+    (B10) and the segmented compaction with coalesce."""
+    mlen, moff = glue_kernels.candidates_hash_verified(
+        blocks, lengths, neighbors=neighbors, window=window)
+    chosen = parse_kernel.parse_greedy(mlen, lazy)
+    return compact(chosen, mlen, moff, lengths, max_seq, window,
+                   coalesce=True)
+
+
+def content_sequences(blocks: torch.Tensor, lengths: torch.Tensor,
+                      neighbors: int = 4, max_seq: int = 16384,
+                      lazy: bool = False, stride: int = 1,
+                      window: int = 1 << 30) -> dict:
+    """The first stage at levels 5-12: the exact-LCP candidates with no
+    LDM, the parse (B10) with the level's lazy and the compaction with
+    coalesce (unsegmented: window >= N at every content level)."""
+    mlen, moff = candidates(blocks, lengths, neighbors, stride, window)
+    chosen = parse_kernel.parse_greedy(mlen, lazy)
+    return compact(chosen, mlen, moff, lengths, max_seq, window,
+                   coalesce=True)
+
+
+def find_matches_with_seqsec_hash(blocks: torch.Tensor, lengths: torch.Tensor,
+                                  neighbors: int = 2, max_seq: int = 16384,
+                                  lazy: bool = False, window: int = 32768,
+                                  seq_words: int = SEQ_WORDS,
+                                  custom_tables: bool = True):
+    """Hybrid device entropy at levels 1-4 (reference:
+    match_pipeline.find_matches_with_seqsec_hash, device_literals off):
+    verified_sequences, then sections."""
+    return sections(verified_sequences(blocks, lengths, neighbors, max_seq,
+                                       lazy, window),
+                    seq_words, custom_tables)
+
+
+def find_matches_with_seqsec(blocks: torch.Tensor, lengths: torch.Tensor,
+                             neighbors: int = 4, max_seq: int = 16384,
+                             lazy: bool = False, seq_words: int = SEQ_WORDS,
+                             stride: int = 1, window: int = 1 << 30,
+                             custom_tables: bool = True):
+    """Hybrid device entropy at levels 5-12 (reference:
+    match_pipeline.find_matches_with_seqsec, device_literals off):
+    content_sequences, then sections."""
+    return sections(content_sequences(blocks, lengths, neighbors, max_seq,
+                                      lazy, stride, window),
+                    seq_words, custom_tables)
 
 
 def unpack_outputs(packed: np.ndarray) -> dict:

@@ -1,18 +1,25 @@
 """Where the time of a level's main path goes, on one CUDA device.
 
     python3 -m qat_zstd_plugin_tpu_torch.profile_l1 [--level 1]
-        [--seed S] [--mb 64] [--reps 3] [--trace-dir build/profile]
+        [--device-entropy hybrid] [--seed S] [--mb 64] [--reps 3]
+        [--trace-dir build/profile]
 
 Run from the repository root on a machine with a CUDA device. By default
 it drives the same configuration as chip_smoke.py's level-1 main path
 (level 1, 128 KiB blocks, batch 128, the seeded corpus plus a 5000-byte
-tail); --level 2..12 --mb 32 drives the level 2-12 ones (batch 64). It
-prints one JSON object per line:
+tail); --level 2..12 --mb 32 drives the level 2-12 ones (batch 64).
+--device-entropy hybrid drives the hybrid ones at batch 64, the FSE
+sequence sections encoded on the device (GpuCodec(device_entropy=
+"hybrid")). It prints one JSON object per line:
 
   card          the card's name and power limit, as nvidia-smi gives them;
   device_half   CUDA-event median ms of the device half (levels 1-4
-                find_matches_positions, 5-12 find_matches_packed) for
-                one batch, its input already on the card;
+                find_matches_positions, 5-12 find_matches_packed; hybrid:
+                find_matches_with_seqsec_hash / find_matches_with_seqsec,
+                with the ms of its first stage, the matcher and the
+                coalesced compaction, and of its second, the FSE
+                sections and bitconcat) for one batch, its input already
+                on the card;
   device_ops    torch.profiler over 10 such batches: the device time of
                 each kernel (memcpys included) and its share of the total;
   stages        per repetition, seconds per corpus of each host-visible
@@ -21,11 +28,15 @@ prints one JSON object per line:
                 half, device-to-host copy, then at levels 1-4
                 unpack_segments and device_positions_to_claims, at 5-12
                 unpack_outputs and the coalesce of each block's
-                sequences (device_outputs_to_sequences);
+                sequences (device_outputs_to_sequences), in hybrid mode
+                the host's wrapping of each device section
+                (sections_host: unpack_outputs_wide, nbSeq, the mode
+                byte, the table descriptions, the closed stream);
   host_half     per repetition, seconds of finish_block_host over every
                 full block on a thread pool, from the claims or sequences
-                made beforehand (at 5-12 a block whose device output
-                overflowed is matched on the host here);
+                made beforehand (a block whose device output overflowed
+                is matched on the host here; in hybrid mode the others
+                add only their literals section);
   e2e           per repetition, seconds and MB/s of GpuCodec.compress;
   e2e_profiled  one more e2e call under torch.profiler: the card's busy
                 time (union of its kernel and memcpy intervals) against
@@ -111,26 +122,49 @@ def _write_table(prof, path: str) -> None:
                                           max_name_column_width=60))
 
 
+def hybrid_first_stage(codec, blocks, lengths) -> dict:
+    """The first stage of the codec's hybrid device half, with the
+    arguments GpuCodec._pipeline gives it."""
+    from .ops import match_pipeline
+    p = codec.params
+    if p.matcher == "hash":
+        return match_pipeline.verified_sequences(
+            blocks, lengths, 2, codec.max_seq, p.lazy, p.window)
+    return match_pipeline.content_sequences(
+        blocks, lengths, p.neighbors, codec.max_seq, p.lazy, p.stride,
+        p.window)
+
+
+def _to_cpu(result):
+    """The hybrid device half's outputs, copied to the host."""
+    packed, words, bits, sec_over, plan = result
+    return (packed.cpu(), words.cpu(), bits.cpu(), sec_over.cpu(),
+            {k: v.cpu() for k, v in plan.items()})
+
+
 def profile(seed: int, mb: int, reps: int, trace_dir: str,
-            level: int = 1) -> None:
+            level: int = 1, device_entropy: str | bool = False) -> None:
     from .corpus import make_corpus
     from .ops import _build, match_pipeline
     from .runtime.gpu_codec import (GpuCodec, device_outputs_to_sequences,
                                     device_positions_to_claims)
 
-    batch = BATCH if level == 1 else DENSE_BATCH
+    hybrid = device_entropy == "hybrid"
+    # bench.py's rows: L1 at batch 128, levels 2-12 and hybrid at 64.
+    batch = BATCH if level == 1 and not hybrid else DENSE_BATCH
 
     def emit(what: str, **fields) -> None:
         print(json.dumps({"what": what, **fields}), flush=True)
 
     os.makedirs(trace_dir, exist_ok=True)
     emit("card", card=card_line(), cpus=os.cpu_count(), level=level,
-         batch=batch)
+         batch=batch, device_entropy=device_entropy)
     _build.load()
     dev = torch.device("cuda")
     corpus = make_corpus((mb << 20) + TAIL, seed)
     buf = np.frombuffer(corpus, np.uint8)
-    codec = GpuCodec(level=level, batch=batch, device="cuda")
+    codec = GpuCodec(level=level, batch=batch, device="cuda",
+                     device_entropy=device_entropy)
     run = codec._pipeline()
     content = codec.params.matcher != "hash"
     nfull = len(buf) // BLOCK
@@ -141,7 +175,17 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
                               .copy()).to(dev)
     lengths = torch.full((batch,), BLOCK, dtype=torch.int32, device=dev)
     ms = cuda_ms(lambda: run(blocks, lengths))
-    emit("device_half", batch=batch, ms=ms, mbs=batch * BLOCK / ms / 1e3)
+    split = {}
+    if hybrid:
+        out = hybrid_first_stage(codec, blocks, lengths)
+        split = {
+            "first_stage_ms": cuda_ms(
+                lambda: hybrid_first_stage(codec, blocks, lengths)),
+            "sections_ms": cuda_ms(lambda: match_pipeline.sections(
+                out, custom_tables=codec.params.custom_tables))}
+        del out
+    emit("device_half", batch=batch, ms=ms, mbs=batch * BLOCK / ms / 1e3,
+         **split)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -173,6 +217,12 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
                 torch.from_numpy(blk).to(dev),
                 torch.from_numpy(lens).to(dev)), sync=True)
             res = timed(acc, "device_half", lambda: run(xb, xl), sync=True)
+            if hybrid:
+                host = timed(acc, "d2h", lambda: _to_cpu(res))
+                got = timed(acc, "sections_host",
+                            lambda: codec._collect_hybrid(b, host))
+                claims.update((s + i, c) for i, c in enumerate(got))
+                continue
             host = timed(acc, "d2h", lambda: res.cpu().numpy())
             if content:
                 out = timed(acc, "unpack_outputs",
@@ -186,7 +236,7 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
                 got = timed(acc, "claims", lambda: [
                     device_positions_to_claims(p, o, BLOCK)
                     for p, o in per])
-            claims.update((s + i, c) for i, c in enumerate(got))
+            claims.update((s + i, (c, None)) for i, c in enumerate(got))
         emit("stages", rep=rep, batches=len(starts), seconds=acc,
              total_s=sum(acc.values()))
 
@@ -196,28 +246,30 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
         with ThreadPoolExecutor(workers) as pool:
             t0 = time.perf_counter()
             list(pool.map(lambda i: codec.finish_block_host(
-                buf, i, claims[i]), range(nfull)))
+                buf, i, *claims[i]), range(nfull)))
             seconds = time.perf_counter() - t0
         emit("host_half", rep=rep, blocks=nfull, seconds=seconds,
              workers=workers)
 
     # End to end.
-    GpuCodec(level=level, batch=batch, device="cuda").compress(
-        corpus[:BLOCK + TAIL])  # warm-up
+    kw = dict(level=level, batch=batch, device="cuda",
+              device_entropy=device_entropy)
+    GpuCodec(**kw).compress(corpus[:BLOCK + TAIL])  # warm-up
     for rep in range(reps):
-        c = GpuCodec(level=level, batch=batch, device="cuda")
+        c = GpuCodec(**kw)
         t0 = time.perf_counter()
         frame = c.compress(corpus)
         seconds = time.perf_counter() - t0
         emit("e2e", rep=rep, seconds=seconds,
              mbs=len(corpus) / seconds / 1e6, ratio=len(frame) / len(corpus),
              device_blocks=c.device_blocks,
-             overflow_blocks=c.overflow_blocks)
+             overflow_blocks=c.overflow_blocks,
+             section_blocks=c.section_blocks)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        GpuCodec(level=level, batch=batch, device="cuda").compress(corpus)
+        GpuCodec(**kw).compress(corpus)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     _write_table(prof, os.path.join(trace_dir, "e2e_ops.txt"))
@@ -230,6 +282,8 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--level", type=int, default=1, choices=range(1, 13))
+    ap.add_argument("--device-entropy", choices=("off", "hybrid"),
+                    default="off")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mb", type=int, default=64,
                     help="corpus size in MiB (plus a tail)")
@@ -238,7 +292,8 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_l1: torch sees no CUDA device")
-    profile(args.seed, args.mb, args.reps, args.trace_dir, args.level)
+    profile(args.seed, args.mb, args.reps, args.trace_dir, args.level,
+            "hybrid" if args.device_entropy == "hybrid" else False)
 
 
 if __name__ == "__main__":

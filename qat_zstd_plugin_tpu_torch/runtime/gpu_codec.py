@@ -3,10 +3,12 @@ device.
 
 Port of qat_zstd_plugin_tpu.runtime.tpu_codec (`TpuCodec` and the module
 functions its device path reaches), restricted to the branches the port
-takes: host entropy coding through the port's native runtime, no golden
-Python path, no device entropy, no second parse. Full blocks go in
+takes: the port's native runtime on the host, no golden Python path, no
+second parse, and host or hybrid entropy coding. Full blocks go in
 batches through the device half on an explicit torch device (the CUDA
-kernels on "cuda", their plain-torch twins on "cpu"):
+kernels on "cuda", their plain-torch twins on "cpu").
+
+Host entropy (device_entropy=False, the default):
 
   * levels 1-4, the hash matcher: ops.match_pipeline.find_matches_positions
     -> slot words -> claim positions, which the native extension walk
@@ -15,10 +17,19 @@ kernels on "cuda", their plain-torch twins on "cpu"):
     -> packed sequences -> coalesced, then the deep-level selector picks
     the hinted chain parse or the extension walk plus gap fill per block.
 
-The frames equal TpuCodec's byte for byte at the same level, batch size
-and max_seq. The short tail block is matched on the host, and so is a
-content-level block whose device output overflows (more sequences than
-max_seq, or a literal run over 65535): that is the packed output's
+Hybrid device entropy (device_entropy="hybrid"): the device emits each
+block's final FSE Sequences_Section and the host adds the literals
+section (native.block_body_external_seqsec), with no extension and no
+gap fill. Levels 1-4 take the byte-verified hash matcher
+(find_matches_with_seqsec_hash), levels 5-12 the content matcher without
+LDM (find_matches_with_seqsec). Full device entropy (device literals,
+device_entropy=True or "full") is not ported yet and raises.
+
+The frames equal TpuCodec's byte for byte at the same level, batch size,
+max_seq and entropy placement. The short tail block is matched on the
+host, and so is a block whose device output overflows (more sequences
+than max_seq, a literal run over 65535 in the packed output, or a
+sequence section over its 8192 words): that is the device output's
 format contract, as in the reference, and such blocks are counted in
 `overflow_blocks`. A device error is raised where it happens; no batch is
 re-matched on the CPU.
@@ -31,9 +42,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .. import native
+from .. import fse_format, native
 from ..format import BLOCK_SIZE_MAX, BlockSequences, assemble_frame
 from ..ops import match_pipeline
+from ..ops.bitpack import backward_stream_bytes
 from .levels import TPU_LEVEL_TABLE, level_params
 from .stats import BlockStats, Timer
 
@@ -94,15 +106,57 @@ def device_outputs_to_sequences(out: dict, block_index: int
                           int(out["last_literals"][block_index]))
 
 
+def device_sequence_section(nseq: int, words: np.ndarray, bits: int,
+                            plan: dict, i: int) -> bytes:
+    """Block i's Sequences_Section from the device's stream: the nbSeq
+    varint, the Symbol_Compression_Modes byte (FSE_Compressed for each
+    stream whose custom table the device chose, Predefined otherwise),
+    those tables' descriptions from the normalized counts, then the
+    closed backward bitstream (reference: TpuCodec.collect_batch)."""
+    mode = 0
+    desc = b""
+    if plan:
+        for shift, kind, al in ((6, "ll", fse_format.LL_DEFAULT_ACCURACY),
+                                (4, "of", fse_format.OF_DEFAULT_ACCURACY),
+                                (2, "ml", fse_format.ML_DEFAULT_ACCURACY)):
+            if bool(plan[f"use_{kind}"][i]):
+                mode |= 2 << shift
+                desc += fse_format.write_ncount(
+                    [int(x) for x in plan[f"norm_{kind}"][i]], al)
+    return (fse_format.nbseq_header(nseq) + bytes([mode]) + desc
+            + backward_stream_bytes(words, bits))
+
+
+def entropy_mode(device_entropy) -> str | bool:
+    """The reference's check of device_entropy (TpuCodec.__init__) without
+    its environment default: False (or 0) is host entropy and "hybrid"
+    hybrid; True, 1 and "full" (full device entropy, which the reference
+    treats alike) raise NotImplementedError; any other value ValueError."""
+    if isinstance(device_entropy, int) and device_entropy in (0, 1):
+        mode = bool(device_entropy)
+    elif device_entropy in ("hybrid", "full"):
+        mode = "hybrid" if device_entropy == "hybrid" else True
+    else:
+        raise ValueError(f"device_entropy must be False, True/'full' or "
+                         f"'hybrid', got {device_entropy!r}")
+    if mode is True:
+        raise NotImplementedError(
+            "device_entropy=True/'full' (device literals) is not ported "
+            "yet; False and 'hybrid' are")
+    return mode
+
+
 class GpuCodec:
     """Batched block compressor on one torch device."""
 
     def __init__(self, level: int = 1, batch: int | None = None,
                  block_size: int | None = None, max_seq: int = 16384,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 device_entropy: str | bool = False):
         if level not in TPU_LEVEL_TABLE:
             raise ValueError(f"unsupported level {level}: supported range "
                              "1..12")
+        self.device_entropy = entropy_mode(device_entropy)
         self.level = level
         self.params = TPU_LEVEL_TABLE[level]
         self.host = level_params(level)
@@ -119,13 +173,26 @@ class GpuCodec:
         self.stats = BlockStats()
         self.device_blocks = 0    # full blocks matched by the device half
         self.overflow_blocks = 0  # of those, re-matched on the host
+        self.section_blocks = 0   # of those, with the device's section
         self._fn = None
 
     def _pipeline(self):
         if self._fn is None:
             p = self.params
             wlog = self.host.window_log
-            if p.matcher == "hash":
+            if self.device_entropy and p.matcher == "hash":
+                def run(blocks, lengths):
+                    return match_pipeline.find_matches_with_seqsec_hash(
+                        blocks, lengths, neighbors=2, max_seq=self.max_seq,
+                        lazy=p.lazy, window=p.window,
+                        custom_tables=p.custom_tables)
+            elif self.device_entropy:
+                def run(blocks, lengths):
+                    return match_pipeline.find_matches_with_seqsec(
+                        blocks, lengths, neighbors=p.neighbors,
+                        max_seq=self.max_seq, lazy=p.lazy, stride=p.stride,
+                        window=p.window, custom_tables=p.custom_tables)
+            elif p.matcher == "hash":
                 def run(blocks, lengths):
                     return match_pipeline.find_matches_positions(
                         blocks, lengths, widths=p.widths,
@@ -154,21 +221,55 @@ class GpuCodec:
         lengths = torch.from_numpy(lengths_np).to(self.device)
         return b, lengths_np, self._pipeline()(blocks, lengths)
 
-    def collect_batch(self, handle) -> list[BlockSequences | None]:
-        """Wait for a submitted batch; returns each block's sequences
-        (claims at levels 1-4), None for a block that overflowed."""
+    def collect_batch(self, handle
+                      ) -> list[tuple[BlockSequences | None, bytes | None]]:
+        """Wait for a submitted batch; returns per block (sequences, the
+        device's Sequences_Section or None): claims at levels 1-4 and
+        coalesced sequences at 5-12 with host entropy; with hybrid entropy
+        the sequences' literal and match lengths (offsets are only in the
+        section, zeros here) and the section, which is None for a block
+        with no sequences (the host encodes that one). (None, None) for a
+        block whose device output overflowed."""
         b, lengths, result = handle
         self.device_blocks += b
+        if self.device_entropy:
+            return self._collect_hybrid(b, result)
         if self.params.matcher == "hash":
             words = result.cpu().numpy().view(np.uint32)
             per_block = match_pipeline.unpack_segments(words, self.batch,
                                                        self.params.window)
-            return [device_positions_to_claims(p, o, lengths[i])
+            return [(device_positions_to_claims(p, o, lengths[i]), None)
                     for i, (p, o) in enumerate(per_block[:b])]
         out = match_pipeline.unpack_outputs(result.cpu().numpy())
         seqs = [device_outputs_to_sequences(out, i) for i in range(b)]
         self.overflow_blocks += sum(s is None for s in seqs)
-        return seqs
+        return [(s, None) for s in seqs]
+
+    def _collect_hybrid(self, b: int, result):
+        packed, words, bits, sec_over, plan = result
+        out = match_pipeline.unpack_outputs_wide(packed.cpu().numpy())
+        words = words.cpu().numpy()
+        bits = bits.cpu().numpy()
+        sec_over = sec_over.cpu().numpy()
+        plan = {k: v.cpu().numpy() for k, v in plan.items()}
+        res = []
+        for i in range(b):
+            if out["overflow"][i] or sec_over[i]:
+                self.overflow_blocks += 1
+                res.append((None, None))
+                continue
+            ns = int(out["nseq"][i])
+            seqs = BlockSequences(out["lit_len"][i, :ns],
+                                  np.zeros(ns, np.int64),
+                                  out["match_len"][i, :ns],
+                                  int(out["last_literals"][i]))
+            if ns == 0:
+                res.append((seqs, None))
+                continue
+            self.section_blocks += 1
+            res.append((seqs, device_sequence_section(
+                ns, words[i], int(bits[i]), plan, i)))
+        return res
 
     def compress(self, data: bytes | np.ndarray,
                  checksum: bool = True) -> bytes:
@@ -179,11 +280,14 @@ class GpuCodec:
                               window_log=self.host.window_log)
 
     def finish_block_host(self, buf: np.ndarray, i: int,
-                          seqs: BlockSequences | None) -> bytes | None:
-        """Host half of block i of the whole frame buffer `buf`: the deep
-        selector's chain parse, or extension plus gap fill, of the device
-        sequences; or, for seqs None (the tail block, an overflowed
-        block), the host matcher; then the entropy coder. None => raw."""
+                          seqs: BlockSequences | None,
+                          section: bytes | None = None) -> bytes | None:
+        """Host half of block i of the whole frame buffer `buf`: with the
+        device's Sequences_Section, the literals section before it; else
+        the deep selector's chain parse, or extension plus gap fill, of
+        the device sequences; or, for seqs None (the tail block, an
+        overflowed block), the host matcher; then the entropy coder.
+        None => raw."""
         n = len(buf)
         bs = self.block_size
         gp = self.host
@@ -198,6 +302,11 @@ class GpuCodec:
         ctx = min(i * bs, win)
         ctx_find = min(i * bs, max(0, win - bs))
         cblk = buf[i * bs - ctx:min((i + 1) * bs, n)]
+        if section is not None:
+            # Hybrid entropy: the section is final; no extension.
+            return native.block_body_external_seqsec(
+                blk, seqs.lit_lengths, seqs.match_lengths,
+                seqs.last_literals, section, self.params.huffman)
         deep_hinted = False
         if seqs is not None and seqs.nseq and self.level >= 5:
             share = float(seqs.lit_lengths.sum()
@@ -248,9 +357,9 @@ class GpuCodec:
         nblocks = max(1, -(-n // bs))
         nfull = n // bs
 
-        def finish_block(i: int, seqs) -> bytes | None:
+        def finish_block(i: int, seqs, section=None) -> bytes | None:
             with Timer() as tm:
-                body = self.finish_block_host(buf, i, seqs)
+                body = self.finish_block_host(buf, i, seqs, section)
             self.stats.record(min(n - i * bs, bs),
                               len(body) if body else None, tm.elapsed)
             return body
@@ -261,8 +370,8 @@ class GpuCodec:
 
             def collect_one() -> None:
                 ids, handle = inflight.pop(0)
-                for i, sq in zip(ids, self.collect_batch(handle)):
-                    futures[i] = pool.submit(finish_block, i, sq)
+                for i, (sq, sec) in zip(ids, self.collect_batch(handle)):
+                    futures[i] = pool.submit(finish_block, i, sq, sec)
 
             for s in range(0, nfull, self.batch):
                 ids = range(s, min(s + self.batch, nfull))

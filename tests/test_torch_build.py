@@ -46,8 +46,12 @@ def test_every_source_is_compiled_and_bound():
     """One nvcc per .cu file; every entry point has argument types."""
     names = [os.path.basename(s) for s in _build._sources()]
     assert names == ["content_kernels.cu", "dense_kernels.cu",
-                     "l1_kernels.cu"]
+                     "fse_kernels.cu", "l1_kernels.cu",
+                     "verified_kernels.cu"]
     text = "".join(open(s).read() for s in _build._sources())
     for name, argtypes in _build.SIGNATURES.items():
         assert f"int {name}(" in text, name
         assert argtypes[-1] is _build._P  # the stream
+        # As many C parameters as ctypes argument types.
+        params = text.split(f"int {name}(", 1)[1].split(")", 1)[0]
+        assert params.count(",") + 1 == len(argtypes), name

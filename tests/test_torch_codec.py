@@ -113,11 +113,11 @@ def _no_cpu_rematch(codec, monkeypatch):
     finished = []
     host = codec.finish_block_host
 
-    def finish(buf, i, seqs):
+    def finish(buf, i, seqs, section=None):
         if seqs is None and (i + 1) * BLOCK <= len(buf):
             raise AssertionError(f"full block {i} re-matched on the CPU")
         finished.append(i)
-        return host(buf, i, seqs)
+        return host(buf, i, seqs, section)
 
     monkeypatch.setattr(codec, "finish_block_host", finish)
     return finished
@@ -187,9 +187,12 @@ def test_requires_native_runtime(monkeypatch, tmp_path):
 
 
 def test_only_level_1_is_ported():
-    """Levels 1-12 construct; 0 and 13 raise ValueError."""
+    """(Named when level 1 alone was ported.) Levels 1-12 construct, with
+    host and with hybrid device entropy; 0 and 13 raise ValueError."""
     for level in range(1, 13):
         assert GpuCodec(level=level, device="cpu").level == level
+        assert GpuCodec(level=level, device="cpu",
+                        device_entropy="hybrid").device_entropy == "hybrid"
     for level in (0, 13):
         with pytest.raises(ValueError):
             GpuCodec(level=level, device="cpu")

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from qat_zstd_plugin_tpu_torch import compress
+from qat_zstd_plugin_tpu_torch.ops import fse_kernel as fk
 from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
 from qat_zstd_plugin_tpu_torch.ops import match_pipeline as tmp
 from qat_zstd_plugin_tpu_torch.ops import parse_kernel as pk
@@ -63,6 +64,8 @@ LENGTHS = np.array([N, N - 1, N // 2, 100, 0, N, N, 7], np.int32)
 L1_KERNELS = ("hash_keys_winmin_sync", "neighbor_unsort_keys", "ldm_keys",
               "compact_slots_sync")
 CONTENT_KERNELS = ("ldm_winmin", "parse_greedy")
+HYBRID_ONLY = ("gram_pos_planes", "neighbor_verify_keys", "finalize_verified",
+               "fse_state")  # kernels of device_entropy="hybrid" alone
 
 
 def test_slot_words_card_vs_cpu(cuda):
@@ -136,7 +139,8 @@ def test_l4_frames_card_vs_cpu(cuda):
     tk.reset_launches()
     on_card = compress(data, level=4, batch=8, device="cuda")
     assert all(n > 0 for k, n in tk.launches.items() if k not in L1_KERNELS
-               + CONTENT_KERNELS and k != "hash_keys_winmin")  # 8 < 16: no LDM
+               + CONTENT_KERNELS + HYBRID_ONLY
+               and k != "hash_keys_winmin")  # 8 < 16: no LDM
     assert on_card == compress(data, level=4, batch=8, device="cpu")
 
 
@@ -181,3 +185,76 @@ def test_content_frames_card_vs_cpu(cuda):
                                             "neighbor_unsort_keys",
                                             "parse_greedy"))
     assert on_card == compress(data, level=5, batch=4, device="cpu")
+
+
+def test_gram_pos_planes_and_neighbor_verify_keys(cuda):
+    x = torch.from_numpy(_blocks()).to(cuda)
+    g, p = tk.gram_pos_planes(x, WINDOW)
+    tw_g, tw_p = tk.gram_pos_planes_twin(x, WINDOW)
+    assert torch.equal(g, tw_g) and torch.equal(p, tw_p)
+    sg, sp = tk._sort_rows2(g, p, 15)
+    for neighbors in (1, 2):
+        assert torch.equal(tk.neighbor_verify_keys(sg, sp, 15, neighbors),
+                           tk.neighbor_verify_keys_twin(sg, sp, 15,
+                                                        neighbors))
+
+
+def test_finalize_verified(cuda):
+    blocks = _blocks()
+    blocks[3, 1000:40000] = 7  # a run longer than 16383
+    x = torch.from_numpy(blocks).to(cuda)
+    lengths = torch.from_numpy(LENGTHS).to(cuda)
+    sg, sp = tk._sort_rows2(*tk.gram_pos_planes(x, WINDOW), 15)
+    su = tk._sort_rows(tk.neighbor_verify_keys(sg, sp, 15, 2))
+    ml, mo = tk.finalize_verified(su, x, lengths)
+    tw_ml, tw_mo = tk.finalize_verified_twin(su, x, lengths)
+    assert torch.equal(ml, tw_ml) and torch.equal(mo, tw_mo)
+
+
+def _crafted_sequences(cuda, S=16384, seed=7):
+    """Blocks of 0, 1, S and in-between sequence counts, literal and match
+    lengths past 65535 and offsets to 2^17."""
+    rng = np.random.default_rng(seed)
+    nseq = np.array([0, 1, S, 5000, 127, 128, S - 1, 3], np.int32)
+    B = len(nseq)
+    ll = rng.integers(0, 300, (B, S)).astype(np.int32)
+    ll[:, ::7] = rng.integers(0, 70000, (B, -(-S // 7)))
+    ml = rng.integers(3, 40, (B, S)).astype(np.int32)
+    ml[:, ::11] = rng.integers(3, 70000, (B, -(-S // 11)))
+    of = rng.integers(1, 1 << 17, (B, S)).astype(np.int32)
+    return [torch.from_numpy(a).to(cuda) for a in (ll, of, ml, nseq)]
+
+
+@pytest.mark.parametrize("custom", [False, True])
+def test_fse_state_machine(cuda, custom):
+    x = torch.from_numpy(_blocks()).to(cuda)
+    lengths = torch.from_numpy(LENGTHS).to(cuda)
+    out = tmp.verified_sequences(x, lengths)
+    batches = [(out["lit_len"], out["offset"], out["match_len"],
+                out["nseq"]), _crafted_sequences(cuda)]
+    for seqs in batches:
+        args = fk.prepare_sections(*seqs, custom=custom)["state_args"]
+        lo, nb = fk.run_state_kernel(*args)
+        tw_lo, tw_nb = fk.run_state_kernel_twin(*args)
+        assert torch.equal(lo, tw_lo) and torch.equal(nb, tw_nb)
+        on_cpu = fk.encode_sequence_sections(*(t.cpu() for t in seqs),
+                                             custom=custom)
+        on_card = fk.encode_sequence_sections(*seqs, custom=custom)
+        for got, want in zip(on_card[:3], on_cpu[:3]):
+            assert torch.equal(got.cpu(), want)
+
+
+HYBRID_KERNELS = {1: ("gram_pos_planes", "neighbor_verify_keys",
+                      "finalize_verified", "parse_greedy", "fse_state"),
+                  9: ("parse_greedy", "fse_state")}
+
+
+@pytest.mark.parametrize("level", sorted(HYBRID_KERNELS))
+def test_hybrid_frames_card_vs_cpu(cuda, level):
+    data = _blocks(B=4, seed=6).tobytes() + b"tail" * 1000
+    tk.reset_launches()
+    on_card = compress(data, level=level, batch=4, device="cuda",
+                       device_entropy="hybrid")
+    assert all(tk.launches[k] > 0 for k in HYBRID_KERNELS[level])
+    assert on_card == compress(data, level=level, batch=4, device="cpu",
+                               device_entropy="hybrid")

@@ -5,12 +5,24 @@ import torch
 
 import qat_zstd_plugin_tpu_torch as qzt
 from qat_zstd_plugin_tpu.runtime import device as jax_device
+from qat_zstd_plugin_tpu_torch.ops import fse_kernel as fk
 from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
 from qat_zstd_plugin_tpu_torch.ops import parse_kernel as pk
 from qat_zstd_plugin_tpu_torch.runtime import device
 
-# The module that holds each kernel's wrapper and twin.
-MODULE = {name: pk if name == "parse_greedy" else tk for name in tk.launches}
+# The module that holds each kernel's wrapper and twin, and the twin's name.
+TWIN = {name: (tk, f"{name}_twin") for name in tk.launches}
+TWIN["parse_greedy"] = (pk, "parse_greedy_twin")
+TWIN["fse_state"] = (fk, "run_state_kernel_twin")
+
+
+def _state_args(dev, dtype=torch.int32, S1=65, B=4):
+    """run_state_kernel's arguments: codes, tables, inits, nseq."""
+    def z(*shape, t=torch.int32):
+        return torch.zeros(shape, dtype=t, device=dev)
+    codes = [z(S1, B, t=dtype) for _ in range(3)]
+    tables = [(z(k, B), z(k, B), z(k, B)) for k in (64, 32, 64)]
+    return codes, tables, [z(B) for _ in range(3)], z(B)
 
 
 def test_start_device_status():
@@ -78,6 +90,11 @@ def _meta_calls():
             minz, minz, 32768),
         "ldm_winmin": lambda: tk.ldm_winmin(u8, 32),
         "parse_greedy": lambda: pk.parse_greedy(minz, True),
+        "gram_pos_planes": lambda: tk.gram_pos_planes(u8, 32768),
+        "neighbor_verify_keys": lambda: tk.neighbor_verify_keys(
+            keys, keys, 15, 2),
+        "finalize_verified": lambda: tk.finalize_verified(keys, u8, lengths),
+        "fse_state": lambda: fk.run_state_kernel(*_state_args("meta")),
     }
 
 
@@ -87,7 +104,7 @@ def test_wrapper_raises_off_cpu_and_cuda(name, monkeypatch):
     def no_twin(*a, **k):
         raise AssertionError("twin called for a non-CPU tensor")
 
-    monkeypatch.setattr(MODULE[name], f"{name}_twin", no_twin)
+    monkeypatch.setattr(*TWIN[name], no_twin)
     before = dict(tk.launches)
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         _meta_calls()[name]()
@@ -121,6 +138,17 @@ def test_wrapper_rejects_wrong_dtype(name):
             torch.zeros((2, 64), dtype=torch.int32), 32),
         "parse_greedy": lambda: pk.parse_greedy(
             torch.zeros((2, 64), dtype=torch.int64)),
+        "gram_pos_planes": lambda: tk.gram_pos_planes(
+            torch.zeros((2, 64), dtype=torch.int32), 64),
+        "neighbor_verify_keys": lambda: tk.neighbor_verify_keys(
+            torch.zeros((2, 64), dtype=torch.int64),
+            torch.zeros((2, 64), dtype=torch.int32), 6),
+        "finalize_verified": lambda: tk.finalize_verified(
+            torch.zeros((2, 64), dtype=torch.int64),
+            torch.zeros((2, 64), dtype=torch.uint8),
+            torch.zeros((2,), dtype=torch.int32)),
+        "fse_state": lambda: fk.run_state_kernel(
+            *_state_args("cpu", torch.int64)),
     }[name]
     with pytest.raises(ValueError):
         call()
@@ -135,4 +163,6 @@ def test_cpu_run_counts_no_launch():
                               dense=True)
     tk.find_matches_positions(blocks, lengths, widths=(5, 8), dense=True)
     qzt.compress(bytes(range(256)) * 1100, level=5, batch=4, device="cpu")
+    qzt.compress(bytes(range(256)) * 1100, level=1, batch=4, device="cpu",
+                 device_entropy="hybrid")
     assert all(n == 0 for n in tk.launches.values())

@@ -3,7 +3,9 @@
 The port imports nothing of qat_zstd_plugin_tpu; what it needs it keeps
 as a copy. Frames equal the JAX package's only while every copy does:
 the C++ runtime's source, both level tables field by field, the version,
-frame assembly and the content checksum.
+frame assembly, the content checksum, and the FSE pieces the hybrid
+sequence sections need (the code tables, the encode tables, the table
+descriptions, the nbSeq header and the closing of the backward stream).
 """
 
 import dataclasses
@@ -15,13 +17,16 @@ import pytest
 import qat_zstd_plugin_tpu as qz
 from qat_zstd_plugin_tpu import native as jax_native
 from qat_zstd_plugin_tpu import oracle as jax_oracle
-from qat_zstd_plugin_tpu.format import frame, tables, xxhash
+from qat_zstd_plugin_tpu.format import (bitstream, frame, fse, sequences,
+                                        tables, xxhash)
 from qat_zstd_plugin_tpu.golden import codec as golden_codec
+from qat_zstd_plugin_tpu.ops import bitpack as jax_bitpack
 from qat_zstd_plugin_tpu.runtime import tpu_codec
 from qat_zstd_plugin_tpu.utils import profiling
 import qat_zstd_plugin_tpu_torch as qzt
 from qat_zstd_plugin_tpu_torch import format as tformat
-from qat_zstd_plugin_tpu_torch import native, oracle
+from qat_zstd_plugin_tpu_torch import fse_format, native, oracle
+from qat_zstd_plugin_tpu_torch.ops import bitpack
 from qat_zstd_plugin_tpu_torch.runtime import gpu_codec, levels, stats
 
 
@@ -123,6 +128,67 @@ def test_block_sequences_and_helpers_match():
             for ctx in (0, 200_000, 1 << 20):
                 assert gpu_codec.deep_parse_pick(level, share, ctx, 131072) \
                     == tpu_codec.deep_parse_pick(level, share, ctx, 131072)
+
+
+def test_fse_format_constants_equal():
+    for name in ("LL_BASELINES", "LL_BITS", "ML_BASELINES", "ML_BITS",
+                 "LL_DEFAULT_DIST", "ML_DEFAULT_DIST", "OF_DEFAULT_DIST",
+                 "LL_DEFAULT_ACCURACY", "ML_DEFAULT_ACCURACY",
+                 "OF_DEFAULT_ACCURACY"):
+        assert getattr(fse_format, name) == getattr(tables, name), name
+
+
+def _norms():
+    """The predefined distributions (with -1 entries) and normalized
+    counts of random histograms (with zero runs past 24 symbols)."""
+    out = [(tables.LL_DEFAULT_DIST, 6), (tables.ML_DEFAULT_DIST, 6),
+           (tables.OF_DEFAULT_DIST, 5)]
+    rng = np.random.default_rng(3)
+    for al, k in ((5, 32), (6, 36), (6, 53), (6, 53)):
+        hist = rng.integers(0, 50, k) * (rng.random(k) < 0.6)
+        hist[k - 1] = 3  # the last symbol present: no trailing zeros
+        out.append((fse.normalize_counts(hist, al), al))
+    hist = np.zeros(53, np.int64)
+    hist[[0, 30, 52]] = (500, 3, 1)
+    out.append((fse.normalize_counts(hist, 6), 6))
+    return out
+
+
+@pytest.mark.parametrize("i", range(8))
+def test_fse_tables_and_descriptions_equal(i):
+    norm, al = _norms()[i]
+    norm = [int(c) for c in norm]
+    np.testing.assert_array_equal(fse_format.spread_symbols(norm, al),
+                                  fse.spread_symbols(norm, al))
+    got = fse_format.build_encode_table(norm, al)
+    want = fse.build_encode_table(norm, al)
+    assert got.accuracy_log == want.accuracy_log
+    for f in ("state_table", "delta_nb_bits", "delta_find_state"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert fse_format.write_ncount(norm, al) == fse.write_ncount(norm, al)
+
+
+def test_nbseq_header_and_bit_writers_equal():
+    for n in (0, 1, 127, 128, 255, 0x7EFF, 0x7F00, 0x7F01, 0x7F00 + 65535):
+        assert fse_format.nbseq_header(n) == sequences.nbseq_header(n), n
+    rng = np.random.default_rng(4)
+    mine, ref = fse_format.ForwardBitWriter(), bitstream.ForwardBitWriter()
+    for _ in range(300):
+        nb = int(rng.integers(0, 17))
+        v = int(rng.integers(0, 1 << nb))
+        mine.add(v, nb)
+        ref.add(v, nb)
+    assert mine.close() == ref.close()
+    for bits in (0, 1, 7, 8, 9, 31, 32, 33, 1000, 32 * 40):
+        words = rng.integers(0, 1 << 32, 41, dtype=np.uint64) \
+            .astype(np.uint32).view(np.int32)
+        words[bits // 32 + 1:] = 0
+        if bits % 32:
+            words[bits // 32] &= (1 << bits % 32) - 1
+        else:
+            words[bits // 32] = 0
+        assert bitpack.backward_stream_bytes(words, bits) == \
+            jax_bitpack.backward_stream_bytes(words, bits), bits
 
 
 def test_block_stats_and_oracle():
