@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the CUDA kernels
 and the host runtime, checks each kernel against its plain-torch twin,
 drives levels 1-4 (the hash matcher) and 5, 9 and 12 (the content
-matcher) end to end, and levels 1 and 9 with hybrid device entropy (the
-FSE sequence sections encoded on the card), and checks every frame with
-stock libzstd.
+matcher) end to end, levels 1 and 9 with hybrid device entropy (the FSE
+sequence sections encoded on the card) and with full device entropy (the
+Huffman literals sections too), and checks every frame with stock
+libzstd.
 
     python3 chip_smoke.py [--seed S] [--mb 64]
 
@@ -14,7 +15,7 @@ Run from the repository root on a machine with one CUDA device. Phases
   1. card and build: the card's name and power limit, the nvcc build of
      qat_zstd_plugin_tpu_torch/csrc/ and the g++ build of the port's
      native host runtime;
-  2. kernel vs twin: each of the fourteen kernels against its plain-torch
+  2. kernel vs twin: each of the sixteen kernels against its plain-torch
      twin on the card, exactly equal, with median CUDA-event times of
      both and the least time the card could take (the bytes the function
      must move at 3.35 TB/s): K1-K4 at level 1's shapes (B=128 blocks of
@@ -28,7 +29,9 @@ Run from the repository root on a machine with one CUDA device. Phases
      neighbors 1 and 2; B14 on the L1 and L9 sequences of the batch and
      on crafted blocks of 0, 1 and 16384 sequences, custom tables on and
      off (its twin is a Python loop over the steps, timed in its one
-     checking run);
+     checking run); B15 and B16 on the L1 and L9 parses of the batch and
+     on crafted rows of long chosen matches (to 65535, across the
+     kernel's tile edges, to the row's end) with ragged lengths;
   3. device half: the composed output of each level's device half from
      the kernels on the card against the twins on the CPU, with the ms
      per batch: level 1 at B=128 (LDM on) and B=6 (no whole number of
@@ -36,7 +39,8 @@ Run from the repository root on a machine with one CUDA device. Phases
      B=8 (LDM off), levels 5, 9 and 12 at B=64 (LDM on) and level 5 at
      B=6 (LDM off); with hybrid device entropy, levels 1 and 9 at B=64
      (packed sequences, section words and bits, overflow flags and the
-     table plan);
+     table plan); with full device entropy the same and every field of
+     the literals dict;
   4. main paths: compress(level=1, batch=128, device="cuda") on a --mb MiB
      corpus plus a 5000-byte tail, then compress(level=L, batch=64) for
      L = 2, 3, 4, 5, 9, 12 on a 32 MiB corpus plus a tail. The launch
@@ -48,13 +52,15 @@ Run from the repository root on a machine with one CUDA device. Phases
      compress(level=L, batch=64, device_entropy="hybrid") for L = 1 and
      9 on the 32 MiB corpus, where at least one block must carry the
      card's sequence section (a block whose compaction or section
-     overflows is re-matched on the host, the reference's contract);
+     overflows is re-matched on the host, the reference's contract); and
+     the same with device_entropy=True, where at least one block must
+     carry the card's literals section as well;
   5. port on card vs port on CPU, frames equal: level 1 at batch 8 on 8
      blocks + tail, level 4 at batch 16 on 16 blocks + tail, level 3 at
      batch 8 on 9 blocks (a padded partial batch), level 5 at batch 8 on
      9 blocks and level 12 at batch 4 on 4 blocks + tail; in hybrid
-     mode level 1 at batch 8 on 8 blocks + tail and level 5 at batch 4
-     on 4 blocks + tail.
+     and in full mode level 1 at batch 8 on 8 blocks + tail and level 5
+     at batch 4 on 4 blocks + tail.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -85,7 +91,9 @@ DENSE_SRC = "qat_zstd_plugin_tpu_torch/csrc/dense_kernels.cu"
 CONTENT_SRC = "qat_zstd_plugin_tpu_torch/csrc/content_kernels.cu"
 VERIFIED_SRC = "qat_zstd_plugin_tpu_torch/csrc/verified_kernels.cu"
 FSE_SRC = "qat_zstd_plugin_tpu_torch/csrc/fse_kernels.cu"
+LITERALS_SRC = "qat_zstd_plugin_tpu_torch/csrc/literals_kernels.cu"
 REF = "qat_zstd_plugin_tpu/ops/glue_kernels.py"
+LIT_REF = "qat_zstd_plugin_tpu/ops/literals_kernel.py"
 HYBRID_LEVELS = (1, 9)  # hybrid device entropy: the hash and content paths
 MAX_SEQ = 16384  # GpuCodec's max_seq, bench.py's hybrid row
 # Each CUDA kernel: its source and the Pallas kernel it replaces.
@@ -105,6 +113,8 @@ KERNELS = {
     "neighbor_verify_keys": (VERIFIED_SRC, f"{REF}:335"),
     "finalize_verified": (VERIFIED_SRC, f"{REF}:382"),
     "fse_state": (FSE_SRC, "qat_zstd_plugin_tpu/ops/fse_kernel.py:102"),
+    "literal_keys": (LITERALS_SRC, f"{LIT_REF}:41"),
+    "byte_hist": (LITERALS_SRC, f"{LIT_REF}:94"),
 }
 # The kernels each level's main path must launch.
 _DENSE = ("hash_keys_winmin", "neighbor_unsort_keys", "ldm_keys",
@@ -124,6 +134,9 @@ HYBRID_KERNELS = {
         "parse_greedy", "fse_state"),
     9: ("parse_greedy", "fse_state"),
 }
+# With full device entropy: the hybrid kernels and the literals' two.
+FULL_KERNELS = {level: kernels + ("literal_keys", "byte_hist")
+                for level, kernels in HYBRID_KERNELS.items()}
 
 
 def phase(name: str, **fields) -> None:
@@ -554,7 +567,7 @@ def hybrid_kernels_vs_twins(torch, tk, fk, blocks_np: np.ndarray,
     # custom tables on and off.
     batches = {f"L{level} sequences": hybrid_first_stage(
         GpuCodec(level=level, batch=B, max_seq=MAX_SEQ,
-                 device_entropy="hybrid"), corpus, full)
+                 device_entropy="hybrid"), corpus, full)[0]
         for level in HYBRID_LEVELS}
     batches["crafted"] = _crafted_sequences(torch, rng, B, dev)
     for what, out in batches.items():
@@ -573,16 +586,81 @@ def hybrid_kernels_vs_twins(torch, tk, fk, blocks_np: np.ndarray,
     torch.cuda.synchronize()
 
 
-def hybrid_device_half(torch, qzt, level: int, blocks_np: np.ndarray
-                       ) -> dict:
-    """Phase 3 in hybrid mode: the device half's outputs (packed sequences,
-    section words and bits, overflow flags, table plan), kernels on the
-    card vs twins on the CPU, and the median ms of one batch on the
-    card."""
+def _crafted_parse(torch, rng, B: int, N: int, dev):
+    """(chosen, mlen) for B15: sparse random matches (lengths to 40),
+    chosen matches of 16383, 16384, 16385, 40000 and 65535 bytes,
+    matches across the kernel's 2048-position tile edges, one that ends
+    exactly at N and one that passes it (a raw plane, not a parse:
+    matches may overlap)."""
+    chosen = rng.random((B, N)) < 0.02
+    mlen = rng.integers(4, 41, (B, N)).astype(np.int32)
+    for row, length in enumerate((16383, 16384, 16385, 40000, 65535)):
+        chosen[row, 100 + row] = True
+        mlen[row, 100 + row] = length
+    edges = np.arange(2048, N, 2048)
+    chosen[5, edges - 3] = True
+    mlen[5, edges - 3] = 2100
+    chosen[6, N - 50], mlen[6, N - 50] = True, 50
+    chosen[7, N - 20], mlen[7, N - 20] = True, 65535
+    return (torch.from_numpy(chosen).to(dev),
+            torch.from_numpy(mlen).to(dev))
+
+
+def literals_kernels_vs_twins(torch, lk, blocks_np: np.ndarray, seed: int,
+                              results: dict) -> None:
+    """Phase 2, the full device-entropy kernels (B15, B16) against their
+    twins on the card, at B=64 x 128 KiB: on the L1 and L9 parses of the
+    batch and on crafted rows, with full and ragged lengths."""
+    from qat_zstd_plugin_tpu_torch import GpuCodec
+    from qat_zstd_plugin_tpu_torch.profile_l1 import hybrid_first_stage
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 5)
+    B, N = blocks_np.shape
+    corpus = torch.from_numpy(blocks_np).to(dev)
+    _, mixed = _test_bytes(torch, corpus, rng)
+    full = torch.full((B,), N, dtype=torch.int32, device=dev)
+    ragged = _ragged(torch, rng, B, N, dev)
+    case = Cases(results)
+    inputs = {}
+    for level in HYBRID_LEVELS:
+        _, chosen, mlen = hybrid_first_stage(
+            GpuCodec(level=level, batch=B, max_seq=MAX_SEQ,
+                     device_entropy=True), corpus, full)
+        inputs[f"L{level} parse"] = (corpus, chosen, mlen)
+    inputs["crafted long matches"] = (mixed, *_crafted_parse(torch, rng, B,
+                                                             N, dev))
+    for what, (x, chosen, mlen) in inputs.items():
+        for lens_name, lens in (("full", full), ("ragged", ragged)):
+            name = f"{what}, {lens_name} lengths"
+            keys = lk.literal_keys(x, lens, chosen, mlen)
+            err = exact(torch, keys, lk.literal_keys_twin(x, lens, chosen,
+                                                          mlen),
+                        f"literal_keys {name}")
+            main = (what, lens_name) == ("L1 parse", "full")
+            case("literal_keys", name, err,
+                 nbytes(x, lens, chosen, mlen, keys),
+                 lambda: lk.literal_keys(x, lens, chosen, mlen),
+                 lambda: lk.literal_keys_twin(x, lens, chosen, mlen),
+                 main=main, literals=int((keys != -1).sum()))
+            hist = lk.byte_hist(keys)
+            err = exact(torch, hist, lk.byte_hist_twin(keys),
+                        f"byte_hist {name}")
+            case("byte_hist", name, err, nbytes(keys, hist),
+                 lambda: lk.byte_hist(keys), lambda: lk.byte_hist_twin(keys),
+                 main=main)
+    torch.cuda.synchronize()
+
+
+def hybrid_device_half(torch, qzt, level: int, blocks_np: np.ndarray,
+                       device_entropy="hybrid") -> dict:
+    """Phase 3 with device entropy: the device half's outputs (packed
+    sequences, section words and bits, overflow flags, table plan, and in
+    full mode every field of the literals dict), kernels on the card vs
+    twins on the CPU, and the median ms of one batch on the card."""
     from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
     B = len(blocks_np)
     lengths_np = np.full(B, BLOCK, np.int32)
-    kw = dict(level=level, batch=B, device_entropy="hybrid")
+    kw = dict(level=level, batch=B, device_entropy=device_entropy)
     on_card = qzt.GpuCodec(device="cuda", **kw)._pipeline()
     on_cpu = qzt.GpuCodec(device="cpu", **kw)._pipeline()
     dev = torch.device("cuda")
@@ -590,21 +668,30 @@ def hybrid_device_half(torch, qzt, level: int, blocks_np: np.ndarray
     lengths = torch.from_numpy(lengths_np).to(dev)
     got = on_card(blocks, lengths)
     want = on_cpu(torch.from_numpy(blocks_np), torch.from_numpy(lengths_np))
+    what = f"{device_entropy} device half L{level}"
     for name, g, w in zip(("packed", "words", "bits", "sec_over"), got,
                           want):
-        exact(torch, g.cpu(), w, f"hybrid device half L{level} {name}")
-    if sorted(got[4]) != sorted(want[4]):
-        raise AssertionError(f"hybrid device half L{level}: plan keys")
-    for k in want[4]:
-        exact(torch, got[4][k].cpu(), want[4][k],
-              f"hybrid device half L{level} plan {k}")
+        exact(torch, g.cpu(), w, f"{what} {name}")
+    for name, g, w in (("plan", got[4], want[4]),
+                       ("literals", got[5] or {}, want[5] or {})):
+        if sorted(g) != sorted(w):
+            raise AssertionError(f"{what}: {name} keys")
+        for k in w:
+            exact(torch, g[k].cpu(), w[k], f"{what} {name} {k}")
+    if (want[5] is None) != (device_entropy == "hybrid"):
+        raise AssertionError(f"{what}: literals dict in the wrong mode")
     ms = cuda_ms(lambda: on_card(blocks, lengths))
     packed = want[0]
     over = (packed[:, 0, 1] & 1).bool() | want[3]
-    return {"level": level, "batch": B, "device_entropy": "hybrid",
+    lits = {} if want[5] is None else {
+        "literals": int(want[5]["n_lit"].sum()),
+        "literals_ok_blocks": int((want[5]["ok"] & ~over).sum()),
+        "literal_bits": int(want[5]["bits"].reshape(B, 4)[
+            want[5]["ok"] & ~over].sum())}
+    return {"level": level, "batch": B, "device_entropy": device_entropy,
             "sequences": int(packed[:, 0, 0].sum()),
             "overflow_blocks": int(over.sum()),
-            "section_bits": int(want[2][~over].sum()), "ms": ms,
+            "section_bits": int(want[2][~over].sum()), **lits, "ms": ms,
             "mbs": B * BLOCK / ms / 1e3}
 
 
@@ -637,8 +724,9 @@ def main_path(torch, qzt, tk, oracle, level: int, batch: int,
               data: bytes, device_entropy=False) -> dict:
     """Phase 4 for one level: compress on the card with the launch counts
     reset just before; decode; no fallback; the level's kernels ran; in
-    hybrid mode at least one block carries the card's section. Returns
-    the launch counts of the run."""
+    hybrid and full mode at least one block carries the card's sequence
+    section, in full mode also its literals section. Returns the launch
+    counts of the run."""
     qzt.compress(data[:BLOCK + TAIL], level=level, batch=batch,
                  device="cuda", device_entropy=device_entropy)  # warm-up
     torch.cuda.synchronize()
@@ -659,6 +747,7 @@ def main_path(torch, qzt, tk, oracle, level: int, batch: int,
           decoder="libzstd", device_blocks=codec.device_blocks,
           overflow_blocks=codec.overflow_blocks,
           section_blocks=codec.section_blocks,
+          literal_blocks=codec.literal_blocks,
           fallback_blocks=codec.stats.fallback_blocks, launches=launches)
     if codec.stats.fallback_blocks:
         raise AssertionError(f"level {level}: the main path fell back to "
@@ -669,7 +758,11 @@ def main_path(torch, qzt, tk, oracle, level: int, batch: int,
     if device_entropy and not codec.section_blocks:
         raise AssertionError(f"level {level}: no block carried the card's "
                              "sequence section")
-    wanted = HYBRID_KERNELS[level] if device_entropy else LEVEL_KERNELS[level]
+    if device_entropy is True and not codec.literal_blocks:
+        raise AssertionError(f"level {level}: no block carried the card's "
+                             "literals section")
+    wanted = {False: LEVEL_KERNELS, "hybrid": HYBRID_KERNELS,
+              True: FULL_KERNELS}[device_entropy][level]
     missing = [k for k in wanted if launches[k] == 0]
     if missing:
         raise AssertionError(f"level {level}: kernels never launched on "
@@ -715,6 +808,7 @@ def main() -> int:
     from qat_zstd_plugin_tpu_torch.ops import _build
     from qat_zstd_plugin_tpu_torch.ops import fse_kernel as fk
     from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
+    from qat_zstd_plugin_tpu_torch.ops import literals_kernel as lk
     from qat_zstd_plugin_tpu_torch.ops import match_pipeline as mp
     from qat_zstd_plugin_tpu_torch.ops import parse_kernel as pk
     from qat_zstd_plugin_tpu_torch.profile_l1 import card_line
@@ -745,6 +839,7 @@ def main() -> int:
     content_kernels_vs_twins(torch, tk, pk, mp, dense_np, args.seed,
                              kernels)
     hybrid_kernels_vs_twins(torch, tk, fk, dense_np, args.seed, kernels)
+    literals_kernels_vs_twins(torch, lk, dense_np, args.seed, kernels)
     for name, r in kernels.items():
         phase("kernel_vs_twin", kernel=name, **r)
 
@@ -755,16 +850,18 @@ def main() -> int:
                      *((lv, dense_np) for lv in CONTENT_LEVELS),
                      (5, dense_np[:6].copy())):
         phase("device_half", equal=True, **device_half(torch, qzt, level, x))
-    for level in HYBRID_LEVELS:
-        phase("device_half", equal=True,
-              **hybrid_device_half(torch, qzt, level, dense_np))
+    for entropy in ("hybrid", True):
+        for level in HYBRID_LEVELS:
+            phase("device_half", equal=True, **hybrid_device_half(
+                torch, qzt, level, dense_np, entropy))
 
     # 4. Main paths on the card, launch counts per path.
     launches = dict.fromkeys(KERNELS, 0)
     runs = [(1, BATCH, corpus, False)] + [
         (lv, DENSE_BATCH, dense_corpus, False)
         for lv in DENSE_LEVELS + CONTENT_LEVELS] + [
-        (lv, DENSE_BATCH, dense_corpus, "hybrid") for lv in HYBRID_LEVELS]
+        (lv, DENSE_BATCH, dense_corpus, entropy)
+        for entropy in ("hybrid", True) for lv in HYBRID_LEVELS]
     for level, batch, data, entropy in runs:
         for k, n in main_path(torch, qzt, tk, oracle, level, batch, data,
                               entropy).items():
@@ -781,6 +878,8 @@ def main() -> int:
     card_vs_cpu(qzt, 12, 4, dense_corpus[:4 * BLOCK + TAIL])
     card_vs_cpu(qzt, 1, 8, corpus[:8 * BLOCK + TAIL], "hybrid")
     card_vs_cpu(qzt, 5, 4, dense_corpus[:4 * BLOCK + TAIL], "hybrid")
+    card_vs_cpu(qzt, 1, 8, corpus[:8 * BLOCK + TAIL], True)
+    card_vs_cpu(qzt, 5, 4, dense_corpus[:4 * BLOCK + TAIL], True)
 
     ref = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "qat_zstd_plugin_tpu")]

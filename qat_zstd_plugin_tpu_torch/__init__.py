@@ -4,17 +4,19 @@ The codec's twelve levels with their device half as hand-written CUDA
 kernels for Hopper (csrc/) and PyTorch ops between them: level 1's
 syncmer slot pipeline, the full-resolution dense hash pipeline of levels
 2-4, and the exact-LCP content matcher with the greedy/lazy parse of
-levels 5-12; with hybrid device entropy, the byte-verified hash matcher
-at levels 1-4 and the FSE sequence sections on the device at every
-level. The host half (claim extension, gap fill, entropy coding, or only
-the literals section in hybrid mode) is the package's own build of the
-native runtime (native/), and frame assembly is format.py. The package
-imports neither jax nor qat_zstd_plugin_tpu.
+levels 5-12; with device entropy, the byte-verified hash matcher at
+levels 1-4 and the FSE sequence sections on the device at every level,
+and in full mode the Huffman literals sections too. The host half (claim
+extension, gap fill, entropy coding; only the literals section in hybrid
+mode; only the section wrapping in full mode) is the package's own build
+of the native runtime (native/), and frame assembly is format.py. The
+package imports neither jax nor qat_zstd_plugin_tpu.
 
     compress(data, level=1..12, device="cuda", device_entropy=False)
         -> zstd frame (bytes), equal byte for byte to qat_zstd_plugin_tpu's
         TpuCodec frame at the same level, batch size and device_entropy
-        (False or "hybrid")
+        (False, "hybrid" or True/"full"), except where the reference's
+        own faults corrupt its frame (ROADMAP.md §C)
     decompress(frame)                       -> bytes (stock libzstd)
 """
 
@@ -45,8 +47,9 @@ def compress(data: bytes | np.ndarray, level: int = 1,
     """Compress to a complete zstd frame on `device`. "cuda" runs the CUDA
     kernels and raises when there is no CUDA device; "cpu" runs their
     plain-torch twins. There is no silent fallback between the two.
-    device_entropy="hybrid" encodes the sequence sections on the device
-    (see GpuCodec); True or "full" is not ported yet and raises."""
+    device_entropy="hybrid" encodes the sequence sections on the device,
+    True (or 1, or "full") the Huffman literals sections as well (see
+    GpuCodec)."""
     codec = GpuCodec(level=level, batch=batch, block_size=block_size,
                      device=device, device_entropy=device_entropy)
     return codec.compress(data, checksum=checksum)

@@ -46,6 +46,8 @@ SIGNATURES = {
     "qz_neighbor_verify_keys": (_P, _P, _P, _I, _I, _I, _I, _P),
     "qz_finalize_verified": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "qz_fse_state": (_P,) * 18 + (_I, _I, _P),
+    "qz_literal_keys": (_P,) * 6 + (_I, _I, _P),
+    "qz_byte_hist": (_P, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -30,9 +30,10 @@ Levels 1-4 with hybrid device entropy take the byte-verified matcher
   gram_pos_planes -> (gram, pos) sort -> neighbor_verify_keys -> sort
     -> finalize_verified -> (mlen, moff), every claim a true match
 
-Each kernel has here (parse_greedy in ops/parse_kernel.py and the FSE
-state machine in ops/fse_kernel.py, which count their launches in
-`launches` below as well)
+Each kernel has here (parse_greedy in ops/parse_kernel.py, the FSE
+state machine in ops/fse_kernel.py and literal_keys and byte_hist in
+ops/literals_kernel.py, which count their launches in `launches` below as
+well)
   * a wrapper with the reference's name, which checks device, dtype,
     shape and contiguity and launches the kernel of csrc/ on PyTorch's
     current stream (counting the launch in `launches`);
@@ -68,7 +69,8 @@ launches = {"hash_keys_winmin_sync": 0, "neighbor_unsort_keys": 0,
             "hash_keys_winmin": 0, "finalize_candidates": 0,
             "compact_slots_dense": 0, "ldm_winmin": 0, "parse_greedy": 0,
             "gram_pos_planes": 0, "neighbor_verify_keys": 0,
-            "finalize_verified": 0, "fse_state": 0}
+            "finalize_verified": 0, "fse_state": 0, "literal_keys": 0,
+            "byte_hist": 0}
 
 MIN_MATCH = 4  # qat_zstd_plugin_tpu.ops.match_pipeline.MIN_MATCH
 

@@ -11,10 +11,11 @@ Port of three contracts of qat_zstd_plugin_tpu.ops.match_pipeline:
   bytes, `glue_kernels.merge_ldm` folds in the long-distance claims,
   `parse_kernel.parse_greedy` (B10) picks the matches, `compact` packs
   them per block and `pack_outputs` puts every field into one array;
-* hybrid device entropy, levels 1-12 (`find_matches_with_seqsec_hash`,
+* device entropy, levels 1-12 (`find_matches_with_seqsec_hash`,
   `find_matches_with_seqsec`, `unpack_outputs_wide`): the coalesced
   sequences' literal and match lengths (`pack_wide`) beside each block's
-  finished FSE sequence-section stream (ops/fse_kernel.py).
+  finished FSE sequence-section stream (ops/fse_kernel.py), and in full
+  mode each block's Huffman literal streams (ops/literals_kernel.py).
 
 The reference module imports jax at the top, so its numpy unpacks are
 repeated here rather than imported.
@@ -25,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import fse_kernel, glue_kernels, parse_kernel
+from . import fse_kernel, glue_kernels, literals_kernel, parse_kernel
 from .glue_kernels import MIN_MATCH, _shr
 
 LCP_CAP = 16
@@ -337,8 +338,9 @@ def content_candidates(blocks: torch.Tensor, lengths: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Hybrid device entropy: the device emits each block's final FSE
-# Sequences_Section; the host adds the literals section.
+# Device entropy: the device emits each block's final FSE
+# Sequences_Section; in hybrid mode the host adds the literals section,
+# in full mode the device also encodes the Huffman literals.
 # ---------------------------------------------------------------------------
 
 SEQ_WORDS = 8192  # u32 words of a block's section stream (262144 bits)
@@ -383,54 +385,76 @@ def sections(out: dict, seq_words: int = SEQ_WORDS,
 
 def verified_sequences(blocks: torch.Tensor, lengths: torch.Tensor,
                        neighbors: int = 2, max_seq: int = 16384,
-                       lazy: bool = False, window: int = 32768) -> dict:
+                       lazy: bool = False, window: int = 32768):
     """The first stage at levels 1-4: the byte-verified matcher
     (glue_kernels.candidates_hash_verified: B11, B12, B13), the parse
-    (B10) and the segmented compaction with coalesce."""
+    (B10) and the segmented compaction with coalesce. Returns (the
+    compaction's dict, chosen (B, N) bool, mlen (B, N) int32): the
+    literals stage reads the parse."""
     mlen, moff = glue_kernels.candidates_hash_verified(
         blocks, lengths, neighbors=neighbors, window=window)
     chosen = parse_kernel.parse_greedy(mlen, lazy)
     return compact(chosen, mlen, moff, lengths, max_seq, window,
-                   coalesce=True)
+                   coalesce=True), chosen, mlen
 
 
 def content_sequences(blocks: torch.Tensor, lengths: torch.Tensor,
                       neighbors: int = 4, max_seq: int = 16384,
                       lazy: bool = False, stride: int = 1,
-                      window: int = 1 << 30) -> dict:
+                      window: int = 1 << 30):
     """The first stage at levels 5-12: the exact-LCP candidates with no
     LDM, the parse (B10) with the level's lazy and the compaction with
-    coalesce (unsegmented: window >= N at every content level)."""
+    coalesce (unsegmented: window >= N at every content level). Returns
+    (the compaction's dict, chosen, mlen), as verified_sequences."""
     mlen, moff = candidates(blocks, lengths, neighbors, stride, window)
     chosen = parse_kernel.parse_greedy(mlen, lazy)
     return compact(chosen, mlen, moff, lengths, max_seq, window,
-                   coalesce=True)
+                   coalesce=True), chosen, mlen
+
+
+def _with_sections(blocks, lengths, first, seq_words: int,
+                   custom_tables: bool, device_literals: bool):
+    """sections of the first stage's compaction, then with
+    device_literals the literals dict (literals_kernel.
+    encode_literals_device of the first stage's parse), else None."""
+    out, chosen, mlen = first
+    lits = None
+    if device_literals:
+        lits = literals_kernel.encode_literals_device(blocks, lengths, chosen,
+                                                      mlen)
+    return (*sections(out, seq_words, custom_tables), lits)
 
 
 def find_matches_with_seqsec_hash(blocks: torch.Tensor, lengths: torch.Tensor,
                                   neighbors: int = 2, max_seq: int = 16384,
                                   lazy: bool = False, window: int = 32768,
                                   seq_words: int = SEQ_WORDS,
-                                  custom_tables: bool = True):
-    """Hybrid device entropy at levels 1-4 (reference:
-    match_pipeline.find_matches_with_seqsec_hash, device_literals off):
-    verified_sequences, then sections."""
-    return sections(verified_sequences(blocks, lengths, neighbors, max_seq,
-                                       lazy, window),
-                    seq_words, custom_tables)
+                                  custom_tables: bool = True,
+                                  device_literals: bool = True):
+    """Device entropy at levels 1-4 (reference:
+    match_pipeline.find_matches_with_seqsec_hash): verified_sequences,
+    then sections, then with device_literals (full device entropy) the
+    Huffman literals. Returns (packed, words, bits, sec_over, plan, lits),
+    lits None without device_literals."""
+    return _with_sections(
+        blocks, lengths, verified_sequences(blocks, lengths, neighbors,
+                                            max_seq, lazy, window),
+        seq_words, custom_tables, device_literals)
 
 
 def find_matches_with_seqsec(blocks: torch.Tensor, lengths: torch.Tensor,
                              neighbors: int = 4, max_seq: int = 16384,
                              lazy: bool = False, seq_words: int = SEQ_WORDS,
                              stride: int = 1, window: int = 1 << 30,
-                             custom_tables: bool = True):
-    """Hybrid device entropy at levels 5-12 (reference:
-    match_pipeline.find_matches_with_seqsec, device_literals off):
-    content_sequences, then sections."""
-    return sections(content_sequences(blocks, lengths, neighbors, max_seq,
-                                      lazy, stride, window),
-                    seq_words, custom_tables)
+                             custom_tables: bool = True,
+                             device_literals: bool = True):
+    """Device entropy at levels 5-12 (reference:
+    match_pipeline.find_matches_with_seqsec): content_sequences, then as
+    find_matches_with_seqsec_hash."""
+    return _with_sections(
+        blocks, lengths, content_sequences(blocks, lengths, neighbors,
+                                           max_seq, lazy, stride, window),
+        seq_words, custom_tables, device_literals)
 
 
 def unpack_outputs(packed: np.ndarray) -> dict:

@@ -1,7 +1,7 @@
 """Where the time of a level's main path goes, on one CUDA device.
 
     python3 -m qat_zstd_plugin_tpu_torch.profile_l1 [--level 1]
-        [--device-entropy hybrid] [--seed S] [--mb 64] [--reps 3]
+        [--device-entropy hybrid|full] [--seed S] [--mb 64] [--reps 3]
         [--trace-dir build/profile]
 
 Run from the repository root on a machine with a CUDA device. By default
@@ -10,15 +10,17 @@ it drives the same configuration as chip_smoke.py's level-1 main path
 tail); --level 2..12 --mb 32 drives the level 2-12 ones (batch 64).
 --device-entropy hybrid drives the hybrid ones at batch 64, the FSE
 sequence sections encoded on the device (GpuCodec(device_entropy=
-"hybrid")). It prints one JSON object per line:
+"hybrid")); --device-entropy full the full ones, the Huffman literals
+too (GpuCodec(device_entropy=True)). It prints one JSON object per line:
 
   card          the card's name and power limit, as nvidia-smi gives them;
   device_half   CUDA-event median ms of the device half (levels 1-4
                 find_matches_positions, 5-12 find_matches_packed; hybrid:
                 find_matches_with_seqsec_hash / find_matches_with_seqsec,
                 with the ms of its first stage, the matcher and the
-                coalesced compaction, and of its second, the FSE
-                sections and bitconcat) for one batch, its input already
+                coalesced compaction, of its second, the FSE sections
+                and bitconcat, and in full mode of its literals stage,
+                encode_literals_device) for one batch, its input already
                 on the card;
   device_ops    torch.profiler over 10 such batches: the device time of
                 each kernel (memcpys included) and its share of the total;
@@ -31,12 +33,15 @@ sequence sections encoded on the device (GpuCodec(device_entropy=
                 sequences (device_outputs_to_sequences), in hybrid mode
                 the host's wrapping of each device section
                 (sections_host: unpack_outputs_wide, nbSeq, the mode
-                byte, the table descriptions, the closed stream);
+                byte, the table descriptions, the closed stream, and in
+                full mode the literals sections' tree descriptions,
+                jump tables and headers);
   host_half     per repetition, seconds of finish_block_host over every
                 full block on a thread pool, from the claims or sequences
                 made beforehand (a block whose device output overflowed
                 is matched on the host here; in hybrid mode the others
-                add only their literals section);
+                add only their literals section, in full mode only where
+                the device did not take the literals);
   e2e           per repetition, seconds and MB/s of GpuCodec.compress;
   e2e_profiled  one more e2e call under torch.profiler: the card's busy
                 time (union of its kernel and memcpy intervals) against
@@ -122,9 +127,10 @@ def _write_table(prof, path: str) -> None:
                                           max_name_column_width=60))
 
 
-def hybrid_first_stage(codec, blocks, lengths) -> dict:
-    """The first stage of the codec's hybrid device half, with the
-    arguments GpuCodec._pipeline gives it."""
+def hybrid_first_stage(codec, blocks, lengths):
+    """The first stage of the codec's device-entropy half, with the
+    arguments GpuCodec._pipeline gives it: (compaction dict, chosen,
+    mlen)."""
     from .ops import match_pipeline
     p = codec.params
     if p.matcher == "hash":
@@ -136,22 +142,24 @@ def hybrid_first_stage(codec, blocks, lengths) -> dict:
 
 
 def _to_cpu(result):
-    """The hybrid device half's outputs, copied to the host."""
-    packed, words, bits, sec_over, plan = result
+    """The device-entropy half's outputs, copied to the host."""
+    packed, words, bits, sec_over, plan, lits = result
     return (packed.cpu(), words.cpu(), bits.cpu(), sec_over.cpu(),
-            {k: v.cpu() for k, v in plan.items()})
+            {k: v.cpu() for k, v in plan.items()},
+            None if lits is None else {k: v.cpu() for k, v in lits.items()})
 
 
 def profile(seed: int, mb: int, reps: int, trace_dir: str,
             level: int = 1, device_entropy: str | bool = False) -> None:
     from .corpus import make_corpus
-    from .ops import _build, match_pipeline
+    from .ops import _build, literals_kernel, match_pipeline
     from .runtime.gpu_codec import (GpuCodec, device_outputs_to_sequences,
                                     device_positions_to_claims)
 
-    hybrid = device_entropy == "hybrid"
-    # bench.py's rows: L1 at batch 128, levels 2-12 and hybrid at 64.
-    batch = BATCH if level == 1 and not hybrid else DENSE_BATCH
+    sections = bool(device_entropy)  # hybrid or full
+    # bench.py's rows: L1 at batch 128, levels 2-12 and device entropy
+    # at 64.
+    batch = BATCH if level == 1 and not sections else DENSE_BATCH
 
     def emit(what: str, **fields) -> None:
         print(json.dumps({"what": what, **fields}), flush=True)
@@ -176,14 +184,18 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
     lengths = torch.full((batch,), BLOCK, dtype=torch.int32, device=dev)
     ms = cuda_ms(lambda: run(blocks, lengths))
     split = {}
-    if hybrid:
-        out = hybrid_first_stage(codec, blocks, lengths)
+    if sections:
+        out, chosen, mlen = hybrid_first_stage(codec, blocks, lengths)
         split = {
             "first_stage_ms": cuda_ms(
                 lambda: hybrid_first_stage(codec, blocks, lengths)),
             "sections_ms": cuda_ms(lambda: match_pipeline.sections(
                 out, custom_tables=codec.params.custom_tables))}
-        del out
+        if device_entropy is True:
+            split["literals_ms"] = cuda_ms(
+                lambda: literals_kernel.encode_literals_device(
+                    blocks, lengths, chosen, mlen))
+        del out, chosen, mlen
     emit("device_half", batch=batch, ms=ms, mbs=batch * BLOCK / ms / 1e3,
          **split)
     with torch.profiler.profile(activities=[
@@ -217,10 +229,10 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
                 torch.from_numpy(blk).to(dev),
                 torch.from_numpy(lens).to(dev)), sync=True)
             res = timed(acc, "device_half", lambda: run(xb, xl), sync=True)
-            if hybrid:
+            if sections:
                 host = timed(acc, "d2h", lambda: _to_cpu(res))
                 got = timed(acc, "sections_host",
-                            lambda: codec._collect_hybrid(b, host))
+                            lambda: codec._collect_sections(b, lens, host))
                 claims.update((s + i, c) for i, c in enumerate(got))
                 continue
             host = timed(acc, "d2h", lambda: res.cpu().numpy())
@@ -264,7 +276,8 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
              mbs=len(corpus) / seconds / 1e6, ratio=len(frame) / len(corpus),
              device_blocks=c.device_blocks,
              overflow_blocks=c.overflow_blocks,
-             section_blocks=c.section_blocks)
+             section_blocks=c.section_blocks,
+             literal_blocks=c.literal_blocks)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -282,7 +295,7 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--level", type=int, default=1, choices=range(1, 13))
-    ap.add_argument("--device-entropy", choices=("off", "hybrid"),
+    ap.add_argument("--device-entropy", choices=("off", "hybrid", "full"),
                     default="off")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mb", type=int, default=64,
@@ -293,7 +306,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_l1: torch sees no CUDA device")
     profile(args.seed, args.mb, args.reps, args.trace_dir, args.level,
-            "hybrid" if args.device_entropy == "hybrid" else False)
+            {"off": False, "hybrid": "hybrid",
+             "full": True}[args.device_entropy])
 
 
 if __name__ == "__main__":

@@ -4,9 +4,9 @@ device.
 Port of qat_zstd_plugin_tpu.runtime.tpu_codec (`TpuCodec` and the module
 functions its device path reaches), restricted to the branches the port
 takes: the port's native runtime on the host, no golden Python path, no
-second parse, and host or hybrid entropy coding. Full blocks go in
-batches through the device half on an explicit torch device (the CUDA
-kernels on "cuda", their plain-torch twins on "cpu").
+second parse, and host, hybrid or full device entropy coding. Full
+blocks go in batches through the device half on an explicit torch device
+(the CUDA kernels on "cuda", their plain-torch twins on "cpu").
 
 Host entropy (device_entropy=False, the default):
 
@@ -22,8 +22,16 @@ block's final FSE Sequences_Section and the host adds the literals
 section (native.block_body_external_seqsec), with no extension and no
 gap fill. Levels 1-4 take the byte-verified hash matcher
 (find_matches_with_seqsec_hash), levels 5-12 the content matcher without
-LDM (find_matches_with_seqsec). Full device entropy (device literals,
-device_entropy=True or "full") is not ported yet and raises.
+LDM (find_matches_with_seqsec).
+
+Full device entropy (device_entropy=True, 1 or "full"): the same device
+half also encodes each block's Huffman literals
+(ops/literals_kernel.encode_literals_device), and the host only wraps
+them (device_literals_section) and joins the two sections. A block whose
+literals the device declines (the `ok` flag: too few literals or
+symbols, a stream too long), whose section the format cannot hold, or
+whose sequences do not span the block, gets the hybrid body; blocks with
+both device sections are counted in `literal_blocks`.
 
 The frames equal TpuCodec's byte for byte at the same level, batch size,
 max_seq and entropy placement. The short tail block is matched on the
@@ -46,6 +54,7 @@ from .. import fse_format, native
 from ..format import BLOCK_SIZE_MAX, BlockSequences, assemble_frame
 from ..ops import match_pipeline
 from ..ops.bitpack import backward_stream_bytes
+from ..ops.literals_kernel import device_literals_section
 from .levels import TPU_LEVEL_TABLE, level_params
 from .stats import BlockStats, Timer
 
@@ -129,21 +138,15 @@ def device_sequence_section(nseq: int, words: np.ndarray, bits: int,
 
 def entropy_mode(device_entropy) -> str | bool:
     """The reference's check of device_entropy (TpuCodec.__init__) without
-    its environment default: False (or 0) is host entropy and "hybrid"
-    hybrid; True, 1 and "full" (full device entropy, which the reference
-    treats alike) raise NotImplementedError; any other value ValueError."""
+    its environment default: False (or 0) is host entropy, "hybrid"
+    hybrid, True (or 1, or "full") full device entropy; any other value
+    raises ValueError."""
     if isinstance(device_entropy, int) and device_entropy in (0, 1):
-        mode = bool(device_entropy)
-    elif device_entropy in ("hybrid", "full"):
-        mode = "hybrid" if device_entropy == "hybrid" else True
-    else:
-        raise ValueError(f"device_entropy must be False, True/'full' or "
-                         f"'hybrid', got {device_entropy!r}")
-    if mode is True:
-        raise NotImplementedError(
-            "device_entropy=True/'full' (device literals) is not ported "
-            "yet; False and 'hybrid' are")
-    return mode
+        return bool(device_entropy)
+    if device_entropy in ("hybrid", "full"):
+        return "hybrid" if device_entropy == "hybrid" else True
+    raise ValueError(f"device_entropy must be False, True/'full' or "
+                     f"'hybrid', got {device_entropy!r}")
 
 
 class GpuCodec:
@@ -174,24 +177,28 @@ class GpuCodec:
         self.device_blocks = 0    # full blocks matched by the device half
         self.overflow_blocks = 0  # of those, re-matched on the host
         self.section_blocks = 0   # of those, with the device's section
+        self.literal_blocks = 0   # of those, with its literals section too
         self._fn = None
 
     def _pipeline(self):
         if self._fn is None:
             p = self.params
             wlog = self.host.window_log
+            # Full mode adds the device literals (tpu_codec._pipeline).
+            lits = p.huffman and self.device_entropy is True
             if self.device_entropy and p.matcher == "hash":
                 def run(blocks, lengths):
                     return match_pipeline.find_matches_with_seqsec_hash(
                         blocks, lengths, neighbors=2, max_seq=self.max_seq,
                         lazy=p.lazy, window=p.window,
-                        custom_tables=p.custom_tables)
+                        custom_tables=p.custom_tables, device_literals=lits)
             elif self.device_entropy:
                 def run(blocks, lengths):
                     return match_pipeline.find_matches_with_seqsec(
                         blocks, lengths, neighbors=p.neighbors,
                         max_seq=self.max_seq, lazy=p.lazy, stride=p.stride,
-                        window=p.window, custom_tables=p.custom_tables)
+                        window=p.window, custom_tables=p.custom_tables,
+                        device_literals=lits)
             elif p.matcher == "hash":
                 def run(blocks, lengths):
                     return match_pipeline.find_matches_positions(
@@ -221,19 +228,21 @@ class GpuCodec:
         lengths = torch.from_numpy(lengths_np).to(self.device)
         return b, lengths_np, self._pipeline()(blocks, lengths)
 
-    def collect_batch(self, handle
-                      ) -> list[tuple[BlockSequences | None, bytes | None]]:
+    def collect_batch(self, handle):
         """Wait for a submitted batch; returns per block (sequences, the
-        device's Sequences_Section or None): claims at levels 1-4 and
-        coalesced sequences at 5-12 with host entropy; with hybrid entropy
-        the sequences' literal and match lengths (offsets are only in the
-        section, zeros here) and the section, which is None for a block
-        with no sequences (the host encodes that one). (None, None) for a
-        block whose device output overflowed."""
+        device's sections or None): claims at levels 1-4 and coalesced
+        sequences at 5-12 with host entropy; with device entropy the
+        sequences' literal and match lengths (offsets are only in the
+        section, zeros here) and (literals section or None, Sequences_
+        Section), which is None for a block with no sequences (the host
+        encodes that one); the literals section is the device's in full
+        mode where it took the block's literals and the sequences span the
+        block (tpu_codec.finish_block_host's check), else None. (None,
+        None) for a block whose device output overflowed."""
         b, lengths, result = handle
         self.device_blocks += b
         if self.device_entropy:
-            return self._collect_hybrid(b, result)
+            return self._collect_sections(b, lengths, result)
         if self.params.matcher == "hash":
             words = result.cpu().numpy().view(np.uint32)
             per_block = match_pipeline.unpack_segments(words, self.batch,
@@ -245,13 +254,17 @@ class GpuCodec:
         self.overflow_blocks += sum(s is None for s in seqs)
         return [(s, None) for s in seqs]
 
-    def _collect_hybrid(self, b: int, result):
-        packed, words, bits, sec_over, plan = result
+    def _collect_sections(self, b: int, lengths: np.ndarray, result):
+        packed, words, bits, sec_over, plan, lits = result
         out = match_pipeline.unpack_outputs_wide(packed.cpu().numpy())
         words = words.cpu().numpy()
         bits = bits.cpu().numpy()
         sec_over = sec_over.cpu().numpy()
         plan = {k: v.cpu().numpy() for k, v in plan.items()}
+        if lits is not None:
+            lits = {k: v.cpu().numpy() for k, v in lits.items()}
+            lits["words"] = lits["words"].reshape(len(words), 4, -1)
+            lits["bits"] = lits["bits"].reshape(len(words), 4)
         res = []
         for i in range(b):
             if out["overflow"][i] or sec_over[i]:
@@ -267,8 +280,17 @@ class GpuCodec:
                 res.append((seqs, None))
                 continue
             self.section_blocks += 1
-            res.append((seqs, device_sequence_section(
-                ns, words[i], int(bits[i]), plan, i)))
+            lit_sec = None
+            if lits is not None and lits["ok"][i] \
+                    and seqs.total_span() == lengths[i]:
+                lit_sec = device_literals_section(
+                    lits["nb_bits"][i], lits["codes"][i],
+                    lits["max_bits"][i], lits["last_symbol"][i],
+                    int(lits["n_lit"][i]), lits["words"][i],
+                    lits["bits"][i])
+                self.literal_blocks += lit_sec is not None
+            res.append((seqs, (lit_sec, device_sequence_section(
+                ns, words[i], int(bits[i]), plan, i))))
         return res
 
     def compress(self, data: bytes | np.ndarray,
@@ -281,13 +303,15 @@ class GpuCodec:
 
     def finish_block_host(self, buf: np.ndarray, i: int,
                           seqs: BlockSequences | None,
-                          section: bytes | None = None) -> bytes | None:
+                          section: tuple[bytes | None, bytes] | None = None
+                          ) -> bytes | None:
         """Host half of block i of the whole frame buffer `buf`: with the
-        device's Sequences_Section, the literals section before it; else
-        the deep selector's chain parse, or extension plus gap fill, of
-        the device sequences; or, for seqs None (the tail block, an
-        overflowed block), the host matcher; then the entropy coder.
-        None => raw."""
+        device's sections (literals section or None, Sequences_Section),
+        the two joined, or the host's literals section before the
+        device's Sequences_Section; without them the deep selector's
+        chain parse, or extension plus gap fill, of the device sequences;
+        or, for seqs None (the tail block, an overflowed block), the host
+        matcher; then the entropy coder. None => raw."""
         n = len(buf)
         bs = self.block_size
         gp = self.host
@@ -303,10 +327,13 @@ class GpuCodec:
         ctx_find = min(i * bs, max(0, win - bs))
         cblk = buf[i * bs - ctx:min((i + 1) * bs, n)]
         if section is not None:
-            # Hybrid entropy: the section is final; no extension.
+            # Device entropy: the sections are final; no extension.
+            lit_sec, seq_sec = section
+            if lit_sec is not None:
+                return lit_sec + seq_sec
             return native.block_body_external_seqsec(
                 blk, seqs.lit_lengths, seqs.match_lengths,
-                seqs.last_literals, section, self.params.huffman)
+                seqs.last_literals, seq_sec, self.params.huffman)
         deep_hinted = False
         if seqs is not None and seqs.nseq and self.level >= 5:
             share = float(seqs.lit_lengths.sum()

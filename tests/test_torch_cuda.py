@@ -13,6 +13,7 @@ import torch
 from qat_zstd_plugin_tpu_torch import compress
 from qat_zstd_plugin_tpu_torch.ops import fse_kernel as fk
 from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
+from qat_zstd_plugin_tpu_torch.ops import literals_kernel as lk
 from qat_zstd_plugin_tpu_torch.ops import match_pipeline as tmp
 from qat_zstd_plugin_tpu_torch.ops import parse_kernel as pk
 
@@ -65,7 +66,8 @@ L1_KERNELS = ("hash_keys_winmin_sync", "neighbor_unsort_keys", "ldm_keys",
               "compact_slots_sync")
 CONTENT_KERNELS = ("ldm_winmin", "parse_greedy")
 HYBRID_ONLY = ("gram_pos_planes", "neighbor_verify_keys", "finalize_verified",
-               "fse_state")  # kernels of device_entropy="hybrid" alone
+               "fse_state", "literal_keys",
+               "byte_hist")  # kernels of device entropy alone
 
 
 def test_slot_words_card_vs_cpu(cuda):
@@ -229,7 +231,7 @@ def _crafted_sequences(cuda, S=16384, seed=7):
 def test_fse_state_machine(cuda, custom):
     x = torch.from_numpy(_blocks()).to(cuda)
     lengths = torch.from_numpy(LENGTHS).to(cuda)
-    out = tmp.verified_sequences(x, lengths)
+    out = tmp.verified_sequences(x, lengths)[0]
     batches = [(out["lit_len"], out["offset"], out["match_len"],
                 out["nseq"]), _crafted_sequences(cuda)]
     for seqs in batches:
@@ -258,3 +260,56 @@ def test_hybrid_frames_card_vs_cpu(cuda, level):
     assert all(tk.launches[k] > 0 for k in HYBRID_KERNELS[level])
     assert on_card == compress(data, level=level, batch=4, device="cpu",
                                device_entropy="hybrid")
+
+
+def _long_matches(B=8, n=N, seed=8):
+    """(chosen, mlen): sparse short matches, chosen matches of 16383 to
+    65535 bytes, matches across the 2048-position tiles of B15 and ones
+    that end at or pass n."""
+    rng = np.random.default_rng(seed)
+    chosen = rng.random((B, n)) < 0.02
+    mlen = rng.integers(4, 41, (B, n)).astype(np.int32)
+    for row, length in enumerate((16383, 16384, 16385, 40000, 65535)):
+        chosen[row, 10 + row], mlen[row, 10 + row] = True, length
+    chosen[5, 2045::2048], mlen[5, 2045::2048] = True, 2100
+    chosen[6, n - 50], mlen[6, n - 50] = True, 50
+    chosen[7, n - 20], mlen[7, n - 20] = True, 65535
+    return chosen, mlen
+
+
+def test_literal_keys_and_byte_hist(cuda):
+    blocks = _blocks()
+    x = torch.from_numpy(blocks).to(cuda)
+    lengths = torch.from_numpy(LENGTHS).to(cuda)
+    _, chosen, mlen = tmp.content_sequences(x, lengths, lazy=True)
+    long_ch, long_ml = (torch.from_numpy(a).to(cuda) for a in _long_matches())
+    for ch, ml in ((chosen, mlen), (long_ch, long_ml)):
+        keys = lk.literal_keys(x, lengths, ch, ml)
+        assert torch.equal(keys, lk.literal_keys_twin(x, lengths, ch, ml))
+        assert torch.equal(keys.cpu(), lk.literal_keys(
+            x.cpu(), lengths.cpu(), ch.cpu(), ml.cpu()))
+        assert torch.equal(lk.byte_hist(keys), lk.byte_hist_twin(keys))
+
+
+def test_encode_literals_device_card_vs_cpu(cuda):
+    x = torch.from_numpy(_blocks()).to(cuda)
+    lengths = torch.from_numpy(LENGTHS).to(cuda)
+    _, chosen, mlen = tmp.verified_sequences(x, lengths)
+    on_card = lk.encode_literals_device(x, lengths, chosen, mlen)
+    on_cpu = lk.encode_literals_device(x.cpu(), lengths.cpu(), chosen.cpu(),
+                                       mlen.cpu())
+    assert sorted(on_card) == sorted(on_cpu)
+    for k, v in on_cpu.items():
+        assert torch.equal(on_card[k].cpu(), v), k
+
+
+@pytest.mark.parametrize("level", sorted(HYBRID_KERNELS))
+def test_full_frames_card_vs_cpu(cuda, level):
+    data = _blocks(B=4, seed=9).tobytes() + b"tail" * 1000
+    tk.reset_launches()
+    on_card = compress(data, level=level, batch=4, device="cuda",
+                       device_entropy=True)
+    assert all(tk.launches[k] > 0 for k in HYBRID_KERNELS[level]
+               + ("literal_keys", "byte_hist"))
+    assert on_card == compress(data, level=level, batch=4, device="cpu",
+                               device_entropy=True)

@@ -7,6 +7,7 @@ import qat_zstd_plugin_tpu_torch as qzt
 from qat_zstd_plugin_tpu.runtime import device as jax_device
 from qat_zstd_plugin_tpu_torch.ops import fse_kernel as fk
 from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
+from qat_zstd_plugin_tpu_torch.ops import literals_kernel as lk
 from qat_zstd_plugin_tpu_torch.ops import parse_kernel as pk
 from qat_zstd_plugin_tpu_torch.runtime import device
 
@@ -14,6 +15,8 @@ from qat_zstd_plugin_tpu_torch.runtime import device
 TWIN = {name: (tk, f"{name}_twin") for name in tk.launches}
 TWIN["parse_greedy"] = (pk, "parse_greedy_twin")
 TWIN["fse_state"] = (fk, "run_state_kernel_twin")
+TWIN["literal_keys"] = (lk, "literal_keys_twin")
+TWIN["byte_hist"] = (lk, "byte_hist_twin")
 
 
 def _state_args(dev, dtype=torch.int32, S1=65, B=4):
@@ -95,6 +98,9 @@ def _meta_calls():
             keys, keys, 15, 2),
         "finalize_verified": lambda: tk.finalize_verified(keys, u8, lengths),
         "fse_state": lambda: fk.run_state_kernel(*_state_args("meta")),
+        "literal_keys": lambda: lk.literal_keys(
+            u8, lengths, u8.to(torch.bool), keys),
+        "byte_hist": lambda: lk.byte_hist(keys),
     }
 
 
@@ -149,6 +155,13 @@ def test_wrapper_rejects_wrong_dtype(name):
             torch.zeros((2,), dtype=torch.int32)),
         "fse_state": lambda: fk.run_state_kernel(
             *_state_args("cpu", torch.int64)),
+        "literal_keys": lambda: lk.literal_keys(
+            torch.zeros((2, 64), dtype=torch.uint8),
+            torch.zeros((2,), dtype=torch.int32),
+            torch.zeros((2, 64), dtype=torch.uint8),
+            torch.zeros((2, 64), dtype=torch.int32)),
+        "byte_hist": lambda: lk.byte_hist(
+            torch.zeros((2, 64), dtype=torch.uint32)),
     }[name]
     with pytest.raises(ValueError):
         call()
@@ -165,4 +178,6 @@ def test_cpu_run_counts_no_launch():
     qzt.compress(bytes(range(256)) * 1100, level=5, batch=4, device="cpu")
     qzt.compress(bytes(range(256)) * 1100, level=1, batch=4, device="cpu",
                  device_entropy="hybrid")
+    qzt.compress(bytes(range(256)) * 1100, level=5, batch=4, device="cpu",
+                 device_entropy=True)
     assert all(n == 0 for n in tk.launches.values())

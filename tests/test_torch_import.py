@@ -32,11 +32,13 @@ SCRIPTS = {
 import qat_zstd_plugin_tpu_torch as qzt
 from qat_zstd_plugin_tpu_torch.ops import (_build, bitconcat, bitpack,
                                           fse_kernel, fse_tables,
-                                          glue_kernels, match_pipeline,
+                                          glue_kernels, huffman_tables,
+                                          literals_kernel, match_pipeline,
                                           parse_kernel)
 from qat_zstd_plugin_tpu_torch.runtime import device, gpu_codec, levels, stats
-from qat_zstd_plugin_tpu_torch import (corpus, format, fse_format, native,
-                                       oracle, profile_l1)
+from qat_zstd_plugin_tpu_torch import (corpus, format, fse_format,
+                                       huffman_format, native, oracle,
+                                       profile_l1)
 assert qzt.GpuCodec is gpu_codec.GpuCodec
 assert 'jax' not in sys.modules
 assert 'qat_zstd_plugin_tpu' not in sys.modules
@@ -47,7 +49,7 @@ import numpy as np
 import qat_zstd_plugin_tpu_torch as qzt
 rng = np.random.default_rng(0)
 data = (rng.integers(0, 8, 131072 * 4 + 999, np.uint8)).tobytes()
-for level, entropy in ((1, False), (5, False), (1, 'hybrid')):
+for level, entropy in ((1, False), (5, False), (1, 'hybrid'), (5, True)):
     codec = qzt.GpuCodec(level=level, batch=4, device='cpu',
                          device_entropy=entropy)
     frame = codec.compress(data)

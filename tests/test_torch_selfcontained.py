@@ -3,13 +3,17 @@
 The port imports nothing of qat_zstd_plugin_tpu; what it needs it keeps
 as a copy. Frames equal the JAX package's only while every copy does:
 the C++ runtime's source, both level tables field by field, the version,
-frame assembly, the content checksum, and the FSE pieces the hybrid
+frame assembly, the content checksum, the FSE pieces the hybrid
 sequence sections need (the code tables, the encode tables, the table
-descriptions, the nbSeq header and the closing of the backward stream).
+descriptions, the nbSeq header and the closing of the backward stream),
+and the Huffman pieces the full-mode literals sections need (the tree
+description, the weights' FSE compression and normalization, the literals
+header).
 """
 
 import dataclasses
 import os
+import re
 
 import numpy as np
 import pytest
@@ -17,15 +21,16 @@ import pytest
 import qat_zstd_plugin_tpu as qz
 from qat_zstd_plugin_tpu import native as jax_native
 from qat_zstd_plugin_tpu import oracle as jax_oracle
-from qat_zstd_plugin_tpu.format import (bitstream, frame, fse, sequences,
-                                        tables, xxhash)
+from qat_zstd_plugin_tpu.format import (bitstream, frame, fse, huffman,
+                                        sequences, tables, xxhash)
 from qat_zstd_plugin_tpu.golden import codec as golden_codec
 from qat_zstd_plugin_tpu.ops import bitpack as jax_bitpack
 from qat_zstd_plugin_tpu.runtime import tpu_codec
 from qat_zstd_plugin_tpu.utils import profiling
 import qat_zstd_plugin_tpu_torch as qzt
 from qat_zstd_plugin_tpu_torch import format as tformat
-from qat_zstd_plugin_tpu_torch import fse_format, native, oracle
+from qat_zstd_plugin_tpu_torch import (fse_format, huffman_format, native,
+                                       oracle)
 from qat_zstd_plugin_tpu_torch.ops import bitpack
 from qat_zstd_plugin_tpu_torch.runtime import gpu_codec, levels, stats
 
@@ -206,3 +211,86 @@ def test_block_stats_and_oracle():
     assert oracle.decompress(f) == jax_oracle.decompress(f) == data
     with pytest.raises(oracle.ZstdOracleError):
         oracle.decompress(f[:-9] + b"\x00" * 9, len(data))
+
+
+def _huffman_tables(seed: int) -> list:
+    """Host Huffman tables of random byte histograms: 2 to 256 symbols,
+    flat to skewed, last symbols low and high (short and long weight
+    lists, direct and FSE-compressed descriptions)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for nsym in (2, 3, 5, 12, 40, 100, 129, 200, 256):
+        for skew in (0.0, 1.2, 2.5):
+            hist = np.zeros(256, np.int64)
+            syms = rng.choice(256 if nsym > 40 else 64, nsym, replace=False)
+            hist[syms] = (rng.pareto(skew, nsym) * 50 + 1 if skew
+                          else rng.integers(1, 300, nsym)).astype(np.int64)
+            out.append(huffman.build_table(hist))
+    for syms in ((0, 1), (0, 2, 3), (1, 4, 6, 7)):  # too few weights for FSE
+        hist = np.zeros(256, np.int64)
+        hist[list(syms)] = rng.integers(1, 100, len(syms))
+        out.append(huffman.build_table(hist))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_serialize_tree_equal(seed):
+    kinds = set()
+    for t in _huffman_tables(seed):
+        mine = huffman_format.HuffmanTable(t.nb_bits, t.codes, t.max_bits,
+                                           t.last_symbol)
+        assert huffman_format.weights(mine) == huffman.weights(t)
+        got = huffman_format.serialize_tree(mine)
+        assert got == huffman.serialize_tree(t)
+        ws = huffman.weights(t)
+        assert huffman_format._fse_compress_weights(ws) == \
+            huffman._fse_compress_weights(ws)
+        kinds.add("fse" if got[0] < 128 else "direct")
+    assert kinds == {"fse", "direct"}
+
+
+def test_normalize_counts_and_fse_encoder_equal():
+    rng = np.random.default_rng(5)
+    for al in (5, 6, 9):
+        for _ in range(40):
+            k = int(rng.integers(2, 14))
+            hist = rng.integers(0, 200, k) * (rng.random(k) < 0.7)
+            hist[rng.integers(0, k, 2)] += rng.integers(1, 5000, 2)
+            try:
+                want = fse.normalize_counts(hist, al)
+            except ValueError as e:
+                with pytest.raises(ValueError, match=re.escape(str(e))):
+                    huffman_format.normalize_counts(hist, al)
+                continue
+            assert huffman_format.normalize_counts(hist, al) == want
+            table = fse_format.build_encode_table(want, al)
+            syms = [s for s in range(len(want)) if want[s]]
+            seq = [int(s) for s in rng.choice(syms, 50)]
+            mine, ref = huffman_format.BackwardBitWriter(), \
+                bitstream.BackwardBitWriter()
+            a = huffman_format.FseEncoder(table, seq[0])
+            b = fse.FseEncoder(fse.build_encode_table(want, al), seq[0])
+            for s in seq[1:]:
+                a.encode(s, mine)
+                b.encode(s, ref)
+            a.flush(mine)
+            b.flush(ref)
+            assert mine.close() == ref.close()
+
+
+@pytest.mark.parametrize("lit_type", [0, 1, 2])
+def test_literals_header_equal(lit_type):
+    """Every size format of each literals type, at its largest sizes."""
+    assert huffman_format.LIT_COMPRESSED == frame.LIT_COMPRESSED
+    assert (huffman_format.LIT_RAW, huffman_format.LIT_RLE) == \
+        (frame.LIT_RAW, frame.LIT_RLE)
+    if lit_type == frame.LIT_COMPRESSED:
+        formats = {0: 1024, 1: 1024, 2: 1 << 14, 3: 1 << 18}
+    else:
+        formats = {0: 32, 1: 4096, 3: 1 << 20}
+    rng = np.random.default_rng(lit_type)
+    for sf, limit in formats.items():
+        for regen in (0, 1, limit - 1, int(rng.integers(0, limit))):
+            comp = int(rng.integers(0, limit)) if lit_type == 2 else None
+            assert huffman_format.literals_header(lit_type, sf, regen, comp) \
+                == frame._literals_header(lit_type, sf, regen, comp)
