@@ -15,7 +15,7 @@ Run from the repository root on a machine with one CUDA device. Phases
   1. card and build: the card's name and power limit, the nvcc build of
      qat_zstd_plugin_tpu_torch/csrc/ and the g++ build of the port's
      native host runtime;
-  2. kernel vs twin: each of the sixteen kernels against its plain-torch
+  2. kernel vs twin: each of the nineteen kernels against its plain-torch
      twin on the card, exactly equal, with median CUDA-event times of
      both and the least time the card could take (the bytes the function
      must move at 3.35 TB/s): K1-K4 at level 1's shapes (B=128 blocks of
@@ -31,7 +31,12 @@ Run from the repository root on a machine with one CUDA device. Phases
      off (its twin is a Python loop over the steps, timed in its one
      checking run); B15 and B16 on the L1 and L9 parses of the batch and
      on crafted rows of long chosen matches (to 65535, across the
-     kernel's tile edges, to the row's end) with ragged lengths;
+     kernel's tile edges, to the row's end) with ragged lengths; B17 and
+     B18 on the parsed branch's parse at level 2's parameters, lazy off
+     and on (B17 also on a dense mlen >= 4 mask); B19 on B=64 rows of
+     1024, 8192 and 131072 with 0 and 1 payloads, random keys, heavy
+     duplicates and duplicate (key, pos) pairs, with its bound from bytes
+     or compare-exchanges and torch.sort as its library yardstick;
   3. device half: the composed output of each level's device half from
      the kernels on the card against the twins on the CPU, with the ms
      per batch: level 1 at B=128 (LDM on) and B=6 (no whole number of
@@ -40,7 +45,12 @@ Run from the repository root on a machine with one CUDA device. Phases
      B=6 (LDM off); with hybrid device entropy, levels 1 and 9 at B=64
      (packed sequences, section words and bits, overflow flags and the
      table plan); with full device entropy the same and every field of
-     the literals dict;
+     the literals dict; then the paths of the kernels no level takes, each
+     run once with its launches counted toward phase 4's totals:
+     find_matches_positions(dense=False) at B=64 (widths (6,), LDM 4,
+     greedy; widths (5, 8), LDM 8, lazy: B10 and B17), compact_fast_glue
+     on its parse (B18, every dict field) and bitonic_sort as the
+     byte-verified matcher's (gram, pos) row sort (B19);
   4. main paths: compress(level=1, batch=128, device="cuda") on a --mb MiB
      corpus plus a 5000-byte tail, then compress(level=L, batch=64) for
      L = 2, 3, 4, 5, 9, 12 on a 32 MiB corpus plus a tail. The launch
@@ -54,7 +64,8 @@ Run from the repository root on a machine with one CUDA device. Phases
      card's sequence section (a block whose compaction or section
      overflows is re-matched on the host, the reference's contract); and
      the same with device_entropy=True, where at least one block must
-     carry the card's literals section as well;
+     carry the card's literals section as well. Every one of the
+     nineteen kernels must have launched on these paths or phase 3's;
   5. port on card vs port on CPU, frames equal: level 1 at batch 8 on 8
      blocks + tail, level 4 at batch 16 on 16 blocks + tail, level 3 at
      batch 8 on 9 blocks (a padded partial batch), level 5 at batch 8 on
@@ -70,7 +81,9 @@ when there is no CUDA device or the port is not beside this script.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
+import multiprocessing
 import os
 import sys
 import time
@@ -86,12 +99,15 @@ CONTENT_LEVELS = (5, 9, 12)
 TAIL = 5000
 WINDOW = 32768
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+INT32_OPS_PER_S = 132 * 64 * 1.98e9  # SMs x int32 lanes x boost clock
 L1_SRC = "qat_zstd_plugin_tpu_torch/csrc/l1_kernels.cu"
 DENSE_SRC = "qat_zstd_plugin_tpu_torch/csrc/dense_kernels.cu"
 CONTENT_SRC = "qat_zstd_plugin_tpu_torch/csrc/content_kernels.cu"
 VERIFIED_SRC = "qat_zstd_plugin_tpu_torch/csrc/verified_kernels.cu"
 FSE_SRC = "qat_zstd_plugin_tpu_torch/csrc/fse_kernels.cu"
 LITERALS_SRC = "qat_zstd_plugin_tpu_torch/csrc/literals_kernels.cu"
+PARSED_SRC = "qat_zstd_plugin_tpu_torch/csrc/parsed_kernels.cu"
+SORT_SRC = "qat_zstd_plugin_tpu_torch/csrc/sort_kernels.cu"
 REF = "qat_zstd_plugin_tpu/ops/glue_kernels.py"
 LIT_REF = "qat_zstd_plugin_tpu/ops/literals_kernel.py"
 HYBRID_LEVELS = (1, 9)  # hybrid device entropy: the hash and content paths
@@ -115,6 +131,9 @@ KERNELS = {
     "fse_state": (FSE_SRC, "qat_zstd_plugin_tpu/ops/fse_kernel.py:102"),
     "literal_keys": (LITERALS_SRC, f"{LIT_REF}:41"),
     "byte_hist": (LITERALS_SRC, f"{LIT_REF}:94"),
+    "compact_slots": (PARSED_SRC, f"{REF}:988"),
+    "compact_operands": (PARSED_SRC, f"{REF}:668"),
+    "bitonic_sort": (SORT_SRC, "qat_zstd_plugin_tpu/ops/sort_kernel.py:91"),
 }
 # The kernels each level's main path must launch.
 _DENSE = ("hash_keys_winmin", "neighbor_unsort_keys", "ldm_keys",
@@ -139,8 +158,14 @@ FULL_KERNELS = {level: kernels + ("literal_keys", "byte_hist")
                 for level, kernels in HYBRID_KERNELS.items()}
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One JSON line; t_s is the seconds since the script started."""
+    print(json.dumps({"phase": name, **fields,
+                      "t_s": round(time.perf_counter() - _T0, 1)}),
+          flush=True)
 
 
 def exact(torch, got, want, what: str) -> int:
@@ -651,23 +676,182 @@ def literals_kernels_vs_twins(torch, lk, blocks_np: np.ndarray, seed: int,
     torch.cuda.synchronize()
 
 
+def _sort_bound(n: int, moved: int, rows: int) -> dict:
+    """B19's least time: the larger of its bytes at 3.35 TB/s and its
+    compare-exchanges (rows * n/2 * log2(n) * (log2(n) + 1) / 2, one
+    integer operation each) at the card's int32 rate."""
+    m = n.bit_length() - 1
+    ops = rows * n // 2 * m * (m + 1) // 2
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _sort_rows_of(kind: str, rng, B: int, n: int):
+    """(key, pos) rows for B19: random keys with pos the column, heavy
+    duplicate keys, or duplicate (key, pos) pairs (the network's ties)."""
+    if kind == "random keys":
+        key = rng.integers(-2**31, 2**31, (B, n), np.int64)
+        pos = np.broadcast_to(np.arange(n), (B, n))
+    elif kind == "heavy duplicates":
+        key = rng.integers(0, 17, (B, n))
+        pos = np.broadcast_to(np.arange(n), (B, n))
+    else:
+        key = rng.integers(-2, 2, (B, n))
+        pos = rng.integers(-3, 3, (B, n))
+    return (np.ascontiguousarray(key, np.int32),
+            np.ascontiguousarray(pos, np.int32))
+
+
+def parsed_kernels_vs_twins(torch, tk, tsk, blocks_np: np.ndarray,
+                            seed: int, results: dict) -> None:
+    """Phase 2, the kernels no level reaches (B17-B19) against their twins
+    on the card: B17 and B18 on the parsed branch's parse at level 2's
+    parameters (widths (6,), LDM spans of 4), lazy off and on, at B=64 x
+    128 KiB, B17 also on a dense mlen >= 4 mask; B19 at B=64 rows of 1024,
+    8192 and 131072 with 0 and 1 payloads, on random keys, heavy
+    duplicates and duplicate (key, pos) pairs, with torch.sort of the
+    same order as its library yardstick."""
+    from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 6)
+    B, N = blocks_np.shape
+    corpus = torch.from_numpy(blocks_np).to(dev)
+    full = torch.full((B,), N, dtype=torch.int32, device=dev)
+    case = Cases(results)
+    for lazy in (False, True):
+        chosen, mlen, moff = tk.parsed_claims(corpus, full, (6,), 1, WINDOW,
+                                              4, 1 << 19, lazy)
+        for what, ch in (("parse", chosen), ("dense mlen >= 4 mask",
+                                             mlen >= 4)):
+            out = tk.compact_slots(ch, moff, WINDOW)
+            err = exact(torch, out, tk.compact_slots_twin(ch, moff, WINDOW),
+                        f"compact_slots {what} lazy={lazy}")
+            case("compact_slots", f"L2 {what}, lazy={lazy}", err,
+                 nbytes(ch, moff, out),
+                 lambda: tk.compact_slots(ch, moff, WINDOW),
+                 lambda: tk.compact_slots_twin(ch, moff, WINDOW),
+                 main=(what, lazy) == ("parse", False),
+                 claims=int((out != -1).sum()))
+        ops = tk.compact_operands(chosen, mlen, moff, WINDOW)
+        err = max(exact(torch, g, w, f"compact_operands lazy={lazy}")
+                  for g, w in zip(ops, tk.compact_operands_twin(
+                      chosen, mlen, moff, WINDOW)))
+        case("compact_operands", f"L2 parse, lazy={lazy}, nseg 4", err,
+             nbytes(chosen, mlen, moff, *ops),
+             lambda: tk.compact_operands(chosen, mlen, moff, WINDOW),
+             lambda: tk.compact_operands_twin(chosen, mlen, moff, WINDOW),
+             main=not lazy)
+    for n in (1024, 8192, BLOCK):
+        for npay in (0, 1):
+            err = 0
+            for kind in ("heavy duplicates", "duplicate (key, pos) pairs",
+                         "random keys"):
+                key, pos = (torch.from_numpy(a).to(dev)
+                            for a in _sort_rows_of(kind, rng, B, n))
+                pay = [torch.from_numpy(rng.integers(
+                    -2**31, 2**31, (B, n), np.int64).astype(np.int32))
+                    .to(dev) for _ in range(npay)]
+                got = tsk.bitonic_sort(key, pos, *pay)
+                err = max([err] + [exact(torch, g, w, f"bitonic_sort n={n} "
+                                         f"{kind}, {npay} payloads")
+                                   for g, w in zip(got, tsk.bitonic_sort_twin(
+                                       key, pos, *pay))])
+            # Timed on the random keys (the last kind); the library call
+            # sorts one int64 word of the same order, then gathers.
+            word = ((key ^ -0x80000000).to(torch.int64) << 32) \
+                | (pos.to(torch.int64) + (1 << 31))
+
+            def library():
+                order = torch.sort(word, dim=1).indices
+                return [a.gather(1, order) for a in (key, pos, *pay)]
+
+            moved = 2 * nbytes(key, pos, *pay)
+            r = {"max_abs_err": err,
+                 "ms": cuda_ms(lambda: tsk.bitonic_sort(key, pos, *pay)),
+                 "plain_ms": cuda_ms(lambda: tsk.bitonic_sort_twin(
+                     key, pos, *pay), reps=5),
+                 **_sort_bound(n, moved, B),
+                 "library_ms": cuda_ms(library)}
+            phase("kernel_case", kernel="bitonic_sort",
+                  case=f"n={n}, {npay} payloads", **r)
+            if (n, npay) == (BLOCK, 1):  # every case equal, or it raised
+                results["bitonic_sort"] = r
+    torch.cuda.synchronize()
+
+
+def _numpy(x):
+    """Tensors, also inside tuples and dicts, as numpy arrays: what passes
+    between the processes."""
+    if isinstance(x, dict):
+        return {k: _numpy(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_numpy(v) for v in x)
+    return None if x is None else x.numpy()
+
+
+def _tensors(torch, x):
+    """The inverse of _numpy."""
+    if isinstance(x, dict):
+        return {k: _tensors(torch, v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_tensors(torch, v) for v in x)
+    return None if x is None else torch.from_numpy(x)
+
+
+def _worker_init() -> None:
+    """Each of the two CPU workers takes half the host's cores."""
+    import torch
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+
+
+def cpu_device_half(level: int, blocks_np: np.ndarray, device_entropy=False):
+    """The CPU side of a phase 3 check, in the worker process: the level's
+    device half from the twins, as numpy arrays."""
+    import torch
+    import qat_zstd_plugin_tpu_torch as qzt
+    B = len(blocks_np)
+    pipe = qzt.GpuCodec(level=level, batch=B, device="cpu",
+                        device_entropy=device_entropy)._pipeline()
+    return _numpy(pipe(torch.from_numpy(blocks_np),
+                       torch.full((B,), BLOCK, dtype=torch.int32)))
+
+
+def cpu_parsed_slots(blocks_np: np.ndarray, kw: dict) -> np.ndarray:
+    """The CPU side of a parsed-branch check, in the worker process."""
+    import torch
+    from qat_zstd_plugin_tpu_torch.ops import match_pipeline as mp
+    B, N = blocks_np.shape
+    return mp.find_matches_positions(
+        torch.from_numpy(blocks_np), torch.full((B,), N, dtype=torch.int32),
+        **kw).numpy()
+
+
+def cpu_frame(level: int, batch: int, data: bytes,
+              device_entropy=False) -> bytes:
+    """The CPU side of a phase 5 check, in the worker process."""
+    import qat_zstd_plugin_tpu_torch as qzt
+    return qzt.compress(data, level=level, batch=batch, device="cpu",
+                        device_entropy=device_entropy)
+
+
 def hybrid_device_half(torch, qzt, level: int, blocks_np: np.ndarray,
-                       device_entropy="hybrid") -> dict:
+                       device_entropy, want) -> dict:
     """Phase 3 with device entropy: the device half's outputs (packed
     sequences, section words and bits, overflow flags, table plan, and in
     full mode every field of the literals dict), kernels on the card vs
-    twins on the CPU, and the median ms of one batch on the card."""
+    `want`, the twins' outputs on the CPU (cpu_device_half), and the
+    median ms of one batch on the card."""
     from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
     B = len(blocks_np)
-    lengths_np = np.full(B, BLOCK, np.int32)
-    kw = dict(level=level, batch=B, device_entropy=device_entropy)
-    on_card = qzt.GpuCodec(device="cuda", **kw)._pipeline()
-    on_cpu = qzt.GpuCodec(device="cpu", **kw)._pipeline()
+    on_card = qzt.GpuCodec(device="cuda", level=level, batch=B,
+                           device_entropy=device_entropy)._pipeline()
     dev = torch.device("cuda")
     blocks = torch.from_numpy(blocks_np).to(dev)
-    lengths = torch.from_numpy(lengths_np).to(dev)
+    lengths = torch.full((B,), BLOCK, dtype=torch.int32, device=dev)
     got = on_card(blocks, lengths)
-    want = on_cpu(torch.from_numpy(blocks_np), torch.from_numpy(lengths_np))
+    want = _tensors(torch, want)
     what = f"{device_entropy} device half L{level}"
     for name, g, w in zip(("packed", "words", "bits", "sec_over"), got,
                           want):
@@ -695,21 +879,20 @@ def hybrid_device_half(torch, qzt, level: int, blocks_np: np.ndarray,
             "mbs": B * BLOCK / ms / 1e3}
 
 
-def device_half(torch, qzt, level: int, blocks_np: np.ndarray) -> dict:
+def device_half(torch, qzt, level: int, blocks_np: np.ndarray,
+                want: np.ndarray) -> dict:
     """Phase 3: the composed output of `level`'s device half, kernels on
-    the card vs twins on the CPU. Returns its size and the median time of
-    the kernels' composition on the card, input already on the card."""
+    the card vs `want`, the twins' output on the CPU (cpu_device_half).
+    Returns its size and the median time of the kernels' composition on
+    the card, input already on the card."""
     from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
     B = len(blocks_np)
-    lengths_np = np.full(B, BLOCK, np.int32)
     on_card = qzt.GpuCodec(level=level, batch=B, device="cuda")._pipeline()
-    on_cpu = qzt.GpuCodec(level=level, batch=B, device="cpu")._pipeline()
     dev = torch.device("cuda")
     blocks = torch.from_numpy(blocks_np).to(dev)
-    lengths = torch.from_numpy(lengths_np).to(dev)
+    lengths = torch.full((B,), BLOCK, dtype=torch.int32, device=dev)
     got = on_card(blocks, lengths).cpu()
-    want = on_cpu(torch.from_numpy(blocks_np), torch.from_numpy(lengths_np))
-    exact(torch, got, want, f"device half L{level} B={B}")
+    exact(torch, got, torch.from_numpy(want), f"device half L{level} B={B}")
     ms = cuda_ms(lambda: on_card(blocks, lengths))
     if level >= 5:  # packed sequences: [nseq, last_literals << 1 | overflow]
         size = {"sequences": int(got[:, 0, 0].sum()),
@@ -718,6 +901,82 @@ def device_half(torch, qzt, level: int, blocks_np: np.ndarray) -> dict:
         size = {"claims": int((got != -1).sum())}
     return {"level": level, "batch": B, **size, "ms": ms,
             "mbs": B * BLOCK / ms / 1e3}
+
+
+def _on_card_counted(torch, tk, fn):
+    """(fn(), the launch counts of that one run): counts set to 0 just
+    before and read just after."""
+    tk.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(tk.launches)
+
+
+# find_matches_positions(dense=False) in phase 3: level 2's parameters
+# (greedy) and level 3's with the lazy parse.
+PARSED_CASES = (dict(widths=(6,), window=WINDOW, ldm=4, dense=False,
+                     lazy=False),
+                dict(widths=(5, 8), window=WINDOW, ldm=8, dense=False,
+                     lazy=True))
+
+
+def parsed_paths(torch, tk, mp, tsk, blocks_np: np.ndarray, wants,
+                 launches: dict) -> None:
+    """Phase 3, the paths that reach B17-B19, each run once on the card with
+    its launches counted (added to `launches`), its output held against
+    the same path on the CPU (the twins), then timed:
+      * find_matches_positions(dense=False), PARSED_CASES, against `wants`
+        (cpu_parsed_slots): B10 and B17;
+      * compact_fast_glue on the first one's parse: B18, every dict field;
+      * bitonic_sort as the (gram, pos) row sort of the byte-verified
+        matcher (B11's planes of the batch, 256 rows of 32768), against the
+        matcher's own sort on the CPU (one unique int64 word a row): B19.
+    """
+    from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
+    dev = torch.device("cuda")
+    B, N = blocks_np.shape
+    host = (torch.from_numpy(blocks_np), torch.full((B,), N,
+                                                    dtype=torch.int32))
+    card = tuple(x.to(dev) for x in host)
+
+    def count(fn):
+        out, n = _on_card_counted(torch, tk, fn)
+        for k, v in n.items():
+            launches[k] += v
+        return out
+
+    for kw, want in zip(PARSED_CASES, wants):
+        got = count(lambda: mp.find_matches_positions(*card, **kw))
+        exact(torch, got.cpu(), torch.from_numpy(want),
+              f"parsed slot words {kw}")
+        phase("device_half", equal=True, path="find_matches_positions",
+              batch=B, **kw, claims=int((got != -1).sum()),
+              ms=cuda_ms(lambda: mp.find_matches_positions(*card, **kw)))
+
+    ch, ml, mo = tk.parsed_claims(*card, (6,), 1, WINDOW, 4, 1 << 19, False)
+    got = count(lambda: tk.compact_fast_glue(ch, ml, mo, card[1], MAX_SEQ,
+                                             WINDOW))
+    want = tk.compact_fast_glue(ch.cpu(), ml.cpu(), mo.cpu(), host[1],
+                                MAX_SEQ, WINDOW)
+    if sorted(got) != sorted(want):
+        raise AssertionError("compact_fast_glue: dict keys differ")
+    for k, v in want.items():
+        exact(torch, got[k].cpu(), v, f"compact_fast_glue {k}")
+    phase("device_half", equal=True, path="compact_fast_glue", batch=B,
+          max_seq=MAX_SEQ, sequences=int(want["nseq"].sum()),
+          overflow_blocks=int(want["overflow"].sum()),
+          ms=cuda_ms(lambda: tk.compact_fast_glue(ch, ml, mo, card[1],
+                                                  MAX_SEQ, WINDOW)))
+
+    pbits = (WINDOW - 1).bit_length()
+    g, p = tk.gram_pos_planes(card[0], WINDOW)
+    sg, sp = count(lambda: tsk.bitonic_sort(g, p))
+    want = tk._sort_rows2(g.cpu(), p.cpu(), pbits)
+    exact(torch, sg.cpu(), want[0], "bitonic_sort (gram, pos) grams")
+    exact(torch, sp.cpu(), want[1], "bitonic_sort (gram, pos) positions")
+    phase("device_half", equal=True, path="bitonic_sort (gram, pos) rows",
+          rows=int(g.shape[0]), n=int(g.shape[1]),
+          ms=cuda_ms(lambda: tsk.bitonic_sort(g, p)))
 
 
 def main_path(torch, qzt, tk, oracle, level: int, batch: int,
@@ -770,13 +1029,12 @@ def main_path(torch, qzt, tk, oracle, level: int, batch: int,
     return launches
 
 
-def card_vs_cpu(qzt, level: int, batch: int, data: bytes,
-                device_entropy=False) -> None:
+def card_vs_cpu(qzt, level: int, batch: int, data: bytes, device_entropy,
+                on_cpu: bytes) -> None:
     """Phase 5 for one level: the port's frame on the card equals its
-    frame on the CPU."""
-    kw = dict(level=level, batch=batch, device_entropy=device_entropy)
-    on_card = qzt.compress(data, device="cuda", **kw)
-    on_cpu = qzt.compress(data, device="cpu", **kw)
+    frame on the CPU (cpu_frame)."""
+    on_card = qzt.compress(data, device="cuda", level=level, batch=batch,
+                           device_entropy=device_entropy)
     if on_card != on_cpu:
         raise AssertionError(f"level {level}: frames differ between "
                              "device='cuda' and device='cpu'")
@@ -811,6 +1069,7 @@ def main() -> int:
     from qat_zstd_plugin_tpu_torch.ops import literals_kernel as lk
     from qat_zstd_plugin_tpu_torch.ops import match_pipeline as mp
     from qat_zstd_plugin_tpu_torch.ops import parse_kernel as pk
+    from qat_zstd_plugin_tpu_torch.ops import sort_kernel as tsk
     from qat_zstd_plugin_tpu_torch.profile_l1 import card_line
 
     # 1. Card and builds.
@@ -834,52 +1093,78 @@ def main() -> int:
         .reshape(BATCH, BLOCK).copy()
     dense_np = np.frombuffer(dense_corpus[:DENSE_BATCH * BLOCK], np.uint8) \
         .reshape(DENSE_BATCH, BLOCK).copy()
-    kernels = kernels_vs_twins(torch, tk, blocks_np, args.seed)
-    dense_kernels_vs_twins(torch, tk, dense_np, args.seed, kernels)
-    content_kernels_vs_twins(torch, tk, pk, mp, dense_np, args.seed,
-                             kernels)
-    hybrid_kernels_vs_twins(torch, tk, fk, dense_np, args.seed, kernels)
-    literals_kernels_vs_twins(torch, lk, dense_np, args.seed, kernels)
-    for name, r in kernels.items():
-        phase("kernel_vs_twin", kernel=name, **r)
+    halves = ((1, blocks_np), (1, blocks_np[:6].copy()),
+              *((lv, dense_np) for lv in DENSE_LEVELS),
+              (4, dense_np[:8].copy()),
+              *((lv, dense_np) for lv in CONTENT_LEVELS),
+              (5, dense_np[:6].copy()))
+    entropy_halves = [(lv, e) for e in ("hybrid", True)
+                      for lv in HYBRID_LEVELS]
+    frames = ((1, 8, corpus[:8 * BLOCK + TAIL], False),
+              (4, 16, dense_corpus[:16 * BLOCK + TAIL], False),
+              (3, 8, dense_corpus[:9 * BLOCK], False),
+              (5, 8, dense_corpus[:9 * BLOCK], False),
+              (12, 4, dense_corpus[:4 * BLOCK + TAIL], False),
+              (1, 8, corpus[:8 * BLOCK + TAIL], "hybrid"),
+              (5, 4, dense_corpus[:4 * BLOCK + TAIL], "hybrid"),
+              (1, 8, corpus[:8 * BLOCK + TAIL], True),
+              (5, 4, dense_corpus[:4 * BLOCK + TAIL], True))
+    # The CPU sides of phases 3 and 5 (the twins and the CPU frames) run in
+    # two worker processes, in the order they are needed, while the card
+    # works through phase 2; both are done before phase 4 times the main
+    # paths, so that they take no host time from those.
+    pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_worker_init)
+    try:
+        want_halves = [pool.submit(cpu_device_half, lv, x) for lv, x in halves]
+        want_entropy = [pool.submit(cpu_device_half, lv, dense_np, e)
+                        for lv, e in entropy_halves]
+        want_parsed = [pool.submit(cpu_parsed_slots, dense_np, kw)
+                       for kw in PARSED_CASES]
+        want_frames = [pool.submit(cpu_frame, *f) for f in frames]
+        kernels = kernels_vs_twins(torch, tk, blocks_np, args.seed)
+        dense_kernels_vs_twins(torch, tk, dense_np, args.seed, kernels)
+        content_kernels_vs_twins(torch, tk, pk, mp, dense_np, args.seed,
+                                 kernels)
+        hybrid_kernels_vs_twins(torch, tk, fk, dense_np, args.seed, kernels)
+        literals_kernels_vs_twins(torch, lk, dense_np, args.seed, kernels)
+        parsed_kernels_vs_twins(torch, tk, tsk, dense_np, args.seed, kernels)
+        for name, r in kernels.items():
+            phase("kernel_vs_twin", kernel=name, **r)
 
-    # 3. Device half: composed outputs, kernels vs twins.
-    for level, x in ((1, blocks_np), (1, blocks_np[:6].copy()),
-                     *((lv, dense_np) for lv in DENSE_LEVELS),
-                     (4, dense_np[:8].copy()),
-                     *((lv, dense_np) for lv in CONTENT_LEVELS),
-                     (5, dense_np[:6].copy())):
-        phase("device_half", equal=True, **device_half(torch, qzt, level, x))
-    for entropy in ("hybrid", True):
-        for level in HYBRID_LEVELS:
+        # 3. Device half: composed outputs, kernels vs twins.
+        for (level, x), want in zip(halves, want_halves):
+            phase("device_half", equal=True,
+                  **device_half(torch, qzt, level, x, want.result()))
+        for (level, entropy), want in zip(entropy_halves, want_entropy):
             phase("device_half", equal=True, **hybrid_device_half(
-                torch, qzt, level, dense_np, entropy))
+                torch, qzt, level, dense_np, entropy, want.result()))
+        # The paths of B17-B19, which no level takes: their launches count.
+        launches = dict.fromkeys(KERNELS, 0)
+        parsed_paths(torch, tk, mp, tsk, dense_np,
+                     [w.result() for w in want_parsed], launches)
 
-    # 4. Main paths on the card, launch counts per path.
-    launches = dict.fromkeys(KERNELS, 0)
-    runs = [(1, BATCH, corpus, False)] + [
-        (lv, DENSE_BATCH, dense_corpus, False)
-        for lv in DENSE_LEVELS + CONTENT_LEVELS] + [
-        (lv, DENSE_BATCH, dense_corpus, entropy)
-        for entropy in ("hybrid", True) for lv in HYBRID_LEVELS]
-    for level, batch, data, entropy in runs:
-        for k, n in main_path(torch, qzt, tk, oracle, level, batch, data,
-                              entropy).items():
-            launches[k] += n
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched: {missing}")
+        # 4. Main paths on the card, launch counts per path.
+        frames_on_cpu = [w.result() for w in want_frames]
+        runs = [(1, BATCH, corpus, False)] + [
+            (lv, DENSE_BATCH, dense_corpus, False)
+            for lv in DENSE_LEVELS + CONTENT_LEVELS] + [
+            (lv, DENSE_BATCH, dense_corpus, entropy)
+            for entropy in ("hybrid", True) for lv in HYBRID_LEVELS]
+        for level, batch, data, entropy in runs:
+            for k, n in main_path(torch, qzt, tk, oracle, level, batch, data,
+                                  entropy).items():
+                launches[k] += n
+        missing = [k for k, n in launches.items() if n == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched: {missing}")
 
-    # 5. Port on card vs port on CPU.
-    card_vs_cpu(qzt, 1, 8, corpus[:8 * BLOCK + TAIL])
-    card_vs_cpu(qzt, 4, 16, dense_corpus[:16 * BLOCK + TAIL])
-    card_vs_cpu(qzt, 3, 8, dense_corpus[:9 * BLOCK])
-    card_vs_cpu(qzt, 5, 8, dense_corpus[:9 * BLOCK])
-    card_vs_cpu(qzt, 12, 4, dense_corpus[:4 * BLOCK + TAIL])
-    card_vs_cpu(qzt, 1, 8, corpus[:8 * BLOCK + TAIL], "hybrid")
-    card_vs_cpu(qzt, 5, 4, dense_corpus[:4 * BLOCK + TAIL], "hybrid")
-    card_vs_cpu(qzt, 1, 8, corpus[:8 * BLOCK + TAIL], True)
-    card_vs_cpu(qzt, 5, 4, dense_corpus[:4 * BLOCK + TAIL], True)
+        # 5. Port on card vs port on CPU.
+        for f, want in zip(frames, frames_on_cpu):
+            card_vs_cpu(qzt, *f, want)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
 
     ref = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "qat_zstd_plugin_tpu")]

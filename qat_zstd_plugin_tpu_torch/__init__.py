@@ -9,8 +9,13 @@ levels 1-4 and the FSE sequence sections on the device at every level,
 and in full mode the Huffman literals sections too. The host half (claim
 extension, gap fill, entropy coding; only the literals section in hybrid
 mode; only the section wrapping in full mode) is the package's own build
-of the native runtime (native/), and frame assembly is format.py. The
-package imports neither jax nor qat_zstd_plugin_tpu.
+of the native runtime (native/), and frame assembly is format.py. Every
+Pallas kernel of the JAX package has a CUDA counterpart here, the three
+that no level reaches included: compact_slots (the parsed hash branch,
+ops.glue_kernels.find_matches_positions(dense=False)), compact_operands
+(ops.glue_kernels.compact_fast_glue) and bitonic_sort
+(ops.sort_kernel). The package imports neither jax nor
+qat_zstd_plugin_tpu.
 
     compress(data, level=1..12, device="cuda", device_entropy=False)
         -> zstd frame (bytes), equal byte for byte to qat_zstd_plugin_tpu's

@@ -11,8 +11,9 @@ source; the differences are in the build:
     package, where <key> hashes the source, the flags and the host CPU
     (its model name and feature flags from /proc/cpuinfo), so a library
     built with -march=native on another CPU is never loaded;
-  * the library is written to a temporary name and renamed into place,
-    so processes that build at once never load a half-written file;
+  * one process builds while the others wait on a file lock beside the
+    library, and the library is written to a temporary name and renamed
+    into place, so no process loads a half-written file;
   * without g++, or when the build fails, load() raises: the port never
     goes on without its host runtime.
 """
@@ -20,6 +21,7 @@ source; the differences are in the build:
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -83,11 +85,21 @@ def library_path(src: str = SRC) -> str:
 
 def build() -> str:
     """Compile qz_entropy.cc unless the library for this source, these
-    flags and this CPU exists; returns its path."""
+    flags and this CPU exists; returns its path. Processes that need it
+    at once (test workers) take a file lock beside it, so one of them
+    builds and the others wait and load its library."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path + ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not os.path.exists(path):
+            _compile(path)
+    return path
+
+
+def _compile(path: str) -> None:
     tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
     cmd = [CXX, *CXX_FLAGS, SRC, "-o", tmp, *LINK_FLAGS]
     try:
@@ -101,7 +113,6 @@ def build() -> str:
                            f"({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stderr}")
     os.replace(tmp, path)
-    return path
 
 
 def load() -> ctypes.CDLL:

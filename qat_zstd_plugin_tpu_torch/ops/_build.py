@@ -48,6 +48,9 @@ SIGNATURES = {
     "qz_fse_state": (_P,) * 18 + (_I, _I, _P),
     "qz_literal_keys": (_P,) * 6 + (_I, _I, _P),
     "qz_byte_hist": (_P, _P, _I, _I, _P),
+    "qz_compact_slots": (_P, _P, _P, _I, _I, _I, _P),
+    "qz_compact_operands": (_P,) * 5 + (_I,) * 4 + (_P,),
+    "qz_bitonic_sort": (_P,) * 7 + (_I,) * 3 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,8 @@
-"""The hash-matcher device paths of levels 1-4 in PyTorch: eight CUDA
-kernels and the torch ops between them.
+"""The hash-matcher device paths in PyTorch: the CUDA kernels of
+qat_zstd_plugin_tpu.ops.glue_kernels and the torch ops between them.
 
-Port of the dense branches of qat_zstd_plugin_tpu.ops.glue_kernels
-`find_matches_positions` and what they reach. Level 1, sync=True (the
+Port of qat_zstd_plugin_tpu.ops.glue_kernels `find_matches_positions`
+(every branch at psegs=1) and what it reaches. Level 1, sync=True (the
 syncmer pair anchors, csrc/l1_kernels.cu):
 
   hash_keys_winmin_sync -> sort -> neighbor_unsort_keys -> sort --+
@@ -20,6 +20,15 @@ Levels 2-4, sync=False (full-resolution keys, csrc/dense_kernels.cu):
 Without LDM (a batch that is no whole number of spans) every width takes
 hash_keys and compact_slots_dense gets no estimates.
 
+The parsed branch, dense=False (no level takes it; csrc/parsed_kernels.cu):
+
+  candidates_hash_split -> (mlen, moff) -> [ldm_winmin -> ldm_unsorted ->
+    merge_ldm] -> parse_greedy (B10) -> compact_slots (B17) -> slot words
+
+and compact_fast_glue, the packed sequences from a parse: compact_operands
+(B18) -> two row sorts -> the segment merge -> the sequence fields. B19
+bitonic_sort is in ops/sort_kernel.py (csrc/sort_kernels.cu).
+
 Levels 5-12 (the content path, ops/match_pipeline.find_matches_packed)
 take their LDM claims from here: ldm_winmin (csrc/content_kernels.cu) ->
 ldm_unsorted -> merge_ldm folds them into the exact-LCP candidates.
@@ -31,9 +40,9 @@ Levels 1-4 with hybrid device entropy take the byte-verified matcher
     -> finalize_verified -> (mlen, moff), every claim a true match
 
 Each kernel has here (parse_greedy in ops/parse_kernel.py, the FSE
-state machine in ops/fse_kernel.py and literal_keys and byte_hist in
-ops/literals_kernel.py, which count their launches in `launches` below as
-well)
+state machine in ops/fse_kernel.py, literal_keys and byte_hist in
+ops/literals_kernel.py and bitonic_sort in ops/sort_kernel.py, which count
+their launches in `launches` below as well)
   * a wrapper with the reference's name, which checks device, dtype,
     shape and contiguity and launches the kernel of csrc/ on PyTorch's
     current stream (counting the launch in `launches`);
@@ -70,7 +79,8 @@ launches = {"hash_keys_winmin_sync": 0, "neighbor_unsort_keys": 0,
             "compact_slots_dense": 0, "ldm_winmin": 0, "parse_greedy": 0,
             "gram_pos_planes": 0, "neighbor_verify_keys": 0,
             "finalize_verified": 0, "fse_state": 0, "literal_keys": 0,
-            "byte_hist": 0}
+            "byte_hist": 0, "compact_slots": 0, "compact_operands": 0,
+            "bitonic_sort": 0}
 
 MIN_MATCH = 4  # qat_zstd_plugin_tpu.ops.match_pipeline.MIN_MATCH
 
@@ -985,6 +995,168 @@ def compact_slots_dense(mlen: torch.Tensor, moff: torch.Tensor, window: int,
 
 
 # ---------------------------------------------------------------------------
+# The parsed branch: B17 compact_slots, B18 compact_operands
+# ---------------------------------------------------------------------------
+
+def _parsed_geometry(name: str, chosen: torch.Tensor, *planes: torch.Tensor,
+                     window: int):
+    """Check the parse outputs; returns (B, N, w). `chosen` is bool (B10's
+    output) or int32, the planes int32, all (B, N) with 4 | w | N."""
+    if chosen.dtype not in (torch.bool, torch.int32):
+        raise ValueError(f"{name}: chosen must be bool or int32, got "
+                         f"{chosen.dtype}")
+    _check(chosen, name, chosen.dtype, 2)
+    for t in planes:
+        _check(t, name, torch.int32, 2)
+        if t.shape != chosen.shape:
+            raise ValueError(f"{name}: planes {tuple(t.shape)} and chosen "
+                             f"{tuple(chosen.shape)} differ")
+    B, N = chosen.shape
+    w = min(window, N)
+    if N % w or w % 4:
+        raise ValueError(f"{name}: block length {N} must be a multiple of a "
+                         f"segment width {w} that 4 divides")
+    return B, N, w
+
+
+def compact_slots_twin(chosen: torch.Tensor, moff: torch.Tensor,
+                       window: int) -> torch.Tensor:
+    """Plain-torch B17 (see compact_slots)."""
+    B, N, w = _parsed_geometry("compact_slots", chosen, moff, window=window)
+    best = torch.full((B, N // 4), _M32, dtype=torch.int64,
+                      device=moff.device)
+    for k in range(4):
+        key = (k << 30) | _u32(moff[:, k::4])
+        best = torch.minimum(best, torch.where(chosen[:, k::4] != 0, key,
+                                               _M32))
+    return _i32(best).reshape(B * (N // w), w // 4)
+
+
+def compact_slots(chosen: torch.Tensor, moff: torch.Tensor,
+                  window: int) -> torch.Tensor:
+    """B17. Parse outputs (B, N) chosen (bool or int32) and int32 moff ->
+    (B*nseg, w/4) int32 slot words: slot i holds the unsigned minimum of
+    (k << 30 | moff[4i+k]) over the chosen lanes k, else 0xFFFFFFFF. A
+    parse chooses at most one lane of a slot; a dense mask may choose
+    several, and the minimum keeps the smallest k. Port of the Pallas
+    kernel of the same name (a sign-flipped int32 minimum there, the same
+    words)."""
+    B, N, w = _parsed_geometry("compact_slots", chosen, moff, window=window)
+    if _use_twin(moff, "compact_slots"):
+        return compact_slots_twin(chosen, moff, window)
+    out = torch.empty((B * (N // w), w // 4), dtype=torch.int32,
+                      device=moff.device)
+    _launch("compact_slots", chosen, moff, out, B, N, chosen.element_size())
+    return out
+
+
+def _operands_window(chosen: torch.Tensor, window: int) -> None:
+    if min(window, chosen.shape[1]) > 32768:
+        raise ValueError(f"compact_operands: segment width "
+                         f"{min(window, chosen.shape[1])} > 32768 (the "
+                         "position key has 16 bits with its sentinels)")
+
+
+def compact_operands_twin(chosen: torch.Tensor, mlen: torch.Tensor,
+                          moff: torch.Tensor, window: int):
+    """Plain-torch B18 (see compact_operands)."""
+    _operands_window(chosen, window)
+    B, N, w = _parsed_geometry("compact_operands", chosen, mlen, moff,
+                               window=window)
+    gp = torch.arange(N, device=mlen.device) & (w - 1)
+    poskey = (torch.where(chosen != 0, gp, gp + w) << 16) & _M32
+    return tuple(_i32(poskey | _u32(x)).reshape(B * (N // w), w)
+                 for x in (mlen, moff))
+
+
+def compact_operands(chosen: torch.Tensor, mlen: torch.Tensor,
+                     moff: torch.Tensor, window: int):
+    """B18. Parse outputs (B, N) chosen (bool or int32), int32 mlen and
+    moff -> two (B*nseg, w) int32 sort operands (poskey << 16 | mlen) and
+    (poskey << 16 | moff) as u32 bit patterns, poskey the local position
+    i & (w - 1) where chosen and w + that position elsewhere (distinct
+    sentinels that sort after every chosen slot). The payload is ORed in
+    unmasked, as the reference does. Port of the Pallas kernel of the same
+    name, which asserts w <= 32768; here that raises ValueError."""
+    _operands_window(chosen, window)
+    B, N, w = _parsed_geometry("compact_operands", chosen, mlen, moff,
+                               window=window)
+    if _use_twin(mlen, "compact_operands"):
+        return compact_operands_twin(chosen, mlen, moff, window)
+    op_a = torch.empty((B * (N // w), w), dtype=torch.int32,
+                       device=mlen.device)
+    op_b = torch.empty_like(op_a)
+    _launch("compact_operands", chosen, mlen, moff, op_a, op_b, B, N, w,
+            chosen.element_size())
+    return op_a, op_b
+
+
+def compact_fast_glue(chosen: torch.Tensor, mlen: torch.Tensor,
+                      moff: torch.Tensor, lengths: torch.Tensor,
+                      max_seq: int, window: int) -> dict:
+    """Parse outputs -> the packed-contract sequences dict (lit_len, offset,
+    match_len: (B, max_seq) int32; nseq, last_literals: (B,) int32;
+    overflow: (B,) bool). Port of the reference's compact_fast_glue, torch
+    ops around B18: the two operands' unsigned row sorts, then for nseg > 1
+    the segment merge (each segment's first min(w / 4, max_seq) entries as
+    (global pos << gshift | payload) words, N - 1 for the empty ones, and
+    two more row sorts), then the sequence fields. Keys repeat only as
+    equal words (the merge's empty entries), so any sort gives the
+    reference's order."""
+    B, N = chosen.shape
+    req_seq = max_seq
+    max_seq = min(max_seq, N)
+    w = min(window, N)
+    nseg = N // w
+    dev = mlen.device
+    op_a, op_b = compact_operands(chosen, mlen, moff, window)
+    capseg = min(w // MIN_MATCH, max_seq)
+    s_a = _u32(_sort_rows(op_a)[:, :capseg])
+    s_b = _u32(_sort_rows(op_b)[:, :capseg])
+    segpos, segml, segoff = s_a >> 16, s_a & 0xFFFF, s_b & 0xFFFF
+    nseq = chosen.sum(dim=1, dtype=torch.int64)
+    if nseg > 1:
+        R = B * nseg
+        seg_start = ((torch.arange(R, device=dev) % nseg) * w)[:, None]
+        seg_cnt = chosen.reshape(R, w).sum(dim=1, dtype=torch.int64)[:, None]
+        valid = torch.arange(capseg, device=dev)[None, :] < seg_cnt
+        gpos = torch.where(valid, segpos + seg_start, N - 1)
+        gshift = 32 - (N - 1).bit_length()
+        M = nseg * capseg
+        gpos = ((gpos << gshift) & _M32).reshape(B, M)
+        g_a = gpos | torch.where(valid, segml, 0).reshape(B, M)
+        g_b = gpos | torch.where(valid, segoff, 0).reshape(B, M)
+        take = min(max_seq, M)
+        g_a = _u32(_sort_rows(_i32(g_a))[:, :take])
+        g_b = _u32(_sort_rows(_i32(g_b))[:, :take])
+        t2 = g_a >> gshift
+        l2 = g_a & ((1 << gshift) - 1)
+        o2 = g_b & ((1 << gshift) - 1)
+    else:
+        take = min(max_seq, capseg)
+        t2, l2, o2 = segpos[:, :take], segml[:, :take], segoff[:, :take]
+    if take < max_seq:
+        t2, l2, o2 = (torch.nn.functional.pad(x, (0, max_seq - take))
+                      for x in (t2, l2, o2))
+    valid = torch.arange(max_seq, device=dev)[None, :] < nseq[:, None]
+    ends = t2 + l2
+    prev_end = torch.cat([torch.zeros((B, 1), dtype=torch.int64, device=dev),
+                          ends[:, :-1]], dim=1)
+    lit = torch.where(valid, t2 - prev_end, 0)
+    ml = torch.where(valid, l2, 0)
+    off = torch.where(valid, o2, 0)
+    last_end = torch.where(valid, ends, 0).max(dim=1).values
+    out = {"lit_len": lit, "offset": off, "match_len": ml}
+    out = {k: torch.nn.functional.pad(v, (0, req_seq - max_seq))
+           .to(torch.int32) for k, v in out.items()}
+    out.update(nseq=nseq.clamp(max=max_seq).to(torch.int32),
+               last_literals=(lengths.to(torch.int64) - last_end)
+               .to(torch.int32),
+               overflow=nseq > max_seq)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The compositions
 # ---------------------------------------------------------------------------
 
@@ -1035,32 +1207,33 @@ def find_matches_positions(blocks: torch.Tensor, lengths: torch.Tensor,
                            widths: tuple = (6,), neighbors: int = 1,
                            window: int = 32768, ldm: int = 0,
                            ldm_max_off: int = 1 << 19, dense: bool = True,
-                           sync: bool = False) -> torch.Tensor:
+                           sync: bool = False,
+                           lazy: bool = False) -> torch.Tensor:
     """Hash-matcher pipeline, segment-slots contract: (B, N) uint8 blocks
     and (B,) int32 lengths -> (B*nseg, w/4) int32 slot words, slot i of a
     row holding (subslot_k << 30 | byte_offset) or 0xFFFFFFFF. Port of the
-    reference's glue_kernels.find_matches_positions for its dense
-    branches: sync (level 1's syncmer pair anchors, one width), and
-    full-resolution keys with or without LDM (levels 2-4). The parsed
-    branch (dense=False) is not ported: no level takes it."""
-    if not dense:
-        raise NotImplementedError("dense=False (device parse + "
-                                  "compact_slots) is not ported")
+    reference's glue_kernels.find_matches_positions at psegs=1: the dense
+    branches, sync (level 1's syncmer pair anchors, one width) and
+    full-resolution keys with or without LDM (levels 2-4), and the parsed
+    branch (dense=False, no level takes it): candidates, LDM claims merged
+    in at full resolution, the greedy (or one-step lazy) parse B10, then
+    B17 compact_slots."""
     widths = tuple(widths)
     N = blocks.shape[1]
     w = min(window, N)
     pbits = (w - 1).bit_length()
     local_cap = 4 * max(widths)
     if sync:
-        if len(widths) != 1:
-            raise ValueError(f"sync implies one width (got {widths})")
+        if not dense or len(widths) != 1:
+            raise ValueError("sync implies single-width dense (got "
+                             f"dense={dense}, widths={widths})")
         stride = ldm_stride(ldm, N) if ldm else 0  # 0: no minimizer plane
         key, minz = hash_keys_winmin_sync(blocks, widths[0], window, stride)
         su = _unsorted(key, pbits, neighbors, pos_mask=w - 1)
         return _sync_tail_fused(su, lengths, minz, width=widths[0],
                                 window=window, span_blocks=ldm,
                                 max_off=ldm_max_off)
-    if ldm:
+    if dense and ldm:
         # The first width's key build also writes the minimizer plane.
         key, minz = hash_keys_winmin(blocks, widths[0], window,
                                      ldm_stride(ldm, N))
@@ -1070,6 +1243,30 @@ def find_matches_positions(blocks: torch.Tensor, lengths: torch.Tensor,
         return _dense_tail_fused(sus, blocks, lengths, minz, widths, window,
                                  span_blocks=ldm, local_cap=local_cap,
                                  max_off=ldm_max_off)
+    if dense:
+        mlen, moff = candidates_hash_split(blocks, lengths, widths,
+                                           neighbors, window)
+        return compact_slots_dense(mlen, moff, window, local_cap=local_cap)
+    chosen, _, moff = parsed_claims(blocks, lengths, widths, neighbors,
+                                    window, ldm, ldm_max_off, lazy)
+    return compact_slots(chosen, moff, window)
+
+
+def parsed_claims(blocks: torch.Tensor, lengths: torch.Tensor,
+                  widths: tuple, neighbors: int, window: int, ldm: int,
+                  ldm_max_off: int, lazy: bool):
+    """The parsed branch up to its parse: (chosen, mlen, moff), the (B, N)
+    bool parse of the hash candidates with the LDM claims merged in at
+    full resolution (reference: glue_kernels.find_matches_positions,
+    dense=False, before compact_slots)."""
+    from .parse_kernel import parse_greedy  # it imports this module
     mlen, moff = candidates_hash_split(blocks, lengths, widths, neighbors,
                                        window)
-    return compact_slots_dense(mlen, moff, window, local_cap=local_cap)
+    if ldm:
+        su_l = ldm_unsorted(ldm_winmin(blocks, ldm_stride(ldm,
+                                                          blocks.shape[1])),
+                            ldm)
+        mlen, moff = merge_ldm(mlen, moff, su_l, lengths, ldm,
+                               local_cap=4 * max(widths),
+                               max_off=ldm_max_off)
+    return parse_greedy(mlen, lazy), mlen, moff

@@ -38,16 +38,18 @@ def find_matches_positions(blocks: torch.Tensor, lengths: torch.Tensor,
                            widths: tuple = (6,), neighbors: int = 1,
                            window: int = 32768, ldm: int = 0,
                            ldm_max_off: int = 1 << 19, dense: bool = True,
-                           sync: bool = False) -> torch.Tensor:
+                           sync: bool = False,
+                           lazy: bool = False) -> torch.Tensor:
     """Hash-matcher pipeline of levels 1-4, segment-slots contract (see
-    glue_kernels.find_matches_positions). LDM spans tile the batch, so a
-    batch that is not a whole number of spans runs without LDM."""
+    glue_kernels.find_matches_positions; `lazy` is the parsed branch's
+    one-step lazy parse). LDM spans tile the batch, so a batch that is not
+    a whole number of spans runs without LDM."""
     if ldm and blocks.shape[0] % ldm:
         ldm = 0  # spans need whole block groups; partial batches skip LDM
     return glue_kernels.find_matches_positions(
         blocks, lengths, widths=tuple(widths), neighbors=neighbors,
         window=window, ldm=ldm, ldm_max_off=ldm_max_off, dense=dense,
-        sync=sync)
+        sync=sync, lazy=lazy)
 
 
 def unpack_segments(slot_keys: np.ndarray, nblocks: int, window: int

@@ -4,7 +4,11 @@
 import os
 import shutil
 
+import torch
+
 from qat_zstd_plugin_tpu_torch.ops import _build
+
+torch.set_num_threads(2)  # six test workers share a few cores
 
 
 def _copy(tmp_path):
@@ -47,7 +51,8 @@ def test_every_source_is_compiled_and_bound():
     names = [os.path.basename(s) for s in _build._sources()]
     assert names == ["content_kernels.cu", "dense_kernels.cu",
                      "fse_kernels.cu", "l1_kernels.cu",
-                     "literals_kernels.cu", "verified_kernels.cu"]
+                     "literals_kernels.cu", "parsed_kernels.cu",
+                     "sort_kernels.cu", "verified_kernels.cu"]
     text = "".join(open(s).read() for s in _build._sources())
     for name, argtypes in _build.SIGNATURES.items():
         assert f"int {name}(" in text, name

@@ -8,11 +8,14 @@ same batch size, and stock libzstd must decode them.
 
 import numpy as np
 import pytest
+import torch
 
 from qat_zstd_plugin_tpu import oracle
 from qat_zstd_plugin_tpu.runtime.tpu_codec import TpuCodec
 from qat_zstd_plugin_tpu_torch import GpuCodec, compress, decompress, native
 from qat_zstd_plugin_tpu_torch.corpus import make_corpus as make_data
+
+torch.set_num_threads(2)  # six test workers share a few cores
 
 BLOCK = 131072
 

@@ -8,6 +8,8 @@ the kernels' plain-torch twins on CPU tensors. Everything is integer, so
 the tolerance is 0: equality, word for word.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,8 @@ from qat_zstd_plugin_tpu_torch.corpus import make_corpus
 from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
 from qat_zstd_plugin_tpu_torch.ops import match_pipeline as tmp
 from qat_zstd_plugin_tpu_torch.ops import parse_kernel as tpk
+
+torch.set_num_threads(2)  # six test workers share a few cores
 
 N = 131072
 
@@ -132,39 +136,49 @@ def test_candidates_refuse_segmented_sorts():
 
 # --- merge_ldm, compact, pack_outputs ---------------------------------------
 
-def _ldm_inputs(B: int = 8, seed: int = 1):
+def _ldm_blocks(B: int = 8, seed: int = 1):
+    """Blocks with long-distance repeats, and their lengths."""
     blocks = make_blocks("mixed", B, seed=seed)
     blocks[5] = blocks[1]  # long-distance repeats for the LDM
     blocks[6, :N // 2] = blocks[2, N // 2:]
-    lengths = lengths_for(B)
+    return blocks, lengths_for(B)
+
+
+@functools.lru_cache
+def _ldm_inputs(seed: int = 1):
+    """_ldm_blocks and the reference's candidates (numpy), built once per
+    seed."""
+    blocks, lengths = _ldm_blocks(seed=seed)
     ml, mo = jmp.candidates(jnp.asarray(blocks), jnp.asarray(lengths), 4)
-    su = gk.ldm_unsorted(jnp.asarray(blocks), 4, neighbors=1, interpret=True)
-    return blocks, lengths, ml, mo, su
+    return blocks, lengths, np.asarray(ml), np.asarray(mo)
 
 
 def test_merge_ldm():
-    blocks, lengths, ml, mo, su = _ldm_inputs()
+    blocks, lengths, ml, mo = _ldm_inputs()
+    su = gk.ldm_unsorted(jnp.asarray(blocks), 4, neighbors=1, interpret=True)
     max_off = (1 << 18) - 1
-    want = gk.merge_ldm(ml, mo, su, jnp.asarray(lengths), 4, local_cap=16,
+    want = gk.merge_ldm(jnp.asarray(ml), jnp.asarray(mo), su,
+                        jnp.asarray(lengths), 4, local_cap=16,
                         max_off=max_off)
     su_t = tk.ldm_unsorted(tk.ldm_winmin(t(blocks), 32), 4)
     np.testing.assert_array_equal(su_t.numpy().view(np.uint32),
                                   np.asarray(su))
-    got = tk.merge_ldm(t(np.asarray(ml)), t(np.asarray(mo)), su_t,
-                       t(lengths), 4, local_cap=16, max_off=max_off)
+    got = tk.merge_ldm(t(ml), t(mo), su_t, t(lengths), 4, local_cap=16,
+                       max_off=max_off)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    assert (np.asarray(want[0]) != np.asarray(ml)).any()  # LDM took some
+    assert (np.asarray(want[0]) != ml).any()  # LDM took some
 
 
 @pytest.mark.parametrize("max_seq", [16384, 2000, 200000])
 def test_compact_and_pack_outputs(max_seq):
-    blocks, lengths, ml, mo, _ = _ldm_inputs(seed=max_seq % 7)
-    chosen = jmp.parse_greedy_scan(ml, True)
-    want_out = jmp.compact(chosen, ml, mo, jnp.asarray(lengths), max_seq)
+    blocks, lengths, ml, mo = _ldm_inputs(seed=max_seq % 7)
+    chosen = jmp.parse_greedy_scan(jnp.asarray(ml), True)
+    want_out = jmp.compact(chosen, jnp.asarray(ml), jnp.asarray(mo),
+                           jnp.asarray(lengths), max_seq)
     want = np.asarray(jmp.pack_outputs(want_out, max_seq))
-    out = tmp.compact(t(np.asarray(chosen)), t(np.asarray(ml)),
-                      t(np.asarray(mo)), t(lengths), max_seq)
+    out = tmp.compact(t(np.asarray(chosen)), t(ml), t(mo), t(lengths),
+                      max_seq)
     for k, v in out.items():
         np.testing.assert_array_equal(v.numpy(), np.asarray(want_out[k]),
                                       err_msg=k)
@@ -199,7 +213,7 @@ def test_pack_outputs_long_literal_run_overflows():
 
 @pytest.mark.parametrize("B, ldm", [(8, 4), (6, 4)])  # 6 % 4: no LDM
 def test_find_matches_packed(B, ldm):
-    blocks, lengths, _, _, _ = _ldm_inputs(seed=B)
+    blocks, lengths = _ldm_blocks(seed=B)
     blocks, lengths = blocks[:B].copy(), lengths[:B].copy()
     kw = dict(neighbors=8, max_seq=16384, lazy=True, ldm=ldm,
               ldm_max_off=1 << 22)

@@ -16,6 +16,9 @@ from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
 from qat_zstd_plugin_tpu_torch.ops import literals_kernel as lk
 from qat_zstd_plugin_tpu_torch.ops import match_pipeline as tmp
 from qat_zstd_plugin_tpu_torch.ops import parse_kernel as pk
+from qat_zstd_plugin_tpu_torch.ops import sort_kernel as tsk
+
+torch.set_num_threads(2)  # six test workers share a few cores
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +71,8 @@ CONTENT_KERNELS = ("ldm_winmin", "parse_greedy")
 HYBRID_ONLY = ("gram_pos_planes", "neighbor_verify_keys", "finalize_verified",
                "fse_state", "literal_keys",
                "byte_hist")  # kernels of device entropy alone
+NO_LEVEL = ("compact_slots", "compact_operands",
+            "bitonic_sort")  # kernels that no level's path launches
 
 
 def test_slot_words_card_vs_cpu(cuda):
@@ -141,7 +146,7 @@ def test_l4_frames_card_vs_cpu(cuda):
     tk.reset_launches()
     on_card = compress(data, level=4, batch=8, device="cuda")
     assert all(n > 0 for k, n in tk.launches.items() if k not in L1_KERNELS
-               + CONTENT_KERNELS + HYBRID_ONLY
+               + CONTENT_KERNELS + HYBRID_ONLY + NO_LEVEL
                and k != "hash_keys_winmin")  # 8 < 16: no LDM
     assert on_card == compress(data, level=4, batch=8, device="cpu")
 
@@ -313,3 +318,79 @@ def test_full_frames_card_vs_cpu(cuda, level):
                + ("literal_keys", "byte_hist"))
     assert on_card == compress(data, level=level, batch=4, device="cpu",
                                device_entropy=True)
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+def test_compact_slots_parsed_and_dense(cuda, lazy):
+    """B17 on the parse of the parsed branch (one claim a slot) and on a
+    dense mask (up to four), bool and int32; the branch on the card equals
+    the branch on the CPU."""
+    blocks = _blocks()
+    x = torch.from_numpy(blocks).to(cuda)
+    lengths = torch.from_numpy(LENGTHS).to(cuda)
+    ml, mo = tk.candidates_hash_split(x, lengths, (5, 8), 1, WINDOW)
+    for chosen in (pk.parse_greedy(ml, lazy), ml >= 4,
+                   (ml >= 4).to(torch.int32)):
+        assert torch.equal(tk.compact_slots(chosen, mo, WINDOW),
+                           tk.compact_slots_twin(chosen, mo, WINDOW))
+    kw = dict(widths=(5, 8), window=WINDOW, ldm=4, dense=False, lazy=lazy)
+    tk.reset_launches()
+    got = tmp.find_matches_positions(x, lengths, **kw).cpu()
+    assert tk.launches["compact_slots"] > 0
+    assert torch.equal(got, tmp.find_matches_positions(
+        torch.from_numpy(blocks), torch.from_numpy(LENGTHS), **kw))
+
+
+def test_compact_operands_and_fast_glue(cuda):
+    """B18 at nseg 4, 32 and 1, with payloads past 16 bits, and
+    compact_fast_glue's dict on the card against the CPU."""
+    blocks = _blocks()
+    x = torch.from_numpy(blocks).to(cuda)
+    lengths = torch.from_numpy(LENGTHS).to(cuda)
+    ml, mo = tk.candidates_hash_split(x, lengths, (5, 8), 1, WINDOW)
+    chosen = pk.parse_greedy(ml, True)
+    wide = ml * 70001  # payloads that reach into the position key
+    for window, cols in ((WINDOW, N), (4096, N), (WINDOW, WINDOW)):
+        for args in ((chosen, ml, mo), (chosen.to(torch.int32), wide, mo)):
+            args = [a[:, :cols].contiguous() for a in args]
+            for g, w in zip(tk.compact_operands(*args, window),
+                            tk.compact_operands_twin(*args, window)):
+                assert torch.equal(g, w)
+    for max_seq in (16384, 1024):
+        on_card = tk.compact_fast_glue(chosen, ml, mo, lengths, max_seq,
+                                       WINDOW)
+        on_cpu = tk.compact_fast_glue(chosen.cpu(), ml.cpu(), mo.cpu(),
+                                      lengths.cpu(), max_seq, WINDOW)
+        assert sorted(on_card) == sorted(on_cpu)
+        for k, v in on_cpu.items():
+            assert torch.equal(on_card[k].cpu(), v), k
+
+
+@pytest.mark.parametrize("n", [1024, 8192, 16384, 131072])
+def test_bitonic_sort(cuda, n):
+    """B19 against its twin (the same network) at rows inside one tile,
+    of one tile and of sixteen tiles: random keys, heavy duplicates and
+    duplicate (key, pos) pairs, with 0, 1 and 9 payloads (two launches
+    of the payload gather)."""
+    rng = np.random.default_rng(n)
+    B = 4 if n == 131072 else 8
+    kinds = {
+        "random": (rng.integers(-2**31, 2**31, (B, n), np.int64),
+                   np.broadcast_to(np.arange(n), (B, n))),
+        "dup_keys": (rng.integers(0, 17, (B, n)),
+                     np.broadcast_to(np.arange(n), (B, n))),
+        "dup_pairs": (rng.integers(-2, 2, (B, n)),
+                      rng.integers(-3, 3, (B, n))),
+    }
+    for key, pos in kinds.values():
+        key, pos = (torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                    .to(cuda) for a in (key, pos))
+        for npay in (0, 1, 9):
+            pay = [torch.from_numpy(rng.integers(-2**31, 2**31, (B, n),
+                                                 np.int64).astype(np.int32))
+                   .to(cuda) for _ in range(npay)]
+            got = tsk.bitonic_sort(key, pos, *pay)
+            want = tsk.bitonic_sort_twin(key, pos, *pay)
+            assert len(got) == len(want) == 2 + npay
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)

@@ -17,6 +17,8 @@ from qat_zstd_plugin_tpu.runtime.tpu_codec import TPU_LEVEL_TABLE
 from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
 from qat_zstd_plugin_tpu_torch.ops import match_pipeline as tmp
 
+torch.set_num_threads(2)  # six test workers share a few cores
+
 N = 65536  # two window segments: the chains cross a segment boundary
 WINDOW = 32768
 PBITS = 15

@@ -9,7 +9,10 @@ from qat_zstd_plugin_tpu_torch.ops import fse_kernel as fk
 from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
 from qat_zstd_plugin_tpu_torch.ops import literals_kernel as lk
 from qat_zstd_plugin_tpu_torch.ops import parse_kernel as pk
+from qat_zstd_plugin_tpu_torch.ops import sort_kernel as sk
 from qat_zstd_plugin_tpu_torch.runtime import device
+
+torch.set_num_threads(2)  # six test workers share a few cores
 
 # The module that holds each kernel's wrapper and twin, and the twin's name.
 TWIN = {name: (tk, f"{name}_twin") for name in tk.launches}
@@ -17,6 +20,7 @@ TWIN["parse_greedy"] = (pk, "parse_greedy_twin")
 TWIN["fse_state"] = (fk, "run_state_kernel_twin")
 TWIN["literal_keys"] = (lk, "literal_keys_twin")
 TWIN["byte_hist"] = (lk, "byte_hist_twin")
+TWIN["bitonic_sort"] = (sk, "bitonic_sort_twin")
 
 
 def _state_args(dev, dtype=torch.int32, S1=65, B=4):
@@ -101,6 +105,11 @@ def _meta_calls():
         "literal_keys": lambda: lk.literal_keys(
             u8, lengths, u8.to(torch.bool), keys),
         "byte_hist": lambda: lk.byte_hist(keys),
+        "compact_slots": lambda: tk.compact_slots(
+            u8.to(torch.bool), minz, 32768),
+        "compact_operands": lambda: tk.compact_operands(
+            minz, minz, minz, 32768),
+        "bitonic_sort": lambda: sk.bitonic_sort(keys, keys, keys),
     }
 
 
@@ -162,6 +171,17 @@ def test_wrapper_rejects_wrong_dtype(name):
             torch.zeros((2, 64), dtype=torch.int32)),
         "byte_hist": lambda: lk.byte_hist(
             torch.zeros((2, 64), dtype=torch.uint32)),
+        "compact_slots": lambda: tk.compact_slots(
+            torch.zeros((2, 64), dtype=torch.uint8),
+            torch.zeros((2, 64), dtype=torch.int32), 64),
+        "compact_operands": lambda: tk.compact_operands(
+            torch.zeros((2, 64), dtype=torch.int32),
+            torch.zeros((2, 64), dtype=torch.int64),
+            torch.zeros((2, 64), dtype=torch.int32), 64),
+        "bitonic_sort": lambda: sk.bitonic_sort(
+            torch.zeros((2, 1024), dtype=torch.int32),
+            torch.zeros((2, 1024), dtype=torch.int32),
+            torch.zeros((2, 1024), dtype=torch.int16)),
     }[name]
     with pytest.raises(ValueError):
         call()
@@ -175,6 +195,13 @@ def test_cpu_run_counts_no_launch():
     tk.find_matches_positions(blocks, lengths, widths=(5, 8), ldm=4,
                               dense=True)
     tk.find_matches_positions(blocks, lengths, widths=(5, 8), dense=True)
+    slots = tk.find_matches_positions(blocks, lengths, widths=(5, 8), ldm=4,
+                                      dense=False, lazy=True)
+    chosen = lengths[:, None] > torch.arange(1024)
+    ops = torch.zeros((4, 1024), dtype=torch.int32)
+    tk.compact_fast_glue(chosen, ops, ops, lengths, 256, 512)
+    sk.bitonic_sort(ops, ops, ops)
+    assert slots.shape == (4, 8192)
     qzt.compress(bytes(range(256)) * 1100, level=5, batch=4, device="cpu")
     qzt.compress(bytes(range(256)) * 1100, level=1, batch=4, device="cpu",
                  device_entropy="hybrid")

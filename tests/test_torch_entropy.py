@@ -38,6 +38,8 @@ from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
 from qat_zstd_plugin_tpu_torch.ops import match_pipeline as tmp
 from qat_zstd_plugin_tpu_torch.runtime import gpu_codec
 
+torch.set_num_threads(2)  # six test workers share a few cores
+
 WINDOW = 32768
 PBITS = 15
 SHAPES = [(8, 32768), (4, 65536)]
@@ -94,6 +96,17 @@ def assert_true_matches(blocks: np.ndarray, lengths, mlen, moff) -> int:
 
 # --- B11 gram_pos_planes, the 2-key sort, B12 and B13 -----------------------
 
+@functools.lru_cache
+def _verified_case(kind: str, shape: tuple, seed: int, neighbors: int,
+                   ragged: bool):
+    """(blocks, lengths, the reference's stages), built once per module for
+    each case (B11's test and B12's at one neighbour share one)."""
+    B, n = shape
+    blocks = make_blocks(kind, B, n, seed)
+    lengths = ragged_lengths(B, n) if ragged else np.full(B, n, np.int32)
+    return blocks, lengths, _jax_verified(blocks, lengths, neighbors)
+
+
 def _jax_verified(blocks, lengths, neighbors=2):
     """The reference's stages, as numpy arrays (its sorts donate their
     inputs, so each stage is copied out first)."""
@@ -113,9 +126,8 @@ def _jax_verified(blocks, lengths, neighbors=2):
 @pytest.mark.parametrize("shape", SHAPES, ids=["8x32K", "4x64K"])
 def test_gram_pos_planes_and_sort(shape, kind):
     B, n = shape
-    blocks = make_blocks(kind, B, n)
-    g_ref, p_ref, sg_ref, sp_ref = _jax_verified(
-        blocks, np.full(B, n, np.int32), 1)[:4]
+    blocks, _, ref = _verified_case(kind, shape, 1, 1, False)
+    g_ref, p_ref, sg_ref, sp_ref = ref[:4]
     g, p = tk.gram_pos_planes(torch.from_numpy(blocks), WINDOW)
     assert g.shape == p.shape == (B * n // WINDOW, WINDOW)
     np.testing.assert_array_equal(u32(g), g_ref)
@@ -129,10 +141,8 @@ def test_gram_pos_planes_and_sort(shape, kind):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("shape", SHAPES, ids=["8x32K", "4x64K"])
 def test_neighbor_verify_keys(shape, kind, neighbors):
-    B, n = shape
-    blocks = make_blocks(kind, B, n, seed=neighbors)
-    _, _, sg, sp, k_ref = _jax_verified(blocks, np.full(B, n, np.int32),
-                                        neighbors)[:5]
+    _, _, sg, sp, k_ref = _verified_case(kind, shape, neighbors, neighbors,
+                                         False)[2][:5]
     got = tk.neighbor_verify_keys(i32(sg), i32(sp), PBITS, neighbors)
     np.testing.assert_array_equal(u32(got), k_ref)
     assert (u32(got) & 0x1FFFF).any()  # offsets were claimed
@@ -141,10 +151,8 @@ def test_neighbor_verify_keys(shape, kind, neighbors):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("shape", SHAPES, ids=["8x32K", "4x64K"])
 def test_finalize_verified_ragged(shape, kind):
-    B, n = shape
-    blocks = make_blocks(kind, B, n, seed=3)
-    lengths = ragged_lengths(B, n)
-    *_, su, ml_ref, mo_ref = _jax_verified(blocks, lengths)
+    blocks, lengths, ref = _verified_case(kind, shape, 3, 2, True)
+    *_, su, ml_ref, mo_ref = ref
     ml, mo = tk.finalize_verified(i32(su), torch.from_numpy(blocks),
                                   torch.from_numpy(lengths))
     np.testing.assert_array_equal(ml.numpy(), ml_ref)

@@ -16,6 +16,8 @@ from qat_zstd_plugin_tpu.ops import match_pipeline as jmp
 from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
 from qat_zstd_plugin_tpu_torch.ops import match_pipeline as tmp
 
+torch.set_num_threads(2)  # six test workers share a few cores
+
 N = 131072
 WINDOW = 32768
 WORDS = [b"the ", b"of ", b"and ", b"compression ", b"data ", b"block ",
@@ -289,9 +291,10 @@ def test_unpack_segments_matches_reference():
 
 
 def test_only_the_sync_path_is_ported():
-    """Only the dense branches of find_matches_positions are ported (sync
-    and full resolution); the hash-matcher levels are all dense, and the
-    content levels take find_matches_packed, not this path."""
+    """The hash-matcher levels are all dense (sync at level 1, full
+    resolution at 2-4), and the content levels take find_matches_packed,
+    not this path; the parsed branch (dense=False), which no level takes,
+    runs and returns (B*nseg, w/4) slot words."""
     from qat_zstd_plugin_tpu.runtime.tpu_codec import TPU_LEVEL_TABLE
     from qat_zstd_plugin_tpu_torch import GpuCodec
     for level, p in sorted(TPU_LEVEL_TABLE.items()):
@@ -303,6 +306,7 @@ def test_only_the_sync_path_is_ported():
             assert codec.params.matcher == "content" and level >= 5
     assert [lv for lv, p in TPU_LEVEL_TABLE.items() if p.sync] == [1]
     blocks = torch.zeros((4, WINDOW), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError):
-        tmp.find_matches_positions(blocks, torch.zeros(4, dtype=torch.int32),
-                                   dense=False)
+    slots = tmp.find_matches_positions(blocks,
+                                       torch.zeros(4, dtype=torch.int32),
+                                       dense=False)
+    assert slots.shape == (4, WINDOW // 4) and slots.dtype == torch.int32

@@ -12,6 +12,9 @@ import subprocess
 import sys
 
 import pytest
+import torch
+
+torch.set_num_threads(2)  # six test workers share a few cores
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "qat_zstd_plugin_tpu_torch")
@@ -34,7 +37,7 @@ from qat_zstd_plugin_tpu_torch.ops import (_build, bitconcat, bitpack,
                                           fse_kernel, fse_tables,
                                           glue_kernels, huffman_tables,
                                           literals_kernel, match_pipeline,
-                                          parse_kernel)
+                                          parse_kernel, sort_kernel)
 from qat_zstd_plugin_tpu_torch.runtime import device, gpu_codec, levels, stats
 from qat_zstd_plugin_tpu_torch import (corpus, format, fse_format,
                                        huffman_format, native, oracle,

@@ -13,6 +13,8 @@ repair of the reference's 16384-position window
 (test_literal_keys_repaired_window).
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +26,8 @@ from qat_zstd_plugin_tpu_torch.corpus import make_corpus
 from qat_zstd_plugin_tpu_torch.ops import huffman_tables as tht
 from qat_zstd_plugin_tpu_torch.ops import literals_kernel as tlk
 from qat_zstd_plugin_tpu_torch.ops import match_pipeline as tmp
+
+torch.set_num_threads(2)  # six test workers share a few cores
 
 # (level, B, N): the first stages of the hash path (L1) and the content
 # path (L5) at the reference test's block (64 KiB) and the codec's (128 KiB).
@@ -46,8 +50,10 @@ def _lengths(B: int, N: int) -> np.ndarray:
     return lengths
 
 
+@functools.lru_cache
 def first_stage(case: str):
-    """(blocks, lengths, chosen, mlen) numpy, the port's first stage."""
+    """(blocks, lengths, chosen, mlen) numpy, the port's first stage, built
+    once per case (B15's test and B16's share it)."""
     level, B, N = STAGES[case]
     blocks = _blocks(B, N, level * 10 + B)
     lengths = _lengths(B, N)

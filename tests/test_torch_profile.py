@@ -3,8 +3,11 @@
 from types import SimpleNamespace
 
 import pytest
+import torch
 
 from qat_zstd_plugin_tpu_torch import profile_l1
+
+torch.set_num_threads(2)  # six test workers share a few cores
 
 
 def _ev(name, start, end):

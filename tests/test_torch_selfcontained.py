@@ -17,6 +17,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 import qat_zstd_plugin_tpu as qz
 from qat_zstd_plugin_tpu import native as jax_native
@@ -33,6 +34,8 @@ from qat_zstd_plugin_tpu_torch import (fse_format, huffman_format, native,
                                        oracle)
 from qat_zstd_plugin_tpu_torch.ops import bitpack
 from qat_zstd_plugin_tpu_torch.runtime import gpu_codec, levels, stats
+
+torch.set_num_threads(2)  # six test workers share a few cores
 
 
 def test_native_source_is_a_byte_for_byte_copy():
