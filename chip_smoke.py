@@ -27,16 +27,19 @@ Run from the repository root on a machine with one CUDA device. Phases
      the B=64 batch and on crafted rows, lazy on and off; B11 and B13
      (full and ragged lengths) on corpus, random and mixed bytes; B12 at
      neighbors 1 and 2; B14 on the L1 and L9 sequences of the batch and
-     on crafted blocks of 0, 1 and 16384 sequences, custom tables on and
-     off (its twin is a Python loop over the steps, timed in its one
-     checking run); B15 and B16 on the L1 and L9 parses of the batch and
+     on crafted blocks of 0, 1, 2, 16383 and 16384 sequences, and on 37
+     crafted blocks at S = 2048 with codes outside a table, custom tables
+     on and off, each case with its chain length and the split design's
+     operation floor (its twin is a Python loop over the steps, timed in
+     its one checking run); B15 and B16 on the L1 and L9 parses of the batch and
      on crafted rows of long chosen matches (to 65535, across the
      kernel's tile edges, to the row's end) with ragged lengths; B17 and
      B18 on the parsed branch's parse at level 2's parameters, lazy off
      and on (B17 also on a dense mlen >= 4 mask); B19 on B=64 rows of
-     1024, 8192 and 131072 with 0 and 1 payloads, random keys, heavy
-     duplicates and duplicate (key, pos) pairs, with its bound from bytes
-     or compare-exchanges and torch.sort as its library yardstick;
+     1024, 8192, 16384, 32768 and 131072 and 4 rows of 262144, with 0 and
+     1 payloads, random keys, heavy duplicates and duplicate (key, pos)
+     pairs, with its bound from bytes or compare-exchanges and torch.sort
+     as its library yardstick;
   3. device half: the composed output of each level's device half from
      the kernels on the card against the twins on the CPU, with the ms
      per batch: level 1 at B=128 (LDM on) and B=6 (no whole number of
@@ -492,13 +495,12 @@ def content_kernels_vs_twins(torch, tk, pk, mp, blocks_np: np.ndarray,
     torch.cuda.synchronize()
 
 
-def _crafted_sequences(torch, rng, B: int, dev) -> dict:
-    """Compacted sequences for B14: blocks of 0, 1 and MAX_SEQ sequences
-    and counts in between, literal and match lengths past 65535, offsets
-    up to 2^17."""
-    S = MAX_SEQ
+def _crafted_sequences(torch, rng, B: int, dev, S: int = MAX_SEQ) -> dict:
+    """Compacted sequences for B14: blocks of 0, 1, 2, S - 1 and S
+    sequences and counts in between, literal and match lengths past 65535,
+    offsets up to 2^17."""
     nseq = rng.integers(0, S + 1, B).astype(np.int32)
-    nseq[:4] = (0, 1, S, S - 1)
+    nseq[:5] = (0, 1, S, S - 1, 2)
     ll = rng.integers(0, 300, (B, S)).astype(np.int32)
     ll[:, ::7] = rng.integers(0, 70000, (B, -(-S // 7)))
     ml = rng.integers(3, 40, (B, S)).astype(np.int32)
@@ -527,6 +529,15 @@ def _fse_moved(torch, args) -> int:
     active = int(torch.clamp(nseq.to(torch.int64) - 1, min=0).sum())
     return (12 * active + nbytes(*(t for tb in tables for t in tb), *inits,
                                  nseq) + 2 * nbytes(codes[0]))
+
+
+def _fse_floor_ms(torch, args) -> float:
+    """The split design's own operation floor: each active step of a block
+    is walked once from every entry state of the three streams (66 + 34 +
+    66 table steps), at the card's int32 rate."""
+    nseq = args[3].to(torch.int64)
+    active = int(torch.clamp(nseq - 1, min=0).sum())
+    return 166 * active / INT32_OPS_PER_S * 1e3
 
 
 def hybrid_kernels_vs_twins(torch, tk, fk, blocks_np: np.ndarray,
@@ -589,16 +600,25 @@ def hybrid_kernels_vs_twins(torch, tk, fk, blocks_np: np.ndarray,
          lambda: tk.finalize_verified_twin(su, corpus, full), main=True)
 
     # B14 on the L1 and L9 sequences of the batch and on crafted blocks,
-    # custom tables on and off.
+    # custom tables on and off; then a batch of 37 blocks (not a multiple
+    # of a CTA's blocks) with the nseq edge cases at S = 2048, codes outside
+    # a table in two steps.
     batches = {f"L{level} sequences": hybrid_first_stage(
         GpuCodec(level=level, batch=B, max_seq=MAX_SEQ,
                  device_entropy="hybrid"), corpus, full)[0]
         for level in HYBRID_LEVELS}
     batches["crafted"] = _crafted_sequences(torch, rng, B, dev)
+    batches["crafted B=37, S=2048"] = _crafted_sequences(torch, rng, 37, dev,
+                                                         2048)
     for what, out in batches.items():
         seqs = (out["lit_len"], out["offset"], out["match_len"], out["nseq"])
         for custom in (False, True):
             args = fk.prepare_sections(*seqs, custom=custom)["state_args"]
+            if what.startswith("crafted B=37"):
+                codes = [c.clone() for c in args[0]]
+                codes[0][5] = 70
+                codes[1][7] = -3
+                args = (codes, *args[1:])
             lo, nb = fk.run_state_kernel(*args)
             (tw_lo, tw_nb), twin_ms = _timed_once(
                 torch, lambda: fk.run_state_kernel_twin(*args))
@@ -607,7 +627,8 @@ def hybrid_kernels_vs_twins(torch, tk, fk, blocks_np: np.ndarray,
             case("fse_state", f"{what}, custom={custom}", err,
                  _fse_moved(torch, args), lambda: fk.run_state_kernel(*args),
                  twin_ms, main=(what, custom) == ("L1 sequences", True),
-                 chain_steps=int(args[3].max()))
+                 chain_steps=int(args[3].max()),
+                 op_floor_ms=_fse_floor_ms(torch, args))
     torch.cuda.synchronize()
 
 
@@ -710,9 +731,12 @@ def parsed_kernels_vs_twins(torch, tk, tsk, blocks_np: np.ndarray,
     on the card: B17 and B18 on the parsed branch's parse at level 2's
     parameters (widths (6,), LDM spans of 4), lazy off and on, at B=64 x
     128 KiB, B17 also on a dense mlen >= 4 mask; B19 at B=64 rows of 1024,
-    8192 and 131072 with 0 and 1 payloads, on random keys, heavy
-    duplicates and duplicate (key, pos) pairs, with torch.sort of the
-    same order as its library yardstick."""
+    8192, 16384 (one CTA), 32768 (a cluster of 2) and 131072 (a full
+    cluster) and at 4 rows of 262144 (device-memory passes between cluster
+    launches), with 0 and 1 payloads, on random keys, heavy duplicates and
+    duplicate (key, pos) pairs, with torch.sort of the same order as its
+    library yardstick, and the clusters of 8 CTAs the card holds at once."""
+    from qat_zstd_plugin_tpu_torch.ops import _build
     from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 6)
@@ -743,15 +767,18 @@ def parsed_kernels_vs_twins(torch, tk, tsk, blocks_np: np.ndarray,
              lambda: tk.compact_operands(chosen, mlen, moff, WINDOW),
              lambda: tk.compact_operands_twin(chosen, mlen, moff, WINDOW),
              main=not lazy)
-    for n in (1024, 8192, BLOCK):
+    phase("bitonic_sort_clusters", n=BLOCK, active_clusters=_build.load()
+          .qz_bitonic_active_clusters(BLOCK))
+    for n, rows in ((1024, B), (8192, B), (16384, B), (32768, B), (BLOCK, B),
+                    (2 * BLOCK, 4)):
         for npay in (0, 1):
             err = 0
             for kind in ("heavy duplicates", "duplicate (key, pos) pairs",
                          "random keys"):
                 key, pos = (torch.from_numpy(a).to(dev)
-                            for a in _sort_rows_of(kind, rng, B, n))
+                            for a in _sort_rows_of(kind, rng, rows, n))
                 pay = [torch.from_numpy(rng.integers(
-                    -2**31, 2**31, (B, n), np.int64).astype(np.int32))
+                    -2**31, 2**31, (rows, n), np.int64).astype(np.int32))
                     .to(dev) for _ in range(npay)]
                 got = tsk.bitonic_sort(key, pos, *pay)
                 err = max([err] + [exact(torch, g, w, f"bitonic_sort n={n} "
@@ -772,10 +799,10 @@ def parsed_kernels_vs_twins(torch, tk, tsk, blocks_np: np.ndarray,
                  "ms": cuda_ms(lambda: tsk.bitonic_sort(key, pos, *pay)),
                  "plain_ms": cuda_ms(lambda: tsk.bitonic_sort_twin(
                      key, pos, *pay), reps=5),
-                 **_sort_bound(n, moved, B),
+                 **_sort_bound(n, moved, rows),
                  "library_ms": cuda_ms(library)}
             phase("kernel_case", kernel="bitonic_sort",
-                  case=f"n={n}, {npay} payloads", **r)
+                  case=f"{rows} rows of n={n}, {npay} payloads", **r)
             if (n, npay) == (BLOCK, 1):  # every case equal, or it raised
                 results["bitonic_sort"] = r
     torch.cuda.synchronize()

@@ -28,7 +28,7 @@ LIB_NAME = "libqz_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 # C entry points of csrc/*.cu: argument types, each ending in the stream;
 # every one returns a cudaError_t as int.
 SIGNATURES = {
@@ -45,12 +45,12 @@ SIGNATURES = {
     "qz_gram_pos_planes": (_P, _P, _P, _I, _I, _I, _P),
     "qz_neighbor_verify_keys": (_P, _P, _P, _I, _I, _I, _I, _P),
     "qz_finalize_verified": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "qz_fse_state": (_P,) * 18 + (_I, _I, _P),
+    "qz_fse_state": (_P,) * 20 + (_I,) * 4 + (_Z, _Z, _P),
     "qz_literal_keys": (_P,) * 6 + (_I, _I, _P),
     "qz_byte_hist": (_P, _P, _I, _I, _P),
     "qz_compact_slots": (_P, _P, _P, _I, _I, _I, _P),
     "qz_compact_operands": (_P,) * 5 + (_I,) * 4 + (_P,),
-    "qz_bitonic_sort": (_P,) * 7 + (_I,) * 3 + (_P,),
+    "qz_bitonic_sort": (_P,) * 7 + (_I,) * 3 + (_P, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -135,5 +135,7 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.qz_cuda_error_string.argtypes = [ctypes.c_int]
             lib.qz_cuda_error_string.restype = ctypes.c_char_p
+            lib.qz_bitonic_active_clusters.argtypes = [ctypes.c_int]
+            lib.qz_bitonic_active_clusters.restype = ctypes.c_int
             _lib = lib
     return _lib

@@ -27,6 +27,13 @@ from .glue_kernels import _check, _launch, _use_twin
 _M32 = 0xFFFFFFFF
 _KROWS = {"ll": 64, "of": 32, "ml": 64}  # per-lane symbol rows
 _ORDER = ("ll", "of", "ml")
+# B14's kernel cuts each block's S+1 steps into pieces of PIECE steps and
+# maps every piece from each of a stream's table size + 2 entry states
+# (csrc/fse_kernels.cu); MAP_STRIDE bytes hold one map. The entry point
+# refuses a PIECE above its kMaxPiece and scratch too small for its
+# kMapStride.
+PIECE = 64
+MAP_STRIDE = 68
 
 
 def _codes(ll: torch.Tensor, ml: torch.Tensor, ofv: torch.Tensor):
@@ -176,10 +183,16 @@ def run_state_kernel(codes, tables, inits, nseq):
     S1, B = _check_state_args(codes, tables, inits, nseq)
     if _use_twin(codes[0], "fse_state"):
         return run_state_kernel_twin(codes, tables, inits, nseq)
-    lo = torch.empty((S1, B), dtype=torch.int32, device=codes[0].device)
+    dev = codes[0].device
+    lo = torch.empty((S1, B), dtype=torch.int32, device=dev)
     nb = torch.empty_like(lo)
+    pieces = -(-S1 // PIECE)
+    maps = torch.empty(B * 3 * pieces * MAP_STRIDE, dtype=torch.uint8,
+                       device=dev)
+    entries = torch.empty(B * 3 * pieces, dtype=torch.uint8, device=dev)
     _launch("fse_state", *codes, *(t for tb in tables for t in tb), *inits,
-            nseq, lo, nb, S1, B)
+            nseq, lo, nb, maps, entries, S1, B, PIECE, pieces, maps.numel(),
+            entries.numel())
     return lo, nb
 
 

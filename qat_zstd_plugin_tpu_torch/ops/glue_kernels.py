@@ -189,18 +189,26 @@ def _launch(name: str, *args) -> None:
     """Call entry point qz_<name> with tensors as device pointers, on the
     current stream of the first tensor's device; raise on a CUDA error."""
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    index = dev.index if dev.index is not None else -1
+    values = []
     for a in args:
-        if isinstance(a, torch.Tensor) and a.device != dev:
-            raise ValueError(f"{name}: tensors on {dev} and {a.device}")
-        if isinstance(a, torch.Tensor) and a.data_ptr() % 16:
-            raise ValueError(f"{name}: tensors must start on a 16-byte "
-                             "boundary (the kernels load 8 and 16 bytes)")
+        if isinstance(a, torch.Tensor):
+            if a.get_device() != index:
+                raise ValueError(f"{name}: tensors on {dev} and {a.device}")
+            a = a.data_ptr()
+            if a % 16:
+                raise ValueError(f"{name}: tensors must start on a 16-byte "
+                                 "boundary (the kernels load 8 and 16 bytes)")
+        values.append(a)
     lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    if index == torch.cuda.current_device():
         rc = getattr(lib, "qz_" + name)(
-            *[a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args], ctypes.c_void_p(stream))
+            *values, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    else:
+        with torch.cuda.device(dev):
+            rc = getattr(lib, "qz_" + name)(
+                *values,
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} "
                            f"({lib.qz_cuda_error_string(rc).decode()})")

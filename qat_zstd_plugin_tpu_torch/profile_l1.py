@@ -23,7 +23,10 @@ too (GpuCodec(device_entropy=True)). It prints one JSON object per line:
                 encode_literals_device) for one batch, its input already
                 on the card;
   device_ops    torch.profiler over 10 such batches: the device time of
-                each kernel (memcpys included) and its share of the total;
+                each kernel (memcpys included) and its share of the total,
+                and the device ms and launches a batch of each of the
+                port's own kernels (csrc/; B14 is fse_maps_kernel,
+                fse_chain_kernel and fse_emit_kernel);
   stages        per repetition, seconds per corpus of each host-visible
                 step of the main path, run one after the other and each
                 synchronised: np stack, host-to-device copy, the device
@@ -54,8 +57,10 @@ The full torch.profiler tables go to <trace-dir>/device_ops.txt and
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
+import re
 import statistics
 import subprocess
 import time
@@ -119,6 +124,38 @@ def _top_ops(events, n: int = 8) -> list[dict]:
     total = sum(per.values()) or 1.0
     top = sorted(per.items(), key=lambda kv: -kv[1])[:n]
     return [{"op": k, "ms": v / 1e3, "share": v / total} for k, v in top]
+
+
+_KERNEL_DEF = re.compile(
+    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)")
+
+
+def csrc_kernels() -> set[str]:
+    """The names of the kernels defined under csrc/."""
+    from .ops import _build
+    names: set[str] = set()
+    for path in glob.glob(os.path.join(_build.CSRC, "*.cu*")):
+        with open(path) as f:
+            names.update(_KERNEL_DEF.findall(f.read()))
+    return names
+
+
+def _port_kernels(events, batches: int, kernels: set[str]) -> dict:
+    """Device ms and launches a batch of each of the named kernels (the
+    port's own, csrc_kernels()), by name with template arguments."""
+    per: dict[str, dict] = {}
+    tag = "(anonymous namespace)::"
+    for ev in events:
+        name = ev.name.removeprefix("void ").removeprefix(tag)
+        name = name.split("(", 1)[0]
+        if name.split("<", 1)[0] not in kernels:
+            continue
+        k = per.setdefault(name, {"ms": 0.0, "launches": 0})
+        k["ms"] += ev.time_range.elapsed_us() / 1e3 / batches
+        k["launches"] += 1
+    for k in per.values():
+        k["launches"] /= batches
+    return per
 
 
 def _write_table(prof, path: str) -> None:
@@ -205,7 +242,9 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
             run(blocks, lengths)
         torch.cuda.synchronize()
     _write_table(prof, os.path.join(trace_dir, "device_ops.txt"))
-    emit("device_ops", batches=10, ops=_top_ops(_device_events(prof)))
+    events = _device_events(prof)
+    emit("device_ops", batches=10, ops=_top_ops(events),
+         port_kernels=_port_kernels(events, 10, csrc_kernels()))
     del blocks, lengths
 
     # The main path's host-visible steps, one after the other.

@@ -218,12 +218,14 @@ def test_finalize_verified(cuda):
     assert torch.equal(ml, tw_ml) and torch.equal(mo, tw_mo)
 
 
-def _crafted_sequences(cuda, S=16384, seed=7):
-    """Blocks of 0, 1, S and in-between sequence counts, literal and match
-    lengths past 65535 and offsets to 2^17."""
+def _crafted_sequences(cuda, S=16384, seed=7, B=8):
+    """Blocks of 0, 1, S and in-between sequence counts (and with B > 8
+    random ones), literal and match lengths past 65535 and offsets to
+    2^17."""
     rng = np.random.default_rng(seed)
     nseq = np.array([0, 1, S, 5000, 127, 128, S - 1, 3], np.int32)
-    B = len(nseq)
+    nseq = np.concatenate([nseq, rng.integers(0, S + 1, B - len(nseq))])
+    nseq = np.minimum(nseq, S).astype(np.int32)
     ll = rng.integers(0, 300, (B, S)).astype(np.int32)
     ll[:, ::7] = rng.integers(0, 70000, (B, -(-S // 7)))
     ml = rng.integers(3, 40, (B, S)).astype(np.int32)
@@ -238,7 +240,8 @@ def test_fse_state_machine(cuda, custom):
     lengths = torch.from_numpy(LENGTHS).to(cuda)
     out = tmp.verified_sequences(x, lengths)[0]
     batches = [(out["lit_len"], out["offset"], out["match_len"],
-                out["nseq"]), _crafted_sequences(cuda)]
+                out["nseq"]), _crafted_sequences(cuda),
+               _crafted_sequences(cuda, S=2048, seed=8, B=37)]
     for seqs in batches:
         args = fk.prepare_sections(*seqs, custom=custom)["state_args"]
         lo, nb = fk.run_state_kernel(*args)
@@ -366,14 +369,15 @@ def test_compact_operands_and_fast_glue(cuda):
             assert torch.equal(on_card[k].cpu(), v), k
 
 
-@pytest.mark.parametrize("n", [1024, 8192, 16384, 131072])
+@pytest.mark.parametrize("n", [1024, 8192, 16384, 32768, 131072, 262144])
 def test_bitonic_sort(cuda, n):
-    """B19 against its twin (the same network) at rows inside one tile,
-    of one tile and of sixteen tiles: random keys, heavy duplicates and
-    duplicate (key, pos) pairs, with 0, 1 and 9 payloads (two launches
-    of the payload gather)."""
+    """B19 against its twin (the same network) at rows of one CTA, of a
+    cluster of 2 and of 8, and past a cluster (device-memory passes):
+    random keys, heavy duplicates and duplicate (key, pos) pairs, with 0,
+    1 and 9 payloads (the last launch gathers eight, a gather kernel the
+    ninth)."""
     rng = np.random.default_rng(n)
-    B = 4 if n == 131072 else 8
+    B = {131072: 4, 262144: 2}.get(n, 8)
     kinds = {
         "random": (rng.integers(-2**31, 2**31, (B, n), np.int64),
                    np.broadcast_to(np.arange(n), (B, n))),
@@ -394,3 +398,58 @@ def test_bitonic_sort(cuda, n):
             assert len(got) == len(want) == 2 + npay
             for g, w in zip(got, want):
                 assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("geometry, refused", [
+    ({"GROUP_BITS": 5}, True),     # five stages on a 16-column group
+    ({"CTA_ELEMS": 8192}, True),   # a cross-CTA step inside one CTA
+    ({"CTA_ELEMS": 32768}, True),  # a register step across two CTAs
+    ({"SPAN": 262144}, True),      # a cross-CTA step across two clusters
+    ({"SPAN": 65536}, False),      # more device-memory passes
+    ({"GROUP_BITS": 3}, False),    # smaller register groups
+])
+def test_bitonic_sort_plan_geometry(cuda, monkeypatch, geometry, refused):
+    """sort_plan's copy of csrc/sort_kernels.cu's geometry cannot drift
+    silently: a plan that pairs columns no thread, CTA or cluster of the
+    kernel holds is refused; one that pairs only columns they hold sorts
+    as the twin does."""
+    rng = np.random.default_rng(5)
+    n = 262144
+    key, pos, pay = (torch.from_numpy(rng.integers(
+        -2**31, 2**31, (1, n), np.int64).astype(np.int32)).to(cuda)
+        for _ in range(3))
+    for name, value in geometry.items():
+        monkeypatch.setattr(tsk, name, value)
+    tsk._plan_array.cache_clear()
+    try:
+        if refused:
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                tsk.bitonic_sort(key, pos, pay)
+        else:
+            got = tsk.bitonic_sort(key, pos, pay)
+            for g, w in zip(got, tsk.bitonic_sort_twin(key, pos, pay)):
+                assert torch.equal(g, w)
+    finally:
+        tsk._plan_array.cache_clear()
+
+
+@pytest.mark.parametrize("geometry, refused", [
+    ({"MAP_STRIDE": 67}, True),  # maps scratch below the kernel's stride
+    ({"PIECE": 65}, True),       # pieces past the kernel's staging
+    ({"PIECE": 32}, False),      # shorter pieces
+])
+def test_fse_state_machine_scratch(cuda, monkeypatch, geometry, refused):
+    """The wrapper's piece length and scratch are held to
+    csrc/fse_kernels.cu's own: too little scratch or too long a piece is
+    refused, a shorter piece gives the twin's items."""
+    seqs = _crafted_sequences(cuda, S=2048, seed=9, B=37)
+    args = fk.prepare_sections(*seqs, custom=True)["state_args"]
+    for name, value in geometry.items():
+        monkeypatch.setattr(fk, name, value)
+    if refused:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            fk.run_state_kernel(*args)
+    else:
+        lo, nb = fk.run_state_kernel(*args)
+        tw_lo, tw_nb = fk.run_state_kernel_twin(*args)
+        assert torch.equal(lo, tw_lo) and torch.equal(nb, tw_nb)

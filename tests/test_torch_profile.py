@@ -30,3 +30,28 @@ def test_top_ops_sums_by_name_and_shares():
     ops = profile_l1._top_ops([_ev("sort", 0, 6), _ev("k1", 6, 8),
                                _ev("sort", 8, 10)], n=1)
     assert ops == [{"op": "sort", "ms": 0.008, "share": 0.8}]
+
+
+def test_port_kernels_split_by_name_per_batch():
+    """Only the kernels defined under csrc/ count, not PyTorch's (some
+    of which sit in anonymous namespaces too), by name without their
+    arguments, in ms and launches a batch."""
+    evs = [_ev("void (anonymous namespace)::fse_maps_kernel(FseArgs, int)",
+               0, 300),
+           _ev("void (anonymous namespace)::sort_global_kernel<4>(unsigned "
+               "int*, int)", 300, 400),
+           _ev("void at::native::vectorized_elementwise_kernel<4>()", 0, 9),
+           _ev("void at::native::(anonymous namespace)::where_kernel_impl("
+               "at::TensorIterator&)::{lambda()#1}", 0, 7),
+           _ev("void (anonymous namespace)::elementwise_kernel_with_index<"
+               "int>(int)", 0, 5),
+           _ev("(anonymous namespace)::fse_maps_kernel(FseArgs, int)",
+               400, 500)]
+    kernels = profile_l1.csrc_kernels()
+    assert {"fse_maps_kernel", "fse_chain_kernel", "fse_emit_kernel",
+            "sort_cluster_kernel", "sort_global_kernel",
+            "gather_payloads_kernel"} <= kernels
+    assert "elementwise_kernel_with_index" not in kernels
+    assert profile_l1._port_kernels(evs, 2, kernels) == {
+        "fse_maps_kernel": {"ms": 0.2, "launches": 1.0},
+        "sort_global_kernel<4>": {"ms": 0.05, "launches": 0.5}}
