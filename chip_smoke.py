@@ -25,7 +25,10 @@ Run from the repository root on a machine with one CUDA device. Phases
      rows, K3 also at spans 8 and 16; B9 at strides 32 and 64 on corpus,
      random and mixed bytes; B10 on the L5 and L12 candidate lengths of
      the B=64 batch and on crafted rows, lazy on and off; B11 and B13
-     (full and ragged lengths) on corpus, random and mixed bytes; B12 at
+     (full and ragged lengths) on corpus, random and mixed bytes; B7 and
+     B13 also timed on corpus, random and mixed bytes apart, and at
+     B=37 x 65536 and B=64 x 4100 with ragged lengths, each B7 and B13
+     case also over 20 back-to-back calls (stream_ms); B12 at
      neighbors 1 and 2; B14 on the L1 and L9 sequences of the batch and
      on crafted blocks of 0, 1, 2, 16383 and 16384 sequences, and on 37
      crafted blocks at S = 2048 with codes outside a table, custom tables
@@ -314,6 +317,48 @@ def _test_bytes(torch, corpus, rng):
     return rand, mixed
 
 
+def stream_ms(torch, fn, calls: int = 20) -> float:
+    """Milliseconds a call over `calls` back-to-back calls of fn(), the
+    median of 5 runs by CUDA events. A wrapper's host time overlaps the
+    card's work on the calls before it, so where the kernels take longer
+    than that host time this is their time on the card; `ms` (one call
+    between two events) adds the host time before the first launch."""
+    import statistics
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def _edge_lengths(torch, rng, B: int, N: int, dev):
+    """Ragged lengths with N, 0, 1, 3, 4 and N - 10 among them."""
+    lengths = rng.integers(0, N + 1, B).astype(np.int32)
+    lengths[:6] = (N, 0, 1, 3, 4, N - 10)
+    return torch.from_numpy(lengths).to(dev)
+
+
+def _finalize_inputs(torch, rng, corpus, rand, mixed, lengths):
+    """(what, blocks, lengths) of B7's and B13's cases besides their main
+    ones: corpus, random and mixed bytes apart at the main lengths, then
+    B=37 rows of 65536 mixed bytes (an all-same row, runs past the cap,
+    one to the row's end) and 64 rows of 4100, ragged lengths."""
+    B = corpus.shape[0]
+    small = [(37, 65536), (B, 4100)]
+    return [("corpus bytes", corpus, lengths), ("random bytes", rand, lengths),
+            ("mixed bytes", mixed, lengths)] + [
+        (f"B={b}, N={n}, ragged", mixed[:b, :n].contiguous(),
+         _edge_lengths(torch, rng, b, n, corpus.device)) for b, n in small]
+
+
 def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
                            results: dict) -> None:
     """Phase 2, the level 2-4 kernels (and K2, K3 at their level 2-4
@@ -394,12 +439,34 @@ def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
             err = max(err,
                       exact(torch, ml, tw_ml, f"finalize mlen {widths}"),
                       exact(torch, mo, tw_mo, f"finalize moff {widths}"))
+        run = (lambda: tk.finalize_candidates(sus, x, ragged, widths,
+                                              WINDOW))
         case("finalize_candidates", f"widths {widths}", err,
-             nbytes(*sus, x, ragged, ml, mo),
-             lambda: tk.finalize_candidates(sus, x, ragged, widths, WINDOW),
+             nbytes(*sus, x, ragged, ml, mo), run,
              lambda: tk.finalize_candidates_twin(sus, x, ragged, widths,
                                                  WINDOW),
-             main=len(widths) == 4)
+             main=len(widths) == 4, stream_ms=stream_ms(torch, run))
+    mixed_claims = ml, mo  # B8's input: level 4's claims on the mixed rows
+    # B7 at four widths on each kind of bytes apart (its time should not
+    # depend on them), then B=37 rows of 65536 and 64 rows of 4100 (one
+    # segment) with ragged lengths, 0, 1, 3, 4 and N - 10 among them.
+    for what, x, lens in _finalize_inputs(torch, rng, corpus, rand, mixed,
+                                          ragged):
+        pb = (min(WINDOW, x.shape[1]) - 1).bit_length()
+        sus = [tk._unsorted(tk.hash_keys(x, w, WINDOW), pb, 2)
+               for w in widths]
+        ml, mo = tk.finalize_candidates(sus, x, lens, widths, WINDOW)
+        tw_ml, tw_mo = tk.finalize_candidates_twin(sus, x, lens, widths,
+                                                   WINDOW)
+        err = max(exact(torch, ml, tw_ml, f"finalize mlen ({what})"),
+                  exact(torch, mo, tw_mo, f"finalize moff ({what})"))
+        run = lambda: tk.finalize_candidates(sus, x, lens, widths, WINDOW)
+        case("finalize_candidates", f"widths {widths}, {what}", err,
+             nbytes(*sus, x, lens, ml, mo), run,
+             lambda: tk.finalize_candidates_twin(sus, x, lens, widths,
+                                                 WINDOW),
+             stream_ms=stream_ms(torch, run))
+    ml, mo = mixed_claims
 
     # B8 on the level-4 claims of the mixed corpus, with and without LDM
     # estimates (spans 4 and 16), at both local caps.
@@ -594,10 +661,26 @@ def hybrid_kernels_vs_twins(torch, tk, fk, blocks_np: np.ndarray,
                                  f"finalize_verified mlen ({name})"),
                       exact(torch, mo, tw_mo,
                             f"finalize_verified moff ({name})"))
+    run = lambda: tk.finalize_verified(su, corpus, full)
     case("finalize_verified", "corpus and mixed, full and ragged lengths",
-         err, nbytes(su, corpus, full, ml, mo),
-         lambda: tk.finalize_verified(su, corpus, full),
-         lambda: tk.finalize_verified_twin(su, corpus, full), main=True)
+         err, nbytes(su, corpus, full, ml, mo), run,
+         lambda: tk.finalize_verified_twin(su, corpus, full), main=True,
+         stream_ms=stream_ms(torch, run))
+    # B13 on each kind of bytes apart at full lengths (its time should not
+    # depend on them), then at B=37 x 65536 and 64 x 4100, ragged.
+    for what, x, lens in _finalize_inputs(torch, rng, corpus, rand, mixed,
+                                          full):
+        pb = (min(WINDOW, x.shape[1]) - 1).bit_length()
+        sux = tk._sort_rows(tk.neighbor_verify_keys(
+            *tk._sort_rows2(*tk.gram_pos_planes(x, WINDOW), pb), pb, 2))
+        ml, mo = tk.finalize_verified(sux, x, lens)
+        tw_ml, tw_mo = tk.finalize_verified_twin(sux, x, lens)
+        err = max(exact(torch, ml, tw_ml, f"finalize_verified mlen ({what})"),
+                  exact(torch, mo, tw_mo, f"finalize_verified moff ({what})"))
+        run = lambda: tk.finalize_verified(sux, x, lens)
+        case("finalize_verified", what, err, nbytes(sux, x, lens, ml, mo),
+             run, lambda: tk.finalize_verified_twin(sux, x, lens),
+             stream_ms=stream_ms(torch, run))
 
     # B14 on the L1 and L9 sequences of the batch and on crafted blocks,
     # custom tables on and off; then a batch of 37 blocks (not a multiple

@@ -2,7 +2,7 @@
 // hash of qat_zstd_plugin_tpu.ops.glue_kernels._hash_tile, the launch
 // shape of the one-thread-per-element kernels, the templated body of the
 // full-resolution key and minimizer-plane kernels (B5, B6, B9), and the
-// offset-1 run scan of B7 and B13.
+// tiled offset-1 run scan that B7 and B13 fuse with their first pass.
 
 #pragma once
 
@@ -148,66 +148,305 @@ int launch_hash_keys(const void* blocks, void* keys, void* minz, int rows,
 }
 
 // ---------------------------------------------------------------------------
-// The offset-1 run scan of B7 finalize_candidates and B13 finalize_verified
-// (their second pass), one CTA per row. The reference takes, for each i,
-// the first byte change in [i, i + 2^14) by 14 doubling steps of a suffix
-// minimum; the length it gives is capped at 16383, so the exact next
-// change gives the same length. A per-thread forward walk would read up to
-// 16384 bytes per position (2^31 reads for a 128 KiB all-same block), so
-// each thread takes a chunk of the row: it finds the first change in its
-// chunk, a shared-memory suffix minimum over the chunks gives each thread
-// the first change after its chunk, and a backward walk over the chunk
-// then knows the next change at every position. n reads per row plus the
-// mlen/moff read-modify-write where the byte repeats.
+// The offset-1 run scan of B7 finalize_candidates and B13 finalize_verified,
+// fused with their first pass (dense_kernels.cu, verified_kernels.cu).
+//
+// The reference takes, for each i, the first byte change in [i, i + 2^14)
+// by 14 doubling steps of a suffix minimum (the row's last byte counts as
+// a change); the length it gives, min(r - i + 1, len - i, 16383), is
+// capped at 16383, so the exact next change gives the same length. It
+// then takes the run where the byte repeats (i > 0, x[i] == x[i-1]),
+// len1 >= 4 and len1 > mlen.
+//
+// Bound: device memory (3.35 TB/s). The scan itself needs only the n
+// bytes of a row; the first pass's key reads (4n bytes a key array) and
+// the two 4n-byte planes written dominate. The design makes the work a
+// position does independent of the data, keeps every SM busy, keeps many
+// loads in flight and writes each plane once, neighbouring threads on
+// neighbouring positions:
+//  1. tile_first_change_kernel, one warp per tile of kRunTile positions
+//     of a row (kFirstWarps tiles a CTA): the tile's first change, or
+//     kBig, into a scratch word. A lane loads four 16-byte chunks of the
+//     tile (one byte at a time where n % 16 != 0), takes the next byte
+//     from its neighbour lane, and compares four bytes at once (n bytes
+//     read, n / kRunTile words written).
+//  2. finalize_tile_kernel<Pass>, one CTA per (tile, row), kRunThreads
+//     threads, thread t holding positions t0 + k * kRunThreads + t for
+//     k < kRunPer: (a) it issues every load it needs at once: the next
+//     tiles' first changes, the length, the tile's bytes with 16 on each
+//     side, and the tile's words of each key array plus a halo of
+//     Pass::kHalo (the chain's reach), 16 bytes a load into shared
+//     memory; (b) one warp ballot per k turns the change bits into
+//     kRunWords 32-bit words in shared memory;
+//     (c) one warp takes, for each word, the first change at or after its
+//     start by a reverse min-scan over the words (two a lane, then
+//     shuffles), seeded with the minimum of the next kRunLook tiles'
+//     first changes: a position with no change left in its tile needs
+//     the exact next change only while it is closer than the cap, and
+//     kRunLook tiles always reach that far; (d) each thread runs the
+//     first pass (Pass) at its positions from shared memory, finds the
+//     next change from its word (or the next word's scan), applies the
+//     run rule and writes mlen and moff once.
+// With kRunTile = 2048 a B=64 x 128 KiB batch is 4096 CTAs of 256
+// threads.
 // ---------------------------------------------------------------------------
 
 constexpr int kRunCap = 16383;  // longest run / length finalize writes
 constexpr int kBig = 1 << 30;   // "no change" in the run scan
 
-constexpr int kRunThreads = 1024;
+constexpr int kRunTile = 2048;  // positions a CTA (glue_kernels.RUN_TILE)
+constexpr int kRunThreads = 256;
+constexpr int kRunPer = kRunTile / kRunThreads;  // positions a thread
+constexpr int kRunWords = kRunTile / 32;         // change words a tile
+constexpr int kFirstWarps = kRunThreads / 32;    // pre-pass tiles a CTA
+// Tiles after its own that a tile's last position must see: the change
+// it needs lies within kRunCap - 2 bytes of it.
+constexpr int kRunLook = (kRunCap + 1) / kRunTile;
+static_assert(kRunWords == 64, "the word scan gives each lane two words");
+static_assert(kRunTile % 512 == 0 && kRunTile % kRunThreads == 0 &&
+              kRunThreads % 32 == 0, "tile geometry");
+static_assert(kRunLook * kRunTile >= kRunCap - 1, "look-ahead too short");
 
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// First change among the 16 bytes of v (byte k at c + k), the byte after
+// them nb: offset 0-15, or kBig.
+__device__ __forceinline__ int chunk_first_change(uint4 v, uint32_t nb) {
+    const uint32_t w[5] = {v.x, v.y, v.z, v.w, nb};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const uint32_t d = w[q] ^ __funnelshift_r(w[q], w[q + 1], 8);
+        if (d) return 4 * q + ((__ffs(d) - 1) >> 3);
+    }
+    return kBig;
+}
+
+template <bool kVec>  // kVec: n % 16 == 0, so every chunk is aligned
 __global__ void __launch_bounds__(kRunThreads)
-finalize_runs_kernel(const uint8_t* __restrict__ blocks,
-                     const int32_t* __restrict__ lengths,
-                     int32_t* __restrict__ mlen, int32_t* __restrict__ moff,
-                     int n) {
-    __shared__ int after[kRunThreads];
-    const int row = blockIdx.x;
+tile_first_change_kernel(const uint8_t* __restrict__ blocks,
+                         int* __restrict__ first, int n, int tiles) {
+    const int lane = threadIdx.x & 31;
+    const int tile = blockIdx.x * kFirstWarps + int(threadIdx.x >> 5);
+    if (tile >= tiles) return;  // the whole warp
+    const int row = blockIdx.y;
+    const int t0 = tile * kRunTile;
     const uint8_t* x = blocks + size_t(row) * n;
-    int32_t* ml = mlen + size_t(row) * n;
-    int32_t* mo = moff + size_t(row) * n;
-    const int blen = lengths[row];
-    const int chunk = (n + kRunThreads - 1) / kRunThreads;
-    const int lo = min(n, int(threadIdx.x) * chunk);
-    const int hi = min(n, lo + chunk);
-    // A change at j: x[j] != x[j+1]; the row's last byte is always one.
-    auto change = [&](int j) { return j == n - 1 || x[j] != x[j + 1]; };
+    int f = n - 1 < t0 + kRunTile ? n - 1 : kBig;  // the row's last byte
+    if (kVec) {
+        constexpr int kChunks = kRunTile / 512;  // 16-byte chunks a lane
+        uint4 v[kChunks];
+        uint32_t b0[kChunks + 1];  // chunks' first bytes, the tile's next
+#pragma unroll
+        for (int q = 0; q < kChunks; ++q) {
+            const int c = t0 + 16 * (lane + 32 * q);
+            v[q] = c < n ? __ldg(reinterpret_cast<const uint4*>(x + c))
+                         : make_uint4(0, 0, 0, 0);
+            b0[q] = v[q].x & 0xFFu;
+        }
+        b0[kChunks] = t0 + kRunTile < n ? x[t0 + kRunTile] : 0u;
+#pragma unroll
+        for (int q = 0; q < kChunks; ++q) {
+            // The byte after chunk (lane, q): chunk (lane + 1, q)'s first,
+            // for lane 31 chunk (0, q + 1)'s, or the next tile's.
+            const uint32_t up = __shfl_down_sync(kFull, b0[q], 1);
+            const uint32_t wrap = q + 1 < kChunks
+                ? __shfl_sync(kFull, b0[q + 1], 0) : b0[kChunks];
+            const int c = t0 + 16 * (lane + 32 * q);
+            // At c + 15 == n - 1 the byte after is not the row's, but
+            // that position is a change anyway.
+            if (c < n)
+                f = min(f, c + chunk_first_change(v[q], lane < 31 ? up
+                                                                  : wrap));
+        }
+    } else {
+        for (int k = 0; k < kRunTile / 32; ++k) {
+            const int j = t0 + 32 * k + lane;
+            if (j < n - 1 && x[j] != x[j + 1]) f = min(f, j);
+        }
+    }
+    f = __reduce_min_sync(kFull, f);
+    if (lane == 0) first[size_t(row) * tiles + tile] = f;
+}
 
-    int first = kBig;
-    for (int j = lo; j < hi; ++j) {
-        if (change(j)) {
-            first = j;
-            break;
+// Copies words [t0, t0 + kSpan) of a key row into shared memory (0 past
+// the row's n words), 16 bytes a load where the row is 16-byte aligned.
+template <int kSpan>
+__device__ __forceinline__ void stage_words(const uint32_t* __restrict__ src,
+                                            uint32_t* dst, int t0, int n,
+                                            bool vec) {
+    static_assert(kSpan % 4 == 0, "whole 16-byte groups");
+    constexpr int kIters = (kSpan / 4 + kRunThreads - 1) / kRunThreads;
+    if (vec) {
+#pragma unroll
+        for (int it = 0; it < kIters; ++it) {
+            const int q = it * kRunThreads + int(threadIdx.x);
+            const int j = t0 + 4 * q;
+            if (q >= kSpan / 4) break;
+            if (j + 4 <= n) {
+                reinterpret_cast<uint4*>(dst)[q] =
+                    __ldg(reinterpret_cast<const uint4*>(src + j));
+            } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    dst[4 * q + e] = j + e < n ? __ldg(src + j + e) : 0u;
+            }
+        }
+    } else {
+        for (int q = threadIdx.x; q < kSpan; q += kRunThreads)
+            dst[q] = t0 + q < n ? __ldg(src + t0 + q) : 0u;
+    }
+}
+
+constexpr int kByteHalo = 16;  // staged bytes before and after a tile
+constexpr int kByteSpan = kRunTile + 2 * kByteHalo;
+
+// Copies bytes [t0 - 16, t0 + kRunTile + 16) of a row into shared memory
+// (0 outside the row), 16 bytes a load where n % 16 == 0.
+__device__ __forceinline__ void stage_bytes(const uint8_t* __restrict__ x,
+                                            uint8_t* dst, int t0, int n) {
+    const int b0 = t0 - kByteHalo;
+    if (n % 16 == 0) {
+        static_assert(kByteSpan / 16 <= kRunThreads, "one chunk a thread");
+        const int q = threadIdx.x;
+        const int c = b0 + 16 * q;
+        if (q < kByteSpan / 16)
+            reinterpret_cast<uint4*>(dst)[q] = c >= 0 && c < n
+                ? __ldg(reinterpret_cast<const uint4*>(x + c))
+                : make_uint4(0, 0, 0, 0);
+    } else {
+        for (int q = threadIdx.x; q < kByteSpan; q += kRunThreads) {
+            const int j = b0 + q;
+            dst[q] = j >= 0 && j < n ? x[j] : 0;
         }
     }
-    after[threadIdx.x] = first;
+}
+
+// A first pass: Pass::kArrays key arrays, each staged with a halo of
+// Pass::kHalo words; pass.arrays() of them in use, pass.keys(a) the a-th
+// key array's (rows, n) words; pass(tile, r, i, blen, ml, mo) gives the
+// filtered, capped (mlen, moff) at position i = t0 + r of a row from the
+// staged words, tile[a * (kRunTile + kHalo) + r'] for position t0 + r'.
+// Pass::kUnroll positions of a thread are unrolled together in (d).
+template <class Pass>
+__global__ void __launch_bounds__(kRunThreads)
+finalize_tile_kernel(Pass pass, const uint8_t* __restrict__ blocks,
+                     const int32_t* __restrict__ lengths,
+                     const int* __restrict__ first,
+                     int32_t* __restrict__ mlen, int32_t* __restrict__ moff,
+                     int n, int tiles) {
+    constexpr int kSpan = kRunTile + Pass::kHalo;
+    __shared__ __align__(16) uint32_t keys[Pass::kArrays * kSpan];
+    __shared__ __align__(16) uint8_t xs[kByteSpan];  // x[t0 - 16 + q]
+    __shared__ uint32_t bits[kRunWords];
+    __shared__ int nextw[kRunWords + 1];  // first change at or after word q
+    const int row = blockIdx.y;
+    const int tile = blockIdx.x;
+    const int t0 = tile * kRunTile;
+    const int lane = threadIdx.x & 31;
+    const uint8_t* sx = xs + kByteHalo;  // sx[r]: position t0 + r
+
+    // (a) Every load of the CTA at once: the following tiles' first
+    // changes (warp 0), the length, the tile's bytes and its key words
+    // with their halo.
+    int after = kBig;
+    if (threadIdx.x < 32) {
+        for (int q = 1 + lane; q <= kRunLook && tile + q < tiles; q += 32)
+            after = min(after, first[size_t(row) * tiles + tile + q]);
+    }
+    const int blen = lengths[row];
+    stage_bytes(blocks + size_t(row) * n, xs, t0, n);
+#pragma unroll
+    for (int a = 0; a < Pass::kArrays; ++a) {
+        if (a < pass.arrays())
+            stage_words<kSpan>(pass.keys(a) + size_t(row) * n,
+                               keys + a * kSpan, t0, n, (n & 3) == 0);
+    }
     __syncthreads();
-    for (int s = 1; s < kRunThreads; s *= 2) {  // suffix minimum
-        const int v = threadIdx.x + s < kRunThreads ? after[threadIdx.x + s]
-                                                    : kBig;
-        __syncthreads();
-        after[threadIdx.x] = min(after[threadIdx.x], v);
-        __syncthreads();
+
+    // (b) Change bits: bit r & 31 of word r >> 5 is position t0 + r; a
+    // change at j: x[j] != x[j+1], and the row's last byte (and, harmlessly,
+    // every position past it).
+#pragma unroll
+    for (int k = 0; k < kRunPer; ++k) {
+        const int r = k * kRunThreads + int(threadIdx.x);
+        const uint32_t word = __ballot_sync(
+            kFull, t0 + r >= n - 1 || sx[r] != sx[r + 1]);
+        if (lane == 0) bits[r >> 5] = word;
     }
-    int next = threadIdx.x + 1 < kRunThreads ? after[threadIdx.x + 1] : kBig;
-    for (int j = hi - 1; j >= lo; --j) {
-        if (change(j)) next = j;  // first change at or after j
-        const int len1 = min(min(next - j + 1, blen - j), kRunCap);
-        if (j > 0 && x[j] == x[j - 1] && len1 >= 4 && len1 > ml[j]) {
-            ml[j] = len1;
-            mo[j] = 1;
+    __syncthreads();
+
+    // (c) One warp: the reverse min-scan over the words, lane l holding
+    // words 2l and 2l + 1, seeded with the first change after the tile.
+    if (threadIdx.x < 32) {
+        after = __reduce_min_sync(kFull, after);
+        const uint32_t w0 = bits[2 * lane], w1 = bits[2 * lane + 1];
+        const int p0 = w0 ? t0 + 64 * lane + __ffs(w0) - 1 : kBig;
+        const int p1 = w1 ? t0 + 64 * lane + 32 + __ffs(w1) - 1 : kBig;
+        int s = min(p0, p1);  // inclusive suffix minimum over the lanes
+#pragma unroll
+        for (int d = 1; d < 32; d *= 2) {
+            const int v = __shfl_down_sync(kFull, s, d);
+            if (lane + d < 32) s = min(s, v);
         }
+        int later = __shfl_down_sync(kFull, s, 1);  // lanes after this one
+        later = lane == 31 ? after : min(later, after);
+        const int n1 = w1 ? p1 : later;
+        nextw[2 * lane + 1] = n1;
+        nextw[2 * lane] = w0 ? p0 : n1;
+        if (lane == 0) nextw[kRunWords] = after;
     }
+    __syncthreads();
+
+    // (d) First pass, next change, run rule, one write of each plane.
+    int32_t* ml_row = mlen + size_t(row) * n;
+    int32_t* mo_row = moff + size_t(row) * n;
+#pragma unroll (Pass::kUnroll)
+    for (int k = 0; k < kRunPer; ++k) {
+        const int r = k * kRunThreads + int(threadIdx.x);
+        const int j = t0 + r;
+        if (j >= n) break;
+        int ml, mo;
+        pass(keys, r, j, blen, ml, mo);
+        const uint32_t m = bits[r >> 5] >> (r & 31);
+        const int next = m ? j + __ffs(m) - 1 : nextw[(r >> 5) + 1];
+        const bool repeat = j > 0 && sx[r] == sx[r - 1];
+        const int len1 = min(min(next - j + 1, blen - j), kRunCap);
+        if (repeat && len1 >= 4 && len1 > ml) {
+            ml = len1;
+            mo = 1;
+        }
+        ml_row[j] = ml;
+        mo_row[j] = mo;
+    }
+}
+
+// Launches both kernels on the stream; cudaErrorInvalidValue, and no
+// launch, for a shape the grid cannot hold or scratch of fewer words than
+// one a tile of every row.
+template <class Pass>
+int finalize_tiles(const Pass& pass, const void* blocks, const void* lengths,
+                   void* scratch, size_t scratch_words, void* mlen,
+                   void* moff, int rows, int n, void* stream) {
+    const int tiles = (n + kRunTile - 1) / kRunTile;
+    if (rows < 1 || rows > 65535 || n < 1 || n >= kBig ||
+        scratch_words < size_t(rows) * size_t(tiles))
+        return int(cudaErrorInvalidValue);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto x = static_cast<const uint8_t*>(blocks);
+    const auto first = static_cast<int*>(scratch);
+    const dim3 pre((tiles + kFirstWarps - 1) / kFirstWarps, rows);
+    if (n % 16 == 0)
+        tile_first_change_kernel<true><<<pre, kRunThreads, 0, s>>>(
+            x, first, n, tiles);
+    else
+        tile_first_change_kernel<false><<<pre, kRunThreads, 0, s>>>(
+            x, first, n, tiles);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    finalize_tile_kernel<Pass><<<dim3(tiles, rows), kRunThreads, 0, s>>>(
+        pass, x, static_cast<const int32_t*>(lengths), first,
+        static_cast<int32_t*>(mlen), static_cast<int32_t*>(moff), n, tiles);
+    return int(cudaGetLastError());
 }
 
 }  // namespace

@@ -13,9 +13,9 @@
 // on that stream, allocates nothing, and returns cudaGetLastError().
 //
 // All four are integer passes with a few operations per byte moved, so
-// device-memory bandwidth bounds them on an H100 (3.35 TB/s), except the
-// offset-1 run scan of finalize_candidates, which is a per-row scan (see
-// there). They are written simple and right first.
+// device-memory bandwidth bounds them on an H100 (3.35 TB/s).
+// finalize_candidates is two launches: a pre-pass over the bytes and one
+// tiled pass (common.cuh). The others are written simple and right first.
 
 #include "common.cuh"
 
@@ -40,71 +40,80 @@ constexpr int kChainSteps = 2;  // glue_kernels.CHAIN_STEPS
 // which gives the same words because the filter and the run scan come
 // after the last width either way.
 //
-// Pass 1, one thread per position i of a row: for each width it reads the
-// claim offsets at i, i+w, ..., i+3w of the position-ordered
-// keys (the block row is contiguous across its segments, and the chain
-// runs across them, as the reference's whole-row shifts do), zeroes a
-// claim whose gram passes the block's length, doubles the same-offset
-// chain twice in registers, and merges the estimate (longer, then
-// nearer); then the cost filter and the 16383 cap. Coalesced reads of
-// 16 * widths bytes per position, mostly L1/L2 hits.
+// Bound: device memory, 4n bytes of keys a width, n bytes of blocks read
+// and 8n bytes of mlen/moff written per row (25n at four widths: 0.063 ms
+// for B=64 x 128 KiB at 3.35 TB/s).
 //
-// Pass 2, one CTA per row: the offset-1 run scan, finalize_runs_kernel in
-// common.cuh (shared with B13 finalize_verified).
+// The first pass, CandidatesPass at position i: for each width it reads
+// the claim offsets at i, i+w, ..., i+3w of the position-ordered keys (the
+// block row is contiguous across its segments, and the chain runs across
+// them, as the reference's whole-row shifts do), zeroes a claim whose gram
+// passes the block's length, counts the leading claims equal to the one
+// at i (what the reference's two doubling steps of the same-offset chain
+// give), and merges the estimate (longer, then nearer); then the cost
+// filter and the 16383 cap. It runs inside finalize_tile_kernel
+// (common.cuh), which stages each width's keys for a tile of 2048
+// positions plus a halo of 3 * 64 words (the chain's reach at the widest
+// width the entry point takes) in shared memory with 16-byte loads, adds
+// the offset-1 run scan and writes each plane once, one CTA per (tile,
+// row). Neighbouring threads read neighbouring words: no bank conflicts.
 // ---------------------------------------------------------------------------
 
-struct WidthKeys {
+constexpr int kMaxWidth = 64;  // glue_kernels.finalize_candidates' widths
+
+struct CandidatesPass {
+    static constexpr int kArrays = 4;  // one key array a width
+    static constexpr int kHalo = ((1 << kChainSteps) - 1) * kMaxWidth;
+    static constexpr int kUnroll = 2;  // 16 key reads a position already
     const uint32_t* su[4];
     int width[4];
-};
+    int nw;
+    int n;
+    uint32_t omask;
 
-__global__ void finalize_merge_kernel(WidthKeys keys, int nw,
-                                      const int32_t* __restrict__ lengths,
-                                      int32_t* __restrict__ mlen,
-                                      int32_t* __restrict__ moff,
-                                      long long total, int n,
-                                      uint32_t omask) {
-    constexpr int kPos = 1 << kChainSteps;
-    const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (idx >= total) return;
-    const int b = int(idx / n);
-    const int i = int(idx % n);
-    const int blen = lengths[b];
-    const size_t row = size_t(b) * n;
-    int ml = 0, mo = 0;
-    for (int wi = 0; wi < nw; ++wi) {
-        const int width = keys.width[wi];
-        const uint32_t* su = keys.su[wi] + row;
-        int o[kPos], r[kPos];
+    __device__ __forceinline__ int arrays() const { return nw; }
+    __device__ __forceinline__ const uint32_t* keys(int a) const {
+        return su[a];
+    }
+    __device__ __forceinline__ void operator()(const uint32_t* tile, int r,
+                                               int i, int blen, int& ml_out,
+                                               int& mo_out) const {
+        constexpr int kPos = 1 << kChainSteps;
+        constexpr int kSpan = kRunTile + kHalo;
+        int ml = 0, mo = 0;
 #pragma unroll
-        for (int m = 0; m < kPos; ++m) {
-            const long long j = i + (long long)m * width;
-            o[m] = j < n && j + width <= blen ? int(su[j] & omask) : 0;
-            r[m] = o[m] > 0;
-        }
-        // Step with span s: reach(j) += reach(j + s*width) where the chain
-        // continues; r[m + s] still holds the previous step's value.
+        for (int wi = 0; wi < kArrays; ++wi) {
+            if (wi >= nw) break;
+            const int w = width[wi];
+            const uint32_t* t = tile + wi * kSpan + r;
+            const int off = i + w <= blen ? int(t[0] & omask) : 0;
+            // The reference's kChainSteps doubling steps of reach(j) +=
+            // reach(j + s*width), where the claim at j continues the
+            // chain, give at i the number of leading claims at i, i+w,
+            // i+2w, ... equal to the claim at i (> 0), at most kPos.
+            bool same = off > 0;
+            int reach = same;
 #pragma unroll
-        for (int s = 1; s < kPos; s *= 2) {
-#pragma unroll
-            for (int m = 0; m + s < kPos; ++m) {
-                if (o[m] > 0 && r[m] == s && o[m + s] == o[m]) r[m] += r[m + s];
+            for (int m = 1; m < kPos; ++m) {
+                const int j = i + m * w;
+                same &= (j < n) & (j + w <= blen) &
+                        (int(t[m * w] & omask) == off);
+                reach += same;
+            }
+            const int est = reach * w;
+            const bool better =
+                est > ml || (est == ml && off > 0 && (off < mo || mo == 0));
+            if (off > 0 && better) {
+                ml = est;
+                mo = off;
             }
         }
-        const int est = r[0] * width;
-        const int off = o[0];
-        const bool better =
-            est > ml || (est == ml && off > 0 && (off < mo || mo == 0));
-        if (off > 0 && better) {
-            ml = est;
-            mo = off;
-        }
+        const bool worth = ml >= 7 || (ml >= 6 && mo <= 32768) ||
+                           (ml >= 5 && mo <= 4096) || (ml >= 4 && mo <= 256);
+        ml_out = worth ? min(ml, kRunCap) : 0;
+        mo_out = worth ? mo : 0;
     }
-    const bool worth = ml >= 7 || (ml >= 6 && mo <= 32768) ||
-                       (ml >= 5 && mo <= 4096) || (ml >= 4 && mo <= 256);
-    mlen[idx] = worth ? min(ml, kRunCap) : 0;
-    moff[idx] = worth ? mo : 0;
-}
+};
 
 // ---------------------------------------------------------------------------
 // B8 compact_slots_dense: dense claims -> slot words, LDM take rule.
@@ -171,25 +180,21 @@ int qz_hash_keys_winmin(const void* blocks, void* keys, void* minz, int rows,
 int qz_finalize_candidates(const void* su0, const void* su1, const void* su2,
                            const void* su3, const void* blocks,
                            const void* lengths, void* mlen, void* moff,
-                           int rows, int n, int nw, int w0, int w1, int w2,
-                           int w3, int pbits, void* stream) {
-    const WidthKeys keys = {
+                           void* scratch, int rows, int n, int nw, int w0,
+                           int w1, int w2, int w3, int pbits,
+                           size_t scratch_words, void* stream) {
+    const CandidatesPass pass = {
         {static_cast<const uint32_t*>(su0), static_cast<const uint32_t*>(su1),
          static_cast<const uint32_t*>(su2), static_cast<const uint32_t*>(su3)},
-        {w0, w1, w2, w3}};
-    const long long total = (long long)rows * n;
-    const uint32_t omask = (1u << pbits) - 1u;
-    const auto len = static_cast<const int32_t*>(lengths);
-    const auto ml = static_cast<int32_t*>(mlen);
-    const auto mo = static_cast<int32_t*>(moff);
-    const auto s = static_cast<cudaStream_t>(stream);
-    finalize_merge_kernel<<<blocks_for(total), kThreads, 0, s>>>(
-        keys, nw, len, ml, mo, total, n, omask);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-    finalize_runs_kernel<<<rows, kRunThreads, 0, s>>>(
-        static_cast<const uint8_t*>(blocks), len, ml, mo, n);
-    return int(cudaGetLastError());
+        {w0, w1, w2, w3}, nw, n, (1u << pbits) - 1u};
+    if (nw < 1 || nw > CandidatesPass::kArrays)
+        return int(cudaErrorInvalidValue);
+    for (int wi = 0; wi < nw; ++wi) {  // the halo holds the chain's reach
+        if (pass.width[wi] < 1 || pass.width[wi] > kMaxWidth)
+            return int(cudaErrorInvalidValue);
+    }
+    return finalize_tiles(pass, blocks, lengths, scratch, scratch_words,
+                          mlen, moff, rows, n, stream);
 }
 
 int qz_compact_slots_dense(const void* mlen, const void* moff,

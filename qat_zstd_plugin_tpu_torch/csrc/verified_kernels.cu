@@ -13,8 +13,9 @@
 // on that stream, allocates nothing, and returns cudaGetLastError().
 //
 // All three are integer passes with a few operations per byte moved, so
-// device-memory bandwidth bounds them on an H100 (3.35 TB/s), except the
-// offset-1 run scan of finalize_verified, a per-row scan (common.cuh).
+// device-memory bandwidth bounds them on an H100 (3.35 TB/s).
+// finalize_verified is two launches: a pre-pass over the bytes and one
+// tiled pass that fuses the chain with the offset-1 run scan (common.cuh).
 
 #include "common.cuh"
 
@@ -100,51 +101,56 @@ __global__ void neighbor_verify_keys_kernel(const uint32_t* __restrict__ sg,
 // B13 finalize_verified: verified claims -> exact (mlen, moff).
 // Replaces glue_kernels.finalize_verified (Pallas).
 //
-// Pass 1, one thread per position i of a row: it reads the claim offsets
+// Bound: device memory, 4n bytes of keys and n of bytes read, 8n written
+// per row (13n: 0.033 ms for B=64 x 128 KiB at 3.35 TB/s).
+//
+// The first pass, VerifiedPass at position i: it reads the claim offsets
 // at i, i+4, ..., i+28 of the position-ordered keys (the block row is
 // contiguous across its segments and the chain runs across them, as the
 // reference's whole-row shifts do), zeroes a claim whose gram passes the
-// block's length (i + 4 > len, before the chain), doubles the same-offset
-// chain three times in registers (spans of 4, 8, 16 positions: a length
-// in 4-byte units, at most 32 bytes), then the worth filter and the 16383
-// cap. Pass 2 is the offset-1 run scan of B7 (finalize_runs_kernel,
-// common.cuh). Bound: 4n bytes of keys and n of bytes read, 8n written
-// per row.
+// block's length (i + 4 > len, before the chain), counts the leading
+// claims equal to the one at i (what the reference's three doubling steps
+// of the same-offset chain give: a length in 4-byte units, at most 32
+// bytes), then the worth filter and the 16383 cap. It runs inside finalize_tile_kernel (common.cuh, shared with B7),
+// which stages the keys of a tile of 2048 positions plus a halo of 28
+// words in shared memory with 16-byte loads, adds the offset-1 run scan
+// and writes each plane once, one CTA per (tile, row).
 // ---------------------------------------------------------------------------
 
-__global__ void verified_chain_kernel(const uint32_t* __restrict__ su,
-                                      const int32_t* __restrict__ lengths,
-                                      int32_t* __restrict__ mlen,
-                                      int32_t* __restrict__ moff,
-                                      long long total, int n,
-                                      uint32_t omask) {
-    constexpr int kPos = 1 << kVerifiedSteps;
-    const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (idx >= total) return;
-    const int i = int(idx % n);
-    const int blen = lengths[idx / n];
-    const uint32_t* row = su + (idx - i);
-    int o[kPos], r[kPos];
+struct VerifiedPass {
+    static constexpr int kArrays = 1;
+    static constexpr int kHalo = 4 * ((1 << kVerifiedSteps) - 1);
+    static constexpr int kUnroll = kRunPer;  // all of a thread's positions
+    const uint32_t* su;
+    int n;
+    uint32_t omask;
+
+    __device__ __forceinline__ int arrays() const { return 1; }
+    __device__ __forceinline__ const uint32_t* keys(int) const { return su; }
+    __device__ __forceinline__ void operator()(const uint32_t* tile, int r,
+                                               int i, int blen, int& ml_out,
+                                               int& mo_out) const {
+        constexpr int kPos = 1 << kVerifiedSteps;
+        const int off = i + 4 <= blen ? int(tile[r] & omask) : 0;
+        // The reference's three doubling steps of reach(j) += reach(j +
+        // 4s), where the claim at j continues the chain, give at i the
+        // number of leading claims at i, i+4, ..., i+28 equal to the
+        // claim at i (> 0).
+        bool same = off > 0;
+        int reach = same;
 #pragma unroll
-    for (int m = 0; m < kPos; ++m) {
-        const int j = i + 4 * m;
-        o[m] = j < n && j + 4 <= blen ? int(row[j] & omask) : 0;
-        r[m] = o[m] > 0;
-    }
-    // Step with span s: reach(j) += reach(j + 4s) where the chain
-    // continues; r[m + s] still holds the previous step's value.
-#pragma unroll
-    for (int s = 1; s < kPos; s *= 2) {
-#pragma unroll
-        for (int m = 0; m + s < kPos; ++m) {
-            if (o[m] > 0 && r[m] == s && o[m + s] == o[m]) r[m] += r[m + s];
+        for (int m = 1; m < kPos; ++m) {
+            const int j = i + 4 * m;
+            same &= (j < n) & (j + 4 <= blen) &
+                    (int(tile[r + 4 * m] & omask) == off);
+            reach += same;
         }
+        const int ml = reach * 4;
+        const bool worth = ml >= kFarMin || (ml >= 4 && off <= kNearOff);
+        ml_out = worth ? min(ml, kRunCap) : 0;
+        mo_out = worth ? off : 0;
     }
-    const int ml = r[0] * 4;
-    const bool worth = ml >= kFarMin || (ml >= 4 && o[0] <= kNearOff);
-    mlen[idx] = worth ? min(ml, kRunCap) : 0;
-    moff[idx] = worth ? o[0] : 0;
-}
+};
 
 }  // namespace
 
@@ -173,20 +179,12 @@ int qz_neighbor_verify_keys(const void* sg, const void* sp, void* out,
 
 int qz_finalize_verified(const void* su, const void* blocks,
                          const void* lengths, void* mlen, void* moff,
-                         int rows, int n, int pbits, void* stream) {
-    const long long total = (long long)rows * n;
-    const auto len = static_cast<const int32_t*>(lengths);
-    const auto ml = static_cast<int32_t*>(mlen);
-    const auto mo = static_cast<int32_t*>(moff);
-    const auto s = static_cast<cudaStream_t>(stream);
-    verified_chain_kernel<<<blocks_for(total), kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(su), len, ml, mo, total, n,
-        (1u << pbits) - 1u);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-    finalize_runs_kernel<<<rows, kRunThreads, 0, s>>>(
-        static_cast<const uint8_t*>(blocks), len, ml, mo, n);
-    return int(cudaGetLastError());
+                         void* scratch, int rows, int n, int pbits,
+                         size_t scratch_words, void* stream) {
+    const VerifiedPass pass = {static_cast<const uint32_t*>(su), n,
+                               (1u << pbits) - 1u};
+    return finalize_tiles(pass, blocks, lengths, scratch, scratch_words,
+                          mlen, moff, rows, n, stream);
 }
 
 }  // extern "C"

@@ -539,10 +539,9 @@ def finalize_verified(su: torch.Tensor, blocks: torch.Tensor,
     B, N, pbits = _verified_geometry(su, blocks, lengths)
     if _use_twin(blocks, "finalize_verified"):
         return finalize_verified_twin(su, blocks, lengths)
-    mlen = torch.empty((B, N), dtype=torch.int32, device=blocks.device)
-    moff = torch.empty_like(mlen)
-    _launch("finalize_verified", su, blocks, lengths, mlen, moff, B, N,
-            pbits)
+    mlen, moff, scratch = _run_outputs("finalize_verified", blocks)
+    _launch("finalize_verified", su, blocks, lengths, mlen, moff, scratch,
+            B, N, pbits, scratch.numel())
     return mlen, moff
 
 
@@ -814,6 +813,24 @@ def compact_slots_sync(su: torch.Tensor, window: int, lengths: torch.Tensor,
 RUN_CAP = 16383  # longest offset-1 run and length estimate
 CHAIN_STEPS = 2  # chain doublings per width (the reference's default,
                  # which every level's path uses)
+RUN_TILE = 2048  # positions a CTA of B7's and B13's kernels (common.cuh
+                 # kRunTile): one scratch word per tile of every row
+MAX_RUN_ROWS = 65535  # the kernels' grid holds a row per blockIdx.y
+
+
+def _run_outputs(name: str, blocks: torch.Tensor):
+    """(mlen, moff, scratch) for B7's or B13's kernels on (B, N) blocks:
+    two (B, N) int32 planes and the pre-pass's word per tile of each row.
+    Raises for a shape the kernels' grid cannot hold."""
+    B, N = blocks.shape
+    if not 1 <= B <= MAX_RUN_ROWS or not 1 <= N < 1 << 30:
+        raise ValueError(f"{name}: blocks {tuple(blocks.shape)}: the kernel "
+                         f"takes 1-{MAX_RUN_ROWS} rows of 1 to 2^30 - 1 "
+                         "bytes")
+    mlen = torch.empty((B, N), dtype=torch.int32, device=blocks.device)
+    scratch = torch.empty(B * -(-N // RUN_TILE), dtype=torch.int32,
+                          device=blocks.device)
+    return mlen, torch.empty_like(mlen), scratch
 
 
 def _finalize_chunk_twin(sus, blocks: torch.Tensor, lengths: torch.Tensor,
@@ -922,11 +939,11 @@ def finalize_candidates(sus, blocks: torch.Tensor, lengths: torch.Tensor,
                              f"{(B * (N // w), w)}")
     if _use_twin(blocks, name):
         return finalize_candidates_twin(sus, blocks, lengths, widths, window)
-    mlen = torch.empty((B, N), dtype=torch.int32, device=blocks.device)
-    moff = torch.empty_like(mlen)
+    mlen, moff, scratch = _run_outputs(name, blocks)
     pad = 4 - len(widths)
-    _launch(name, *sus, *[None] * pad, blocks, lengths, mlen, moff, B, N,
-            len(widths), *widths, *[0] * pad, (w - 1).bit_length())
+    _launch(name, *sus, *[None] * pad, blocks, lengths, mlen, moff, scratch,
+            B, N, len(widths), *widths, *[0] * pad, (w - 1).bit_length(),
+            scratch.numel())
     return mlen, moff
 
 

@@ -144,9 +144,9 @@ def _port_kernels(events, batches: int, kernels: set[str]) -> dict:
     """Device ms and launches a batch of each of the named kernels (the
     port's own, csrc_kernels()), by name with template arguments."""
     per: dict[str, dict] = {}
-    tag = "(anonymous namespace)::"
     for ev in events:
-        name = ev.name.removeprefix("void ").removeprefix(tag)
+        name = ev.name.removeprefix("void ").replace("(anonymous namespace)::",
+                                                     "")
         name = name.split("(", 1)[0]
         if name.split("<", 1)[0] not in kernels:
             continue

@@ -106,16 +106,40 @@ def test_hash_keys_and_winmin(cuda):
 
 
 def _sus(x, widths, neighbors=2):
-    return [tk._unsorted(tk.hash_keys(x, w, WINDOW), 15, neighbors)
+    pbits = (min(WINDOW, x.shape[1]) - 1).bit_length()
+    return [tk._unsorted(tk.hash_keys(x, w, WINDOW), pbits, neighbors)
             for w in widths]
 
 
+FINALIZE_SHAPES = [(8, N), (37, N), (8, 4100)]
+
+
+def _finalize_case(cuda, B, n):
+    """Blocks and lengths for B7 and B13: at (8, N) _blocks() (an all-same
+    row, length 0) with a run longer than 16383; else B rows of n bytes
+    with an all-same row, a run to the row's end, a run past the cap
+    where it fits, short runs, and lengths 0, 1, 3, 4, n - 10 and n."""
+    if (B, n) == (8, N):
+        blocks, lengths = _blocks(), LENGTHS
+        blocks[3, 1000:40000] = 7  # a run longer than 16383
+    else:
+        rng = np.random.default_rng(B)
+        blocks = rng.integers(0, 4, (B, n), np.uint8)
+        blocks[0] = 0x41
+        blocks[1, n // 3:] = 9
+        blocks[2, n // 5:n // 5 + 16385] = 7
+        blocks[3] = rng.integers(0, 256, n, np.uint8)
+        lengths = rng.integers(0, n + 1, B).astype(np.int32)
+        lengths[:7] = (n, n, n - 10, 0, 1, 3, 4)
+    return (torch.from_numpy(blocks).to(cuda),
+            torch.from_numpy(lengths).to(cuda))
+
+
+@pytest.mark.parametrize("shape", FINALIZE_SHAPES,
+                         ids=["8xN", "37xN", "8x4100"])
 @pytest.mark.parametrize("widths", [(6,), (5, 8), (4, 5, 6, 8)])
-def test_finalize_candidates(cuda, widths):
-    blocks = _blocks()
-    blocks[3, 1000:40000] = 7  # a run longer than 16383
-    x = torch.from_numpy(blocks).to(cuda)
-    lengths = torch.from_numpy(LENGTHS).to(cuda)
+def test_finalize_candidates(cuda, widths, shape):
+    x, lengths = _finalize_case(cuda, *shape)
     sus = _sus(x, widths)
     ml, mo = tk.finalize_candidates(sus, x, lengths, widths, WINDOW)
     tw_ml, tw_mo = tk.finalize_candidates_twin(sus, x, lengths, widths,
@@ -206,16 +230,62 @@ def test_gram_pos_planes_and_neighbor_verify_keys(cuda):
                                                         neighbors))
 
 
-def test_finalize_verified(cuda):
-    blocks = _blocks()
-    blocks[3, 1000:40000] = 7  # a run longer than 16383
-    x = torch.from_numpy(blocks).to(cuda)
-    lengths = torch.from_numpy(LENGTHS).to(cuda)
-    sg, sp = tk._sort_rows2(*tk.gram_pos_planes(x, WINDOW), 15)
-    su = tk._sort_rows(tk.neighbor_verify_keys(sg, sp, 15, 2))
+@pytest.mark.parametrize("shape", FINALIZE_SHAPES,
+                         ids=["8xN", "37xN", "8x4100"])
+def test_finalize_verified(cuda, shape):
+    x, lengths = _finalize_case(cuda, *shape)
+    pbits = (min(WINDOW, x.shape[1]) - 1).bit_length()
+    sg, sp = tk._sort_rows2(*tk.gram_pos_planes(x, WINDOW), pbits)
+    su = tk._sort_rows(tk.neighbor_verify_keys(sg, sp, pbits, 2))
     ml, mo = tk.finalize_verified(su, x, lengths)
     tw_ml, tw_mo = tk.finalize_verified_twin(su, x, lengths)
     assert torch.equal(ml, tw_ml) and torch.equal(mo, tw_mo)
+
+
+def test_finalize_odd_row_length(cuda):
+    """Rows of 4099 bytes: no row but the first starts on a 4-byte
+    boundary, so the kernels stage bytes and key words one at a time."""
+    x, lengths = _finalize_case(cuda, 7, 4099)
+    rng = np.random.default_rng(5)
+    keys = [torch.from_numpy(rng.integers(0, 1 << 31, x.shape)
+                             .astype(np.int32)
+                             & np.int32(rng.choice([3, 4095]))).to(cuda)
+            for _ in range(4)]
+    widths = (4, 5, 6, 8)
+    got = tk.finalize_candidates(keys, x, lengths, widths, WINDOW)
+    want = tk.finalize_candidates_twin(keys, x, lengths, widths, WINDOW)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = tk.finalize_verified(keys[0], x, lengths)
+    want = tk.finalize_verified_twin(keys[0], x, lengths)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_finalize_run_scratch_checked(cuda):
+    """The entry points refuse a pre-pass scratch of fewer words than one
+    a tile of every row; the wrappers refuse more rows than the grid
+    holds."""
+    x, lengths = _finalize_case(cuda, 37, N)
+    pbits = (WINDOW - 1).bit_length()
+    su = _sus(x, (6,))[0]
+    mlen, moff, scratch = tk._run_outputs("finalize_verified", x)
+    assert scratch.numel() == 37 * (N // tk.RUN_TILE)
+    for name, args in (
+            ("finalize_verified", (su, x, lengths, mlen, moff, scratch, 37,
+                                   N, pbits)),
+            ("finalize_candidates", (su, None, None, None, x, lengths, mlen,
+                                     moff, scratch, 37, N, 1, 6, 0, 0, 0,
+                                     pbits))):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            tk._launch(name, *args, scratch.numel() - 1)
+        tk._launch(name, *args, scratch.numel())
+    rows = torch.zeros((tk.MAX_RUN_ROWS + 1, 4), dtype=torch.uint8,
+                       device=cuda)
+    with pytest.raises(ValueError, match="rows"):
+        tk.finalize_verified(torch.zeros((rows.shape[0], 4),
+                                         dtype=torch.int32, device=cuda),
+                             rows, torch.zeros(rows.shape[0],
+                                               dtype=torch.int32,
+                                               device=cuda))
 
 
 def _crafted_sequences(cuda, S=16384, seed=7, B=8):

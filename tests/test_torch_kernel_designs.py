@@ -14,10 +14,22 @@ against the twins in numpy:
     CTA or cluster holds. `_emulate_plan` runs the plan with the kernels'
     own index arithmetic (register groups, cross-CTA stages in which each
     side keeps its own half) and must equal the twin.
+  * B7 and B13 (csrc/common.cuh finalize_tile_kernel, with their first
+    passes in dense_kernels.cu and verified_kernels.cu) scan for the next
+    byte change in tiles: a pre-pass gives each tile's first change, a
+    CTA ballots its change bits into words, one warp scans the words in
+    reverse seeded with the minimum over a bounded number of following
+    tiles, and each position reads its word. `_tiled_finalize` models the
+    kernels with their own index arithmetic, at the kernel's tile and at
+    a 64-position tile that crosses many tiles; it must equal
+    `_offset1_runs`, the twins, and the JAX package's finalize_candidates
+    and finalize_verified (interpret mode) on crafted rows.
 Everything compared is an integer, so the tolerance is 0.
 """
 
 import functools
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +37,10 @@ import pytest
 import torch
 
 from qat_zstd_plugin_tpu.ops import fse_kernel as jfk
+from qat_zstd_plugin_tpu.ops import glue_kernels as gk
+from qat_zstd_plugin_tpu_torch.ops import _build
 from qat_zstd_plugin_tpu_torch.ops import fse_kernel as tfk
+from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
 from qat_zstd_plugin_tpu_torch.ops import sort_kernel as tsk
 
 torch.set_num_threads(2)  # the suite runs six workers on a few cores
@@ -319,3 +334,370 @@ def test_emulated_plan_equals_twin(n, rows):
     np.testing.assert_array_equal(p_out, want[1].numpy())
     np.testing.assert_array_equal(np.take_along_axis(pay, idx, 1),
                                   want[2].numpy())
+
+
+# ---------------------------------------------------------------------------
+# B7 and B13: the tiled offset-1 run scan
+# ---------------------------------------------------------------------------
+
+BIG = 1 << 30  # common.cuh kBig
+RUN_N = 65536  # two window segments: runs cross the segment boundary
+WINDOW = 32768
+
+
+def _common_constant(name: str) -> int:
+    with open(os.path.join(_build.CSRC, "common.cuh")) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             f.read()).group(1))
+
+
+KERNEL_TILE = _common_constant("kRunTile")
+KERNEL_THREADS = _common_constant("kRunThreads")
+TILES = [(KERNEL_TILE, KERNEL_THREADS), (64, 32)]  # (tile, threads a CTA)
+
+
+def test_run_tile_is_the_kernels():
+    """The wrapper sizes the pre-pass's scratch with RUN_TILE: it must be
+    the kernels' tile; and the look-ahead reaches as far as the cap."""
+    assert tk.RUN_TILE == KERNEL_TILE
+    assert KERNEL_TILE % 64 == 0 and KERNEL_TILE // KERNEL_THREADS >= 1
+    assert (tk.RUN_CAP + 1) // KERNEL_TILE * KERNEL_TILE >= tk.RUN_CAP - 1
+
+
+def _changes(x: np.ndarray, width: int) -> np.ndarray:
+    """run_change at positions 0..width-1: x[j] != x[j+1], and True from
+    the row's last byte on."""
+    B, N = x.shape
+    c = np.ones((B, width), bool)
+    c[:, :N - 1] = x[:, :-1] != x[:, 1:]
+    return c
+
+
+def _tiled_runs(x: np.ndarray, blen: np.ndarray, ml: np.ndarray,
+                mo: np.ndarray, T: int, threads: int, look: int = None):
+    """tile_first_change_kernel and finalize_tile_kernel's scan and run
+    rule, over every (row, tile) at once; `look` defaults to the kernel's
+    (kRunCap + 1) / kRunTile."""
+    B, N = x.shape
+    tiles = -(-N // T)
+    per, nwords = T // threads, T // 32
+    look = (tk.RUN_CAP + 1) // T if look is None else look
+    chg = _changes(x, tiles * T).reshape(B, tiles, T)
+    t0 = np.arange(tiles)[None, :, None] * T
+    # The pre-pass: each tile's first change before N, or BIG.
+    first = _first_changes(x, T)
+    j = t0 + np.arange(T)
+    np.testing.assert_array_equal(
+        first, np.where(chg & (j < N), j, BIG).min(axis=2))
+    # (a) Ballots: thread t's k-th position is r = k * threads + t; warp
+    # wp's ballot at k fills word r >> 5 of its lane 0, lane l's bit l.
+    words = np.zeros((B, tiles, nwords), np.uint64)
+    r_of = np.arange(per)[:, None] * threads + np.arange(threads)
+    for k in range(per):
+        for wp in range(threads // 32):
+            lanes = r_of[k, 32 * wp:32 * wp + 32]
+            words[:, :, lanes[0] >> 5] = (
+                chg[:, :, lanes].astype(np.uint64)
+                << np.arange(32, dtype=np.uint64)).sum(axis=2)
+    # (b) One warp: the following tiles' minimum, then lane l's words 2l
+    # and 2l + 1, an inclusive suffix minimum over the lanes by shuffles.
+    after = np.full((B, tiles), BIG)
+    for q in range(1, min(look, tiles - 1) + 1):  # tile + q < tiles
+        after[:, :tiles - q] = np.minimum(after[:, :tiles - q],
+                                          first[:, q:])
+    L = nwords // 2
+    w0, w1 = words[:, :, 0::2], words[:, :, 1::2]
+    base = t0 + 64 * np.arange(L)[None, None, :]
+    p0 = np.where(w0 != 0, base + _ctz(w0), BIG)
+    p1 = np.where(w1 != 0, base + 32 + _ctz(w1), BIG)
+    s = np.minimum(p0, p1)
+    d = 1
+    while d < 32:
+        v = s.copy()
+        v[:, :, :L - d] = s[:, :, d:]  # lanes past the last keep their own
+        s = np.where(np.arange(L) + d < 32, np.minimum(s, v), s)
+        d *= 2
+    later = np.empty_like(s)
+    later[:, :, :L - 1] = np.minimum(s[:, :, 1:], after[:, :, None])
+    later[:, :, L - 1] = after
+    n1 = np.where(w1 != 0, p1, later)
+    nextw = np.empty((B, tiles, nwords + 1), np.int64)
+    nextw[:, :, 1:nwords:2] = n1
+    nextw[:, :, 0:nwords:2] = np.where(w0 != 0, p0, n1)
+    nextw[:, :, nwords] = after
+    # (c) Each position: its word, or the next word's scan.
+    r = np.arange(T)
+    jj = t0 + r
+    m = words[:, :, r >> 5] >> (r & 31).astype(np.uint64)
+    nxt = np.where(m != 0, jj + _ctz(m), nextw[:, :, (r >> 5) + 1])
+    # The staged bytes: sx[r] is x[t0 + r], sx[-1] the byte before the tile.
+    xp = np.concatenate([np.full((B, 1), -1), x.astype(np.int64)], axis=1)
+    xx = np.concatenate([xp, np.full((B, tiles * T - N), -1)], axis=1)
+    repeat = (jj > 0) & (xx[:, 1:].reshape(B, tiles, T)
+                         == xx[:, :-1].reshape(B, tiles, T))
+    len1 = np.minimum(np.minimum(nxt - jj + 1, blen[:, None, None] - jj),
+                      tk.RUN_CAP)
+    ml3 = _tiles_of(ml, tiles, T)
+    mo3 = _tiles_of(mo, tiles, T)
+    use = repeat & (len1 >= 4) & (len1 > ml3)
+    out_ml = np.where(use, len1, ml3).reshape(B, -1)[:, :N]
+    out_mo = np.where(use, 1, mo3).reshape(B, -1)[:, :N]
+    return out_ml, out_mo
+
+
+def _first_changes(x: np.ndarray, T: int) -> np.ndarray:
+    """tile_first_change_kernel: a warp a tile. Where N % 16 == 0 lane l
+    holds the 16-byte chunks at t0 + 16 * (l + 32 q) and compares each
+    with the byte after it: lane l + 1's first byte of chunk q, for lane
+    31 lane 0's of chunk q + 1, after the last chunk the next tile's
+    first byte; else lane l reads bytes t0 + 32 k + l. The row's last
+    byte is a change."""
+    B, N = x.shape
+    tiles = -(-N // T)
+    t0 = np.arange(tiles) * T
+    f = np.where(N - 1 < t0 + T, N - 1, BIG)[None, :].repeat(B, 0)
+    xp = np.zeros((B, tiles * T + 1), np.int64)
+    xp[:, :N] = x
+    if N % 16 == 0 and T % 512 == 0:
+        chunks = T // 512
+        lane = np.arange(32)[:, None]
+        q = np.arange(chunks)[None, :]
+        c = t0[:, None, None] + 16 * (lane + 32 * q)  # (tiles, 32, chunks)
+        first_b = xp[:, np.where(c < N, c, tiles * T)]
+        up = np.roll(first_b, -1, axis=2)  # lane + 1, same chunk
+        wrap = np.concatenate([first_b[:, :, :1, 1:], np.where(
+            t0 + T < N, xp[:, np.minimum(t0 + T, tiles * T)],
+            0)[:, :, None, None]], axis=3)  # lane 0 of chunk q + 1
+        nb = np.where(lane == 31, wrap, up)
+        data = xp[:, np.minimum(c[..., None] + np.arange(16), tiles * T)]
+        nxt = np.concatenate([data[..., 1:], nb[..., None]], axis=-1)
+        diff = data != nxt
+        k = np.where(diff.any(-1), diff.argmax(-1), BIG)
+        at = np.where((c < N) & (k < BIG), c + k, BIG)
+        f = np.minimum(f, at.reshape(B, tiles, -1).min(-1))
+    else:
+        j = t0[:, None, None] + 32 * np.arange(T // 32)[None, :, None] \
+            + np.arange(32)  # (tiles, k, lane)
+        jc = np.minimum(j, tiles * T - 1)
+        hit = (j < N - 1) & (xp[:, jc] != xp[:, jc + 1])
+        f = np.minimum(f, np.where(hit, j, BIG).reshape(B, tiles, -1)
+                       .min(-1))
+    return f
+
+
+def _ctz(w: np.ndarray) -> np.ndarray:
+    """__ffs(w) - 1 of nonzero u64 words (0 where w is 0)."""
+    low = w & (~w + np.uint64(1))
+    return np.where(w != 0, np.log2(np.maximum(low, 1).astype(np.float64)),
+                    0).astype(np.int64)
+
+
+def _tiles_of(a: np.ndarray, tiles: int, T: int) -> np.ndarray:
+    B, N = a.shape
+    out = np.zeros((B, tiles * T), np.int64)
+    out[:, :N] = a
+    return out.reshape(B, tiles, T)
+
+
+def _shifted(a: np.ndarray, s: int) -> np.ndarray:
+    """Element i <- a[:, i+s], 0 past the row."""
+    out = np.zeros_like(a)
+    out[:, :a.shape[1] - s] = a[:, s:]
+    return out
+
+
+def _chain(su: np.ndarray, shape, blen, width: int, steps: int, omask):
+    """The first passes' chain at one width, as the kernels count it: the
+    claim at i (0 where its gram passes the length) and the number of
+    leading claims at i, i + width, ... (2^steps of them, 0 past the row)
+    equal to it, for the reference's `steps` doubling steps."""
+    B, N = shape
+    offs = (su.astype(np.int64).reshape(B, N) & omask)
+    offs = np.where(np.arange(N) + width <= blen[:, None], offs, 0)
+    same = offs > 0
+    reach = same.astype(np.int64)
+    for m in range(1, 1 << steps):
+        same &= _shifted(offs, m * width) == offs
+        reach += same
+    return offs, reach
+
+
+def _candidates_pass(sus, blen, shape, widths, omask):
+    """CandidatesPass (dense_kernels.cu) at every position."""
+    ml = np.zeros(shape, np.int64)
+    mo = np.zeros(shape, np.int64)
+    for su, width in zip(sus, widths):
+        off, reach = _chain(su, shape, blen, width, tk.CHAIN_STEPS, omask)
+        est = reach * width
+        better = (est > ml) | ((est == ml) & (off > 0)
+                               & ((off < mo) | (mo == 0)))
+        take = (off > 0) & better
+        ml, mo = np.where(take, est, ml), np.where(take, off, mo)
+    worth = ((ml >= 7) | ((ml >= 6) & (mo <= 32768)) | ((ml >= 5)
+             & (mo <= 4096)) | ((ml >= 4) & (mo <= 256)))
+    return (np.where(worth, np.minimum(ml, tk.RUN_CAP), 0),
+            np.where(worth, mo, 0))
+
+
+def _verified_pass(su, blen, shape, omask):
+    """VerifiedPass (verified_kernels.cu) at every position."""
+    off, reach = _chain(su, shape, blen, 4, tk.VERIFIED_CHAIN_STEPS, omask)
+    ml = reach * 4
+    worth = (ml >= tk.VERIFIED_FAR_MIN) | ((ml >= 4)
+                                           & (off <= tk.VERIFIED_NEAR_OFF))
+    return (np.where(worth, np.minimum(ml, tk.RUN_CAP), 0),
+            np.where(worth, off, 0))
+
+
+RUNS = {  # row: (start, length) of its runs of one byte
+    1: [(2048, 16382), (20000, 16383), (47104, 16384)],
+    2: [(2047, 16385), (22528, 16383), (45000, 16384)],
+    3: [(6144, 16385), (30000, 16382), (50000, RUN_N - 50000)],
+    4: [(1000, 16385), (20480, 16384), (40960, 16385)],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _run_case(blocks_kind: str):
+    """(blocks, keys) of a crafted case. "runs": 8 rows of 65536 bytes: an
+    all-same row; runs of 16382-16385 bytes starting and ending on and off
+    tile edges (2048-position tiles, so 64-position ones too), one to the
+    row's end; short runs; random bytes. "n4100": 6 rows of 4100 bytes
+    (one segment, w = N) with runs. Keys: position-ordered (pos << pbits
+    | off) words whose offsets repeat along chains."""
+    rng = np.random.default_rng(8)
+    if blocks_kind == "runs":
+        B, N = 8, RUN_N
+        x = rng.integers(0, 256, (B, N), np.uint8)
+        x[0] = 0x41
+        for row, runs in RUNS.items():
+            for start, length in runs:
+                x[row, start:start + length] = 0x30 + row
+        x[5] = rng.integers(0, 3, N, np.uint8)  # short runs everywhere
+        x[6, :] = np.repeat(rng.integers(0, 256, N // 7 + 1, np.uint8),
+                            7)[:N]
+    else:
+        B, N = 6, 4100
+        x = rng.integers(0, 256, (B, N), np.uint8)
+        x[0, 100:4000] = 5
+        x[1, 2040:] = 9
+        x[2] = 0x41
+        x[4, 64:4064] = 3
+        x[5, 4000:] = 7
+    w = min(WINDOW, N)
+    pbits = (w - 1).bit_length()
+    offs = rng.choice(np.array([0, 0, 0, 1, 3, 200, 4000, w - 1]), (B, N))
+    # Chains: a claim repeats at i + width for widths 4 (B13) and 5.
+    for s in (4, 5):
+        hit = rng.random((B, N)) < 0.3
+        offs[:, s:] = np.where(hit[:, s:], offs[:, :-s], offs[:, s:])
+    keys = []
+    for width in (4, 5, 6, 8):
+        hi = rng.integers(0, 1 << (32 - pbits), (B, N)).astype(np.uint64)
+        o = np.where(rng.random((B, N)) < 0.8, offs,
+                     rng.integers(0, w, (B, N)))
+        keys.append(((hi << np.uint64(pbits)) | o.astype(np.uint64))
+                    .astype(np.uint32).reshape(B * (N // w), w))
+    return x, tuple(keys)
+
+
+def _lengths(kind: str, B: int, N: int) -> np.ndarray:
+    if kind == "full":
+        return np.full(B, N, np.int32)
+    return np.resize(np.array([0, 1, 3, 4, N - 10, N], np.int32), B)
+
+
+CASES = [("runs", "full"), ("runs", "ragged"), ("n4100", "full"),
+         ("n4100", "ragged")]
+
+
+@pytest.mark.parametrize("T,threads", TILES, ids=["kernel-tile", "tile-64"])
+@pytest.mark.parametrize("blocks_kind,lens", CASES,
+                         ids=["-".join(c) for c in CASES])
+def test_tiled_scan_equals_offset1_runs(blocks_kind, lens, T, threads):
+    """The scan and run rule alone, on first-pass planes of random
+    lengths (up to past the cap) and offsets."""
+    x, _ = _run_case(blocks_kind)
+    B, N = x.shape
+    blen = _lengths(lens, B, N)
+    rng = np.random.default_rng(T)
+    ml = np.where(rng.random((B, N)) < 0.5, rng.integers(0, 20000, (B, N)),
+                  0)
+    ml = np.minimum(ml, tk.RUN_CAP)
+    mo = rng.integers(0, 1 << 15, (B, N))
+    got = _tiled_runs(x, blen, ml, mo, T, threads)
+    want = tk._offset1_runs(torch.from_numpy(x),
+                            torch.from_numpy(blen.astype(np.int64))[:, None],
+                            torch.from_numpy(ml), torch.from_numpy(mo))
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    assert (got[1] == 1).any() or blen.max() < 5
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(kind: str, blocks_kind: str, lens: str):
+    """The JAX package's finalize_candidates (widths 4, 5, 6, 8: two
+    chunks) or finalize_verified, interpret mode, as numpy arrays."""
+    x, keys = _run_case(blocks_kind)
+    blen = _lengths(lens, *x.shape)
+    if kind == "candidates":
+        ml, mo = gk.finalize_candidates(
+            tuple(jnp.asarray(k) for k in keys), jnp.asarray(x),
+            jnp.asarray(blen), (4, 5, 6, 8), WINDOW, interpret=True)
+    else:
+        ml, mo = gk.finalize_verified(jnp.asarray(keys[0]), jnp.asarray(x),
+                                      jnp.asarray(blen), WINDOW,
+                                      interpret=True)
+    return np.asarray(ml), np.asarray(mo)
+
+
+def _tiled_finalize(kind: str, x, keys, blen, T: int, threads: int):
+    """B7's or B13's two kernels: the first pass, then the tiled scan."""
+    B, N = x.shape
+    omask = (1 << (min(WINDOW, N) - 1).bit_length()) - 1
+    if kind == "candidates":
+        ml, mo = _candidates_pass(keys, blen, (B, N), (4, 5, 6, 8), omask)
+    else:
+        ml, mo = _verified_pass(keys[0], blen, (B, N), omask)
+    return _tiled_runs(x, blen, ml, mo, T, threads)
+
+
+@pytest.mark.parametrize("T,threads", TILES, ids=["kernel-tile", "tile-64"])
+@pytest.mark.parametrize("blocks_kind,lens", CASES,
+                         ids=["-".join(c) for c in CASES])
+@pytest.mark.parametrize("kind", ["candidates", "verified"])
+def test_tiled_finalize_equals_reference(kind, blocks_kind, lens, T,
+                                         threads):
+    x, keys = _run_case(blocks_kind)
+    blen = _lengths(lens, *x.shape)
+    got = _tiled_finalize(kind, x, keys, blen, T, threads)
+    want = _reference(kind, blocks_kind, lens)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    args = (torch.from_numpy(x), torch.from_numpy(blen))
+    if kind == "candidates":
+        twin = tk.finalize_candidates(
+            [torch.from_numpy(k.view(np.int32)) for k in keys], *args,
+            (4, 5, 6, 8), WINDOW)
+    else:
+        twin = tk.finalize_verified(torch.from_numpy(keys[0].view(np.int32)),
+                                    *args)
+    np.testing.assert_array_equal(got[0], twin[0].numpy())
+    np.testing.assert_array_equal(got[1], twin[1].numpy())
+    if blocks_kind == "runs":
+        assert (got[0] == tk.RUN_CAP).any()  # a capped run
+    assert ((got[1] > 1) & (got[0] >= 4)).any()  # first-pass claims kept
+
+
+@pytest.mark.parametrize("T,threads", TILES, ids=["kernel-tile", "tile-64"])
+def test_tiled_scan_needs_its_whole_look_ahead(T, threads):
+    """One tile fewer of look-ahead gives a wrong length on the crafted
+    rows (a run from inside a tile to a change just under the cap away):
+    the cases above reach the bound."""
+    x, keys = _run_case("runs")
+    blen = _lengths("full", *x.shape)
+    zero = np.zeros(x.shape, np.int64)
+    full = _tiled_runs(x, blen, zero, zero, T, threads)
+    short = _tiled_runs(x, blen, zero, zero, T, threads,
+                        look=(tk.RUN_CAP + 1) // T - 1)
+    assert not np.array_equal(full[0], short[0])

@@ -46,12 +46,17 @@ def test_port_kernels_split_by_name_per_batch():
            _ev("void (anonymous namespace)::elementwise_kernel_with_index<"
                "int>(int)", 0, 5),
            _ev("(anonymous namespace)::fse_maps_kernel(FseArgs, int)",
-               400, 500)]
+               400, 500),
+           _ev("void (anonymous namespace)::finalize_tile_kernel<(anonymous "
+               "namespace)::VerifiedPass>((anonymous namespace)::"
+               "VerifiedPass, unsigned char const*)", 0, 20)]
     kernels = profile_l1.csrc_kernels()
     assert {"fse_maps_kernel", "fse_chain_kernel", "fse_emit_kernel",
             "sort_cluster_kernel", "sort_global_kernel",
-            "gather_payloads_kernel"} <= kernels
+            "gather_payloads_kernel", "tile_first_change_kernel",
+            "finalize_tile_kernel"} <= kernels
     assert "elementwise_kernel_with_index" not in kernels
     assert profile_l1._port_kernels(evs, 2, kernels) == {
         "fse_maps_kernel": {"ms": 0.2, "launches": 1.0},
-        "sort_global_kernel<4>": {"ms": 0.05, "launches": 0.5}}
+        "sort_global_kernel<4>": {"ms": 0.05, "launches": 0.5},
+        "finalize_tile_kernel<VerifiedPass>": {"ms": 0.01, "launches": 0.5}}
