@@ -21,8 +21,17 @@ Run from the repository root on a machine with one CUDA device. Phases
      must move at 3.35 TB/s): K1-K4 at level 1's shapes (B=128 blocks of
      128 KiB), B5-B14 at the level 2-12 shapes (B=64 blocks of 128 KiB,
      bench.py's device level ladder and its hybrid row), on the corpus
-     and on random bytes; K2 also with neighbors=2 on full-resolution
-     rows, K3 also at spans 8 and 16; B9 at strides 32 and 64 on corpus,
+     and on random bytes; K2 and K3 with flip 0 and with the sign flip
+     of the main path's signed row sorts, every case also over 20
+     back-to-back calls (stream_ms): K2 on level 1's pair rows and LDM
+     rows and one pair row at neighbors 1, on full-resolution rows at
+     neighbors 2, 3, 7 and 100, on rows of 4100 and 4097 words, and on
+     crafted rows whose equal hashes straddle the kernel's chunks at
+     neighbors 1, 3 and 100, with a clone of its input beside it
+     (copy_ms); K3 at spans 4 (B=128), 8 and 16 (B=64), on one span, two
+     spans and 1027 samples a block, with its sector floor (one 32-byte
+     sector read a sample) and the same sampled words copied out by
+     torch (gather_ms); B9 at strides 32 and 64 on corpus,
      random and mixed bytes; B10 on the L5 and L12 candidate lengths of
      the B=64 batch and on crafted rows, lazy on and off; B11 and B13
      (full and ragged lengths) on corpus, random and mixed bytes; B7 and
@@ -34,8 +43,8 @@ Run from the repository root on a machine with one CUDA device. Phases
      crafted blocks at S = 2048 with codes outside a table, custom tables
      on and off, each case with its chain length and the split design's
      operation floor (its twin is a Python loop over the steps, timed in
-     its one checking run); B15 and B16 on the L1 and L9 parses of the batch and
-     on crafted rows of long chosen matches (to 65535, across the
+     its one checking run); B15 and B16 on the L1 and L9 parses of the
+     batch and on crafted rows of long chosen matches (to 65535, across the
      kernel's tile edges, to the row's end) with ragged lengths; B17 and
      B18 on the parsed branch's parse at level 2's parameters, lazy off
      and on (B17 also on a dense mlen >= 4 mask); B19 on B=64 rows of
@@ -236,32 +245,11 @@ def kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int) -> dict:
            lambda: tk.hash_keys_winmin_sync_twin(blocks, width, WINDOW,
                                                  stride))
 
-    # K2 on the sorted pair rows and on the sorted LDM rows.
-    sk = tk._sort_rows(k)
-    lk = tk.ldm_keys(m, span, stride)
-    slk = tk._sort_rows(lk)
-    lbits = (lk.shape[1] - 1).bit_length()
-    err = max(
-        exact(torch, tk.neighbor_unsort_keys(sk, pbits, 1, WINDOW - 1),
-              tk.neighbor_unsort_keys_twin(sk, pbits, 1, WINDOW - 1),
-              "neighbor_unsort_keys (pair rows)"),
-        exact(torch, tk.neighbor_unsort_keys(slk, lbits, 1),
-              tk.neighbor_unsort_keys_twin(slk, lbits, 1),
-              "neighbor_unsort_keys (LDM rows)"))
-    record("neighbor_unsort_keys", err, 2 * nbytes(sk),
-           lambda: tk.neighbor_unsort_keys(sk, pbits, 1, WINDOW - 1),
-           lambda: tk.neighbor_unsort_keys_twin(sk, pbits, 1, WINDOW - 1))
-
-    # K3 on the corpus's minimizer plane: it needs the sampled words only.
-    err = exact(torch, lk, tk.ldm_keys_twin(m, span, stride), "ldm_keys")
-    record("ldm_keys", err, nbytes(m) // stride + nbytes(lk),
-           lambda: tk.ldm_keys(m, span, stride),
-           lambda: tk.ldm_keys_twin(m, span, stride))
-
-    # K4 with ragged lengths, with and without LDM estimates.
-    su = tk._sort_rows(tk.neighbor_unsort_keys(sk, pbits, 1, WINDOW - 1))
-    su_l = tk._sort_rows(tk.neighbor_unsort_keys(slk, lbits, 1))
-    est, off = tk._ldm_est(su_l, ragged, N, span, 1 << 19)
+    # K4 with ragged lengths, with and without LDM estimates (K2 and K3,
+    # which make its inputs, are checked in unsort_kernels_vs_twins).
+    su = tk._unsorted(k, pbits, 1, WINDOW - 1)
+    est, off = tk._ldm_est(tk.ldm_unsorted(m, span), ragged, N, span,
+                           1 << 19)
     out = tk.compact_slots_sync(su, WINDOW, ragged, width, est, off)
     err = max(
         exact(torch, out,
@@ -278,9 +266,114 @@ def kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int) -> dict:
     return results
 
 
+def _crafted_unsort_rows(rng, w: int = 8192) -> np.ndarray:
+    """Three rows of K2 input (hash << 13 | pos, pbits 13) whose runs of
+    equal hashes straddle every chunk edge: sorted with 4 hash values,
+    sorted with one, and unsorted with 4 (earlier entries with larger
+    positions claim nothing)."""
+    pos = rng.permutation(w).astype(np.int64)
+    rows = [np.sort((rng.integers(0, 4, w) << 13) | pos),
+            np.sort((7 << 13) | pos),
+            (rng.integers(0, 4, w) << 13) | rng.integers(0, w, w)]
+    return np.stack(rows).astype(np.uint32).view(np.int32)
+
+
+def unsort_kernels_vs_twins(torch, tk, blocks_np: np.ndarray,
+                            dense_np: np.ndarray, seed: int,
+                            results: dict) -> None:
+    """Phase 2, K2 and K3: every case against its twin with flip 0 (the
+    public wrappers) and with the sign flip (the main path's signed row
+    sorts), timed through the public wrapper, one call (ms) and back to
+    back (stream_ms). K2's main case is level 1's pair rows and K3's level
+    1's span 4, both at B=128 x 128 KiB; beside them, back to back, what
+    torch takes to move the same bytes: copy_ms, a clone of K2's input,
+    and gather_ms, K3's sampled words copied out of the plane (the same
+    sector reads, half its writes)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 5)
+    pbits = (WINDOW - 1).bit_length()
+    case = Cases(results)
+    sign = tk._SIGN
+
+    def k2(what, sk, pb, nb, pmask=None, main=False):
+        err = max(exact(torch,
+                        tk.neighbor_unsort_keys(x, pb, nb, pmask, flip=f),
+                        tk.neighbor_unsort_keys_twin(x, pb, nb, pmask, f),
+                        f"neighbor_unsort_keys ({what}, flip {f:#x})")
+                  for x, f in ((sk, 0), (sk ^ sign, tk._FLIP)))
+        run = lambda: tk.neighbor_unsort_keys(sk, pb, nb, pmask)
+        extra = {"copy_ms": stream_ms(torch, sk.clone)} if main else {}
+        case("neighbor_unsort_keys", what, err, 2 * nbytes(sk), run,
+             lambda: tk.neighbor_unsort_keys_twin(sk, pb, nb, pmask),
+             main=main, stream_ms=stream_ms(torch, run), **extra)
+
+    def k3(what, minz, span, main=False):
+        stride = tk.ldm_stride(span, minz.shape[1])
+        err = max(exact(torch, tk.ldm_keys(minz, span, stride, flip=f),
+                        tk.ldm_keys_twin(minz, span, stride, f),
+                        f"ldm_keys ({what}, flip {f:#x})")
+                  for f in (0, tk._FLIP))
+        run = lambda: tk.ldm_keys(minz, span, stride)
+        out = run()
+        samples = minz.shape[0] * (minz.shape[1] // stride)
+        extra = {"gather_ms": stream_ms(
+            torch, lambda: minz[:, ::stride].contiguous())} if main else {}
+        case("ldm_keys", what, err, 4 * samples + nbytes(out), run,
+             lambda: tk.ldm_keys_twin(minz, span, stride), main=main,
+             stream_ms=stream_ms(torch, run), **extra,
+             sector_floor_ms=(32 * samples + nbytes(out))
+             / HBM_BYTES_PER_S * 1e3)
+
+    # Level 1: the pair rows and the LDM rows of the B=128 batch.
+    blocks = torch.from_numpy(blocks_np).to(dev)
+    N = blocks.shape[1]
+    key, m = tk.hash_keys_winmin_sync(blocks, 6, WINDOW, tk.ldm_stride(4, N))
+    sk = tk._sort_rows(key)
+    lk = tk._sort_rows(tk.ldm_keys(m, 4, tk.ldm_stride(4, N)))
+    k2("pair rows, neighbors 1", sk, pbits, 1, WINDOW - 1, main=True)
+    k2("LDM rows, neighbors 1", lk, (lk.shape[1] - 1).bit_length(), 1)
+    k2("one pair row", sk[:1].contiguous(), pbits, 1, WINDOW - 1)
+    # Full-resolution rows of the B=64 batch (level 4 takes neighbors 2);
+    # 7 and 100 take the kernel's far-neighbor instantiation.
+    corpus = torch.from_numpy(dense_np).to(dev)
+    _, mixed = _test_bytes(torch, corpus, rng)
+    full = tk._sort_rows(tk.hash_keys(mixed, 4, WINDOW))
+    for nb in (2, 3, 7):
+        k2(f"full-resolution rows, neighbors {nb}", full, pbits, nb)
+    k2("16 full-resolution rows, neighbors 100", full[:16].contiguous(),
+       pbits, 100)
+    # A row that ends in a part of a CTA (4100 words: 4 CTAs of 1024 and
+    # one thread's 4) and a width that is no multiple of 4 (the scalar
+    # path).
+    for w in (4100, 4097):
+        k2(f"rows of {w}, neighbors 2", full[:, :w].contiguous(), pbits, 2)
+    crafted = torch.from_numpy(_crafted_unsort_rows(rng)).to(dev)
+    for nb in (1, 3, 100):
+        k2(f"crafted rows across chunk edges, neighbors {nb}", crafted, 13,
+           nb)
+
+    # K3 at level 1's span 4, levels 3 and 4's spans 8 and 16 on the
+    # B=64 planes, one span (all context the fill), two spans, and 1027
+    # samples a block (a part of a CTA).
+    k3("span 4", m, 4, main=True)
+    for span in (8, 16):
+        stride = tk.ldm_stride(span, N)
+        k3(f"span {span}", tk.hash_keys_winmin(mixed, 4, WINDOW, stride)[1],
+           span)
+    k3("one span", m[:4].contiguous(), 4)
+    k3("two spans", m[:8].contiguous(), 4)
+    k3("1027 samples a block", m[:8, :32 * 1027].contiguous(), 4)
+    torch.cuda.synchronize()
+
+
 class Cases:
     """Phase 2 cases of the B=64 kernels: one line per case with its
-    times; the case marked main is the kernel's row in the results."""
+    times; the case marked main is the kernel's row in the results. Of a
+    case's extra fields only the measured times (MEASURED) go into that
+    row; a computed one (a floor, a chain length) stays on the case's
+    line."""
+
+    MEASURED = ("stream_ms", "copy_ms", "gather_ms")
 
     def __init__(self, results: dict):
         self.results = results
@@ -296,8 +389,10 @@ class Cases:
         phase("kernel_case", kernel=kernel, case=name, **r, **extra)
         prev = self.results.get(kernel)
         if main or prev is None:
-            self.results[kernel] = {**r, "max_abs_err": max(
-                err, prev["max_abs_err"] if prev else 0)}
+            self.results[kernel] = {
+                **r, **{k: v for k, v in extra.items()
+                        if k in self.MEASURED},
+                "max_abs_err": max(err, prev["max_abs_err"] if prev else 0)}
         else:
             prev["max_abs_err"] = max(prev["max_abs_err"], err)
 
@@ -317,12 +412,16 @@ def _test_bytes(torch, corpus, rng):
     return rand, mixed
 
 
+SPIN_CYCLES = 4_000_000  # about 2 ms of the card's clock (1.98 GHz)
+
+
 def stream_ms(torch, fn, calls: int = 20) -> float:
     """Milliseconds a call over `calls` back-to-back calls of fn(), the
-    median of 5 runs by CUDA events. A wrapper's host time overlaps the
-    card's work on the calls before it, so where the kernels take longer
-    than that host time this is their time on the card; `ms` (one call
-    between two events) adds the host time before the first launch."""
+    median of 5 runs by CUDA events: the card's time alone. The calls are
+    queued behind a 2 ms spin on the card (torch.cuda._sleep), so no
+    launch waits for the wrapper's host time, even where that is longer
+    than the kernel; `ms` (one call between two events) adds the host
+    time before the launch."""
     import statistics
     fn()
     torch.cuda.synchronize()
@@ -330,6 +429,7 @@ def stream_ms(torch, fn, calls: int = 20) -> float:
     for _ in range(5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(calls):
             fn()
@@ -397,34 +497,10 @@ def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
              lambda: tk.hash_keys_winmin_twin(mixed, 4, WINDOW, stride),
              main=stride == 64)
 
-    # K2 with neighbors=2 on full-resolution rows (level 4).
-    sk = tk._sort_rows(tk.hash_keys(mixed, 4, WINDOW))
-    err = exact(torch, tk.neighbor_unsort_keys(sk, pbits, 2),
-                tk.neighbor_unsort_keys_twin(sk, pbits, 2),
-                "neighbor_unsort_keys (full-resolution rows, neighbors 2)")
-    case("neighbor_unsort_keys", "full-resolution rows, neighbors 2", err,
-         2 * nbytes(sk), lambda: tk.neighbor_unsort_keys(sk, pbits, 2),
-         lambda: tk.neighbor_unsort_keys_twin(sk, pbits, 2))
-
-    # K3 at spans 8 and 16 (levels 3 and 4), and the LDM estimates of
-    # spans 4 and 16 for B8.
-    ests = {}
-    for span in (4, 8, 16):
-        stride = tk.ldm_stride(span, N)
-        if stride not in minz:
-            minz[stride] = tk.hash_keys_winmin(mixed, 4, WINDOW, stride)[1]
-        if span != 4:
-            lk = tk.ldm_keys(minz[stride], span, stride)
-            err = exact(torch, lk, tk.ldm_keys_twin(minz[stride], span,
-                                                    stride),
-                        f"ldm_keys span {span}")
-            case("ldm_keys", f"span {span}", err,
-                 nbytes(minz[stride]) // stride + nbytes(lk),
-                 lambda: tk.ldm_keys(minz[stride], span, stride),
-                 lambda: tk.ldm_keys_twin(minz[stride], span, stride))
-        if span != 8:
-            ests[span] = tk._ldm_est(tk.ldm_unsorted(minz[stride], span),
-                                     ragged, N, span, 1 << 19)
+    # The LDM estimates of spans 4 and 16 for B8.
+    ests = {span: tk._ldm_est(tk.ldm_unsorted(
+        minz[tk.ldm_stride(span, N)], span), ragged, N, span, 1 << 19)
+        for span in (4, 16)}
 
     # B7 at each level's widths, ragged lengths, on the mixed corpus and
     # on random bytes; the twin chunks two widths per pass.
@@ -1234,14 +1310,16 @@ def main() -> int:
                        for kw in PARSED_CASES]
         want_frames = [pool.submit(cpu_frame, *f) for f in frames]
         kernels = kernels_vs_twins(torch, tk, blocks_np, args.seed)
+        unsort_kernels_vs_twins(torch, tk, blocks_np, dense_np, args.seed,
+                                kernels)
         dense_kernels_vs_twins(torch, tk, dense_np, args.seed, kernels)
         content_kernels_vs_twins(torch, tk, pk, mp, dense_np, args.seed,
                                  kernels)
         hybrid_kernels_vs_twins(torch, tk, fk, dense_np, args.seed, kernels)
         literals_kernels_vs_twins(torch, lk, dense_np, args.seed, kernels)
         parsed_kernels_vs_twins(torch, tk, tsk, dense_np, args.seed, kernels)
-        for name, r in kernels.items():
-            phase("kernel_vs_twin", kernel=name, **r)
+        for name in KERNELS:
+            phase("kernel_vs_twin", kernel=name, **kernels[name])
 
         # 3. Device half: composed outputs, kernels vs twins.
         for (level, x), want in zip(halves, want_halves):
@@ -1282,8 +1360,8 @@ def main() -> int:
         raise AssertionError(f"the port imported {sorted(ref)[:5]}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": launches[name], **r}
-        for name, r in kernels.items()]}))
+         "replaces": KERNELS[name][1], "launches": launches[name],
+         **kernels[name]} for name in KERNELS]}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

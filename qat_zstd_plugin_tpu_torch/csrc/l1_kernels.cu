@@ -14,9 +14,12 @@
 // PyTorch side holds them in int32 tensors.
 //
 // All four are integer passes with a few operations per byte moved, so
-// device-memory bandwidth bounds them on an H100 (3.35 TB/s). They are
-// written simple and right first: one thread per output element, loads
-// and stores coalesced along the row.
+// device-memory bandwidth bounds them on an H100 (3.35 TB/s). K1 and K4
+// are written simple and right first: one thread per output element (K1
+// a byte pair), loads and stores coalesced along the row. K2 and K3 are
+// redesigned for the card: 32-bit index arithmetic, 16-byte accesses in
+// K2, one read of each LDM sample in K3, and the sign flips of the signed
+// row sorts around them folded into both.
 
 #include "common.cuh"
 
@@ -99,65 +102,136 @@ hash_keys_winmin_sync_kernel(const uint8_t* __restrict__ blocks,
 // K2: nearest equal-hash neighbor -> un-sort keys.
 // Replaces glue_kernels.neighbor_unsort_keys (Pallas).
 //
-// One thread per element of the sorted (rows, w) keys (hash << pbits |
-// pos). The nearest earlier entry of the row with an equal hash claims
-// offset pos - prev; the output (key << (32 - pbits) | off) drops the hash
-// bits, so a second row sort restores position order. Pure elementwise
-// pass with one neighbor read (an L1 hit): 8 bytes moved per element.
+// Each row of the (rows, w) keys (hash << pbits | pos) is sorted. The
+// nearest of the `neighbors` earlier entries of the row with an equal hash
+// and a smaller position claims off = pos - prev (the first k entries of a
+// row see the reference's fill, hash 0xFFFFFFFF, which no key's hash
+// equals); the output (key << (32 - pbits) | off) drops the hash bits, so
+// a second row sort restores position order. `flip` (0 or 0x80000000) is
+// XORed into every word read and every word written: the row sorts on
+// either side are signed, and this folds their sign flips into the pass.
+//
+// Bound: 8 bytes moved a word. Grid: (chunks of a row, rows), all index
+// arithmetic 32-bit. Where w % 4 == 0 (kVec) a thread takes 4 consecutive
+// words with one 16-byte load and the 4 before them with another (the
+// previous thread's, an L1 hit), claims from that 8-word window and
+// writes the 4 outputs with one 16-byte store; a neighbor more than 4 back
+// (neighbors > 4, which no level takes) is read from the row, through L1.
+// Otherwise (the scalar path) a thread takes one word and reads its
+// neighbors from the row. Each claim is written as one condition.
+// Measured against each other on the card (designs/k2_k3.py), this runs
+// as fast as a 16-byte copy of the same bytes; the same window with each
+// claim behind a branch (k <= neighbors, k <= j) around a helper's test
+// runs 9% slower, and tiles of 1024, 2048 or 4096 words staged in shared
+// memory (the window read from there after a barrier) 3-21% slower.
 // ---------------------------------------------------------------------------
 
-__global__ void neighbor_unsort_keys_kernel(const uint32_t* __restrict__ sk,
-                                            uint32_t* __restrict__ out,
-                                            long long total, int w,
-                                            int pbits, int neighbors,
-                                            uint32_t pmask) {
-    const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (idx >= total) return;
-    const int j = int(idx % w);
-    const uint32_t s = sk[idx];
-    const uint32_t sh = s >> pbits;
-    const uint32_t sp = s & pmask;
-    uint32_t off = 0;
-    for (int k = 1; k <= neighbors; ++k) {
-        uint32_t ph = kEmpty, pp = 0;  // the reference's row-head fills
-        if (j >= k) {
-            const uint32_t q = sk[idx - k];
-            ph = q >> pbits;
-            pp = q & pmask;
+constexpr int kK2Threads = 256;
+constexpr int kMaxGridY = 65535;
+
+__device__ __forceinline__ uint4 xor4(uint4 v, uint32_t flip) {
+    return make_uint4(v.x ^ flip, v.y ^ flip, v.z ^ flip, v.w ^ flip);
+}
+
+template <bool kVec>  // kVec: w % 4 == 0, so every row is 16-byte aligned
+__global__ void __launch_bounds__(kK2Threads)
+neighbor_unsort_keys_kernel(const uint32_t* __restrict__ sk,
+                            uint32_t* __restrict__ out, int w, int pbits,
+                            int neighbors, uint32_t pmask, uint32_t flip) {
+    const uint32_t* x = sk + size_t(blockIdx.y) * w;
+    uint32_t* y = out + size_t(blockIdx.y) * w;
+    const int shift = 32 - pbits;
+    const int i = int(blockIdx.x * kK2Threads + threadIdx.x);
+    if (kVec) {
+        const int t = 4 * i;  // first of the thread's 4 words
+        if (t >= w) return;
+        const uint4 a = t >= 4
+            ? xor4(__ldg(reinterpret_cast<const uint4*>(x + t - 4)), flip)
+            : make_uint4(0, 0, 0, 0);  // never read: k <= j below
+        const uint4 b = xor4(__ldg(reinterpret_cast<const uint4*>(x + t)),
+                             flip);
+        const uint32_t win[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+        uint32_t o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int j = t + e;  // a row's first k see the fill
+            const uint32_t sv = win[4 + e];
+            const uint32_t sh = sv >> pbits, sp = sv & pmask;
+            uint32_t off = 0;
+#pragma unroll
+            for (int k = 1; k <= 4; ++k) {
+                const uint32_t q = win[4 + e - k], pp = q & pmask;
+                if (k <= neighbors && k <= j && off == 0 &&
+                    (q >> pbits) == sh && pp < sp)
+                    off = sp - pp;
+            }
+            for (int k = 5; k <= neighbors && k <= j && off == 0; ++k) {
+                const uint32_t q = __ldg(x + j - k) ^ flip, pp = q & pmask;
+                if ((q >> pbits) == sh && pp < sp) off = sp - pp;
+            }
+            o[e] = ((sv << shift) | off) ^ flip;
         }
-        if (off == 0 && sh == ph && pp < sp) off = sp - pp;
+        *reinterpret_cast<uint4*>(y + t) = make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+        if (i >= w) return;
+        const uint32_t sv = __ldg(x + i) ^ flip;
+        const uint32_t sh = sv >> pbits, sp = sv & pmask;
+        uint32_t off = 0;
+        for (int k = 1; k <= neighbors && k <= i && off == 0; ++k) {
+            const uint32_t q = __ldg(x + i - k) ^ flip, pp = q & pmask;
+            if ((q >> pbits) == sh && pp < sp) off = sp - pp;
+        }
+        y[i] = ((sv << shift) | off) ^ flip;
     }
-    out[idx] = (s << (32 - pbits)) | off;
 }
 
 // ---------------------------------------------------------------------------
 // K3: long-distance-match sort keys.
 // Replaces glue_kernels.ldm_keys (Pallas).
 //
-// One thread per output element of the (nspans, 2 * half) rows: column c
-// of span row r samples minz every `stride` bytes, from this span's blocks
-// (c >= half) or from the previous span's (c < half; the first span's
-// context is 0xFFFFFFFF), remixes by x 2654435761 and packs
-// (h << pbits | c). Reads are strided (one 32-byte sector per sample), so
-// the pass is bound by sectors read: N / stride per block row.
+// Span row r of the (nspans, 2 * half) output is [the previous span's
+// samples | this span's samples]: sample q of block b (minz[b, q *
+// stride]), remixed by x 2654435761, packs (h << pbits | column). One
+// thread a sample: it reads the sample once and writes it to both places
+// it belongs, column half + (b % sb) * spb + q of span row b / sb and
+// column (b % sb) * spb + q of span row b / sb + 1, as that row's context.
+// The last span's blocks, which have no next row, write span row 0's
+// context instead: the 0xFFFFFFFF fill, remixed like any sample. So every
+// output word is written exactly once. `flip` is XORed into every output
+// word (the LDM chain's signed row sort follows). Grid: (sample chunks,
+// b % sb, b / sb), no division.
+//
+// Bound: the reads are strided, one 32-byte sector a sample, so the pass
+// moves B * spb * 32 bytes in and 8 out a sample (the byte bound counts
+// 4 in). A warp's 32 samples lie in 32 consecutive 128-byte lines and its
+// stores are coalesced; taking 4 or 8 consecutive samples a thread, with
+// 16-byte stores, spread a warp's reads over 4 or 8 times as many lines
+// and was slower on the card.
 // ---------------------------------------------------------------------------
 
-__global__ void ldm_keys_kernel(const uint32_t* __restrict__ minz,
-                                uint32_t* __restrict__ out, long long total,
-                                int n, int stride, int span_blocks,
-                                int pbits) {
-    const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (idx >= total) return;
-    const int spb = n / stride;
+constexpr int kK3Threads = 256;
+
+__device__ __forceinline__ uint32_t ldm_key(uint32_t m, int pbits,
+                                            int column, uint32_t flip) {
+    return ((((m * kC1) >> pbits) << pbits) | uint32_t(column)) ^ flip;
+}
+
+__global__ void __launch_bounds__(kK3Threads)
+ldm_keys_kernel(const uint32_t* __restrict__ minz, uint32_t* __restrict__ out,
+                int n, int stride, int spb, int span_blocks, int nspans,
+                int r0, int pbits, uint32_t flip) {
+    const int q = int(blockIdx.x * kK3Threads + threadIdx.x);  // sample
+    if (q >= spb) return;
+    const int r = r0 + int(blockIdx.z);  // span row
     const int half = span_blocks * spb;
-    const int sps = 2 * half;
-    const int r = int(idx / sps);
-    const int c = int(idx % sps);
-    const int q = c < half ? c : c - half;
-    const int blk = r * span_blocks + q / spb - (c < half ? span_blocks : 0);
-    const uint32_t m = blk >= 0
-        ? minz[size_t(blk) * n + size_t(q % spb) * stride] : kEmpty;
-    out[idx] = (((m * kC1) >> pbits) << pbits) | uint32_t(c);
+    const int c = int(blockIdx.y) * spb + q;  // context column
+    const bool last = r + 1 == nspans;
+    const uint32_t m = __ldg(minz + size_t(r * span_blocks + int(blockIdx.y))
+                             * n + size_t(q) * stride);
+    out[size_t(r) * (2 * half) + half + c] = ldm_key(m, pbits, half + c,
+                                                     flip);
+    out[size_t(last ? 0 : r + 1) * (2 * half) + c] =
+        ldm_key(last ? kEmpty : m, pbits, c, flip);
 }
 
 // ---------------------------------------------------------------------------
@@ -235,22 +309,38 @@ int qz_hash_keys_winmin_sync(const void* blocks, void* keys, void* minz,
 
 int qz_neighbor_unsort_keys(const void* sk, void* out, int rows, int w,
                             int pbits, int neighbors, int pmask,
-                            void* stream) {
-    const long long total = (long long)rows * w;
-    neighbor_unsort_keys_kernel<<<blocks_for(total), kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(sk), static_cast<uint32_t*>(out), total,
-        w, pbits, neighbors, uint32_t(pmask));
+                            unsigned flip, void* stream) {
+    if (rows <= 0 || w <= 0) return 0;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const bool vec = w % 4 == 0;
+    const int per = vec ? 4 * kK2Threads : kK2Threads;  // words a CTA
+    const unsigned chunks = unsigned((w + per - 1) / per);
+    for (int r0 = 0; r0 < rows; r0 += kMaxGridY) {
+        const dim3 grid(chunks, unsigned(min(rows - r0, kMaxGridY)));
+        const uint32_t* src =
+            static_cast<const uint32_t*>(sk) + size_t(r0) * w;
+        uint32_t* dst = static_cast<uint32_t*>(out) + size_t(r0) * w;
+        if (vec)
+            neighbor_unsort_keys_kernel<true><<<grid, kK2Threads, 0, st>>>(
+                src, dst, w, pbits, neighbors, uint32_t(pmask), flip);
+        else
+            neighbor_unsort_keys_kernel<false><<<grid, kK2Threads, 0, st>>>(
+                src, dst, w, pbits, neighbors, uint32_t(pmask), flip);
+    }
     return int(cudaGetLastError());
 }
 
 int qz_ldm_keys(const void* minz, void* out, int nspans, int n, int stride,
-                int span_blocks, int pbits, void* stream) {
-    const long long total = (long long)nspans * 2 * span_blocks * (n / stride);
-    ldm_keys_kernel<<<blocks_for(total), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(minz), static_cast<uint32_t*>(out),
-        total, n, stride, span_blocks, pbits);
+                int span_blocks, int pbits, unsigned flip, void* stream) {
+    const int spb = n / stride;  // samples a block
+    if (nspans <= 0 || spb <= 0) return 0;
+    const unsigned chunks = unsigned((spb + kK3Threads - 1) / kK3Threads);
+    for (int r0 = 0; r0 < nspans; r0 += kMaxGridY)
+        ldm_keys_kernel<<<dim3(chunks, unsigned(span_blocks),
+                               unsigned(min(nspans - r0, kMaxGridY))),
+                          kK3Threads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const uint32_t*>(minz), static_cast<uint32_t*>(out),
+            n, stride, spb, span_blocks, nspans, r0, pbits, flip);
     return int(cudaGetLastError());
 }
 

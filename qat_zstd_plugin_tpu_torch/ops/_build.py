@@ -28,13 +28,13 @@ LIB_NAME = "libqz_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+_P, _I, _U, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_size_t
 # C entry points of csrc/*.cu: argument types, each ending in the stream;
 # every one returns a cudaError_t as int.
 SIGNATURES = {
     "qz_hash_keys_winmin_sync": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "qz_neighbor_unsort_keys": (_P, _P, _I, _I, _I, _I, _I, _P),
-    "qz_ldm_keys": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "qz_neighbor_unsort_keys": (_P, _P, _I, _I, _I, _I, _I, _U, _P),
+    "qz_ldm_keys": (_P, _P, _I, _I, _I, _I, _I, _U, _P),
     "qz_compact_slots_sync": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "qz_hash_keys": (_P, _P, _I, _I, _I, _I, _I, _P),
     "qz_hash_keys_winmin": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -124,8 +124,11 @@ def build() -> str:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use. Once it is loaded a call
+    takes no lock."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())

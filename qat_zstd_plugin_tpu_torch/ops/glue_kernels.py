@@ -59,14 +59,13 @@ shifts the hash bits out of the word).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
 
 _M32 = 0xFFFFFFFF
 _SIGN = -0x80000000  # int32 bit 31: xor maps u32 order onto int32 order
+_FLIP = 0x80000000  # the same bit as a u32 word: K2's and K3's flip word
 _C1 = 2654435761
 _C2 = 2246822519
 _C3 = 3266489917
@@ -185,34 +184,48 @@ def _use_twin(t: torch.Tensor, name: str) -> bool:
     return False
 
 
+_entries: dict = {}  # the library's qz_<name> functions, by name
+
+
 def _launch(name: str, *args) -> None:
     """Call entry point qz_<name> with tensors as device pointers, on the
-    current stream of the first tensor's device; raise on a CUDA error."""
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    index = dev.index if dev.index is not None else -1
+    current stream of the first tensor's device; raise on a CUDA error.
+    The entry point is looked up once; a launch then costs its tensors'
+    checks, one device and one stream lookup (torch's raw getters: a
+    torch.cuda.Stream object costs microseconds) and the call."""
+    index = None
     values = []
     for a in args:
         if isinstance(a, torch.Tensor):
-            if a.get_device() != index:
-                raise ValueError(f"{name}: tensors on {dev} and {a.device}")
+            if index is None:
+                index = a.get_device()
+            elif a.get_device() != index:
+                raise ValueError(f"{name}: tensors on cuda:{index} and "
+                                 f"{a.device}")
             a = a.data_ptr()
+            if index < 0:
+                raise ValueError(f"{name}: tensors must be on a CUDA device")
             if a % 16:
                 raise ValueError(f"{name}: tensors must start on a 16-byte "
                                  "boundary (the kernels load 8 and 16 bytes)")
         values.append(a)
-    lib = _build.load()
-    if index == torch.cuda.current_device():
-        rc = getattr(lib, "qz_" + name)(
-            *values, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(_build.load(), "qz_" + name)
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*values, torch._C._cuda_getCurrentRawStream(index))
     else:
-        with torch.cuda.device(dev):
-            rc = getattr(lib, "qz_" + name)(
-                *values,
-                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        with torch.cuda.device(index):
+            rc = fn(*values, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} "
-                           f"({lib.qz_cuda_error_string(rc).decode()})")
+        err = _build.load().qz_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({err})")
     launches[name] += 1
+
+
+def _sort_signed(x: torch.Tensor) -> torch.Tensor:
+    """Signed row sort of int32 words (torch.sort has no unsigned int32)."""
+    return torch.sort(x, dim=1).values
 
 
 def _sort_rows(x: torch.Tensor) -> torch.Tensor:
@@ -220,7 +233,7 @@ def _sort_rows(x: torch.Tensor) -> torch.Tensor:
     jax.lax.sort, which is XLA's and not a Pallas kernel). Keys are unique
     within a row (the position sits in the low bits), so any sort gives
     the reference's order."""
-    return torch.sort(x ^ _SIGN, dim=1).values ^ _SIGN
+    return _sort_signed(x ^ _SIGN) ^ _SIGN
 
 
 # ---------------------------------------------------------------------------
@@ -570,10 +583,11 @@ def _k2_params(sk: torch.Tensor, pbits: int, pos_mask: int | None):
 
 def neighbor_unsort_keys_twin(sk: torch.Tensor, pbits: int,
                               neighbors: int = 1,
-                              pos_mask: int | None = None) -> torch.Tensor:
+                              pos_mask: int | None = None,
+                              flip: int = 0) -> torch.Tensor:
     """Plain-torch K2 (see neighbor_unsort_keys)."""
     pmask = _k2_params(sk, pbits, pos_mask)
-    s = _u32(sk)
+    s = _u32(sk) ^ flip
     sh = s >> pbits
     sp = s & pmask
     off = torch.zeros_like(s)
@@ -582,24 +596,28 @@ def neighbor_unsort_keys_twin(sk: torch.Tensor, pbits: int,
         pp = _shr(sp, k, 0)
         eq = (sh == ph) & (pp < sp)
         off = torch.where((off == 0) & eq, sp - pp, off)
-    return _i32(((s << (32 - pbits)) | off) & _M32)
+    return _i32((((s << (32 - pbits)) | off) & _M32) ^ flip)
 
 
 def neighbor_unsort_keys(sk: torch.Tensor, pbits: int, neighbors: int = 1,
-                         pos_mask: int | None = None) -> torch.Tensor:
+                         pos_mask: int | None = None,
+                         flip: int = 0) -> torch.Tensor:
     """K2. Sorted (R, w) keys (hash << pbits | pos) -> un-sort keys
     (key << (32 - pbits) | off), truncated to 32 bits: the nearest earlier
     entry of the row with an equal hash (up to `neighbors` back) claims
     off = pos - prev. pos_mask overrides the position mask w - 1 (pair
     rows carry w/2 entries over w positions). Port of the Pallas kernel
-    of the same name."""
+    of the same name. `flip` (0 or _FLIP) is XORed into every word read
+    and written: a signed row sort may then stand on either side in place
+    of the unsigned one, with no XOR pass between."""
     _check(sk, "neighbor_unsort_keys", torch.int32, 2)
     pmask = _k2_params(sk, pbits, pos_mask)
     if _use_twin(sk, "neighbor_unsort_keys"):
-        return neighbor_unsort_keys_twin(sk, pbits, neighbors, pos_mask)
+        return neighbor_unsort_keys_twin(sk, pbits, neighbors, pos_mask,
+                                         flip)
     out = torch.empty_like(sk)
     _launch("neighbor_unsort_keys", sk, out, sk.shape[0], sk.shape[1],
-            pbits, neighbors, pmask)
+            pbits, neighbors, pmask, flip)
     return out
 
 
@@ -627,7 +645,7 @@ def _k3_geometry(minz: torch.Tensor, span_blocks: int, stride: int):
 
 
 def ldm_keys_twin(minz: torch.Tensor, span_blocks: int = 4,
-                  stride: int = 32) -> torch.Tensor:
+                  stride: int = 32, flip: int = 0) -> torch.Tensor:
     """Plain-torch K3 (see ldm_keys)."""
     B, N, half, pbits = _k3_geometry(minz, span_blocks, stride)
     dest = _u32(minz[:, ::stride])
@@ -637,23 +655,25 @@ def ldm_keys_twin(minz: torch.Tensor, span_blocks: int = 4,
     hd = (_mul32(dest, _C1) >> pbits).reshape(B // span_blocks, half)
     hc = (_mul32(ctx, _C1) >> pbits).reshape(B // span_blocks, half)
     pos = torch.arange(2 * half, device=minz.device)
-    return _i32((torch.cat([hc, hd], dim=1) << pbits) | pos)
+    return _i32(((torch.cat([hc, hd], dim=1) << pbits) | pos) ^ flip)
 
 
-def ldm_keys(minz: torch.Tensor, span_blocks: int = 4,
-             stride: int = 32) -> torch.Tensor:
+def ldm_keys(minz: torch.Tensor, span_blocks: int = 4, stride: int = 32,
+             flip: int = 0) -> torch.Tensor:
     """K3. (B, N) minimizer plane -> (B/span_blocks, 2*half) int32 LDM
     sort keys (h << pbits | sample index), each row [previous span's
     samples | this span's samples], h the top bits of the sample
-    remixed by x2654435761. Port of the Pallas kernel of the same name."""
+    remixed by x2654435761. Port of the Pallas kernel of the same name.
+    `flip` (0 or _FLIP) is XORed into every word written, for a signed
+    row sort that follows."""
     _check(minz, "ldm_keys", torch.int32, 2)
     B, N, half, pbits = _k3_geometry(minz, span_blocks, stride)
     if _use_twin(minz, "ldm_keys"):
-        return ldm_keys_twin(minz, span_blocks, stride)
+        return ldm_keys_twin(minz, span_blocks, stride, flip)
     out = torch.empty((B // span_blocks, 2 * half), dtype=torch.int32,
                       device=minz.device)
     _launch("ldm_keys", minz, out, B // span_blocks, N, stride, span_blocks,
-            pbits)
+            pbits, flip)
     return out
 
 
@@ -663,12 +683,13 @@ def ldm_unsorted(minz: torch.Tensor, span_blocks: int = 4,
     Returns (B/span_blocks, sps) int32, entry j = (j << hbits | sample
     offset), position-ordered. The reference computes the minimizer plane
     itself when none is given; here the caller always passes one (K1's,
-    B6's or B9's)."""
+    B6's or B9's). The reference's two unsigned row sorts are signed ones
+    here, with K3 and K2 flipping the sign bit: one XOR pass in all."""
     stride = ldm_stride(span_blocks, minz.shape[1])
-    key = ldm_keys(minz, span_blocks, stride)
+    key = ldm_keys(minz, span_blocks, stride, flip=_FLIP)
     pbits = (key.shape[1] - 1).bit_length()
-    return _sort_rows(neighbor_unsort_keys(_sort_rows(key), pbits,
-                                           neighbors))
+    return _sort_signed(neighbor_unsort_keys(_sort_signed(key), pbits,
+                                             neighbors, flip=_FLIP)) ^ _SIGN
 
 
 def _ldm_est(su: torch.Tensor, lengths: torch.Tensor, n: int,
@@ -1213,9 +1234,12 @@ def _dense_tail_fused(sus, blocks, lengths, minz, widths: tuple,
 
 def _unsorted(key: torch.Tensor, pbits: int, neighbors: int,
               pos_mask: int | None = None) -> torch.Tensor:
-    """sort -> neighbor/un-sort keys -> sort: position-ordered claims."""
-    return _sort_rows(neighbor_unsort_keys(_sort_rows(key), pbits,
-                                           neighbors, pos_mask))
+    """sort -> neighbor/un-sort keys -> sort: position-ordered claims. The
+    unsigned row sorts are signed ones with K2 flipping the sign bit on
+    its way in and out: two XOR passes, not four."""
+    sk = _sort_signed(key ^ _SIGN)
+    return _sort_signed(neighbor_unsort_keys(sk, pbits, neighbors, pos_mask,
+                                             flip=_FLIP)) ^ _SIGN
 
 
 def candidates_hash_split(blocks, lengths, widths: tuple = (5, 8),

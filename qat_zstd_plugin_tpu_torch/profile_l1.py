@@ -24,9 +24,20 @@ too (GpuCodec(device_entropy=True)). It prints one JSON object per line:
                 on the card;
   device_ops    torch.profiler over 10 such batches: the device time of
                 each kernel (memcpys included) and its share of the total,
-                and the device ms and launches a batch of each of the
+                the device ms and launches a batch of each of the
                 port's own kernels (csrc/; B14 is fse_maps_kernel,
-                fse_chain_kernel and fse_emit_kernel);
+                fse_chain_kernel and fse_emit_kernel), and the count of
+                PyTorch elementwise kernels a batch;
+  chains        levels 1-4 without device entropy: the device ops, the
+                elementwise ones among them, and the device ms of one
+                call of _unsorted (sort, K2, sort on the first width's
+                keys) and of ldm_unsorted (K3, sort, K2, sort), by
+                torch.profiler over 10 calls;
+  wrappers      the host microseconds a call of the K2 and K3 wrappers
+                (neighbor_unsort_keys on one row of the first width's
+                sorted keys, ldm_keys on one span): host clock over 1000
+                calls and one synchronise, at a size where the card
+                finishes each launch before the host has made the next;
   stages        per repetition, seconds per corpus of each host-visible
                 step of the main path, run one after the other and each
                 synchronised: np stack, host-to-device copy, the device
@@ -158,6 +169,72 @@ def _port_kernels(events, batches: int, kernels: set[str]) -> dict:
     return per
 
 
+def _elementwise(events) -> int:
+    """How many of the device events are PyTorch elementwise kernels."""
+    return sum("elementwise" in ev.name for ev in events)
+
+
+def _ops_a_call(fn, calls: int = 10) -> dict:
+    """Device ops, elementwise ones and device ms a call of fn()."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    return {"ops": len(events) / calls,
+            "elementwise": _elementwise(events) / calls,
+            "device_ms": sum(ev.time_range.elapsed_us()
+                             for ev in events) / 1e3 / calls}
+
+
+def _host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds a call of fn() over `calls` calls and one
+    synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def chains(p, blocks) -> tuple[dict, dict]:
+    """(chains, wrappers) of a hash level with parameters p on the (B, N)
+    blocks on the card: the device ops of one _unsorted and one
+    ldm_unsorted call, and the K2 and K3 wrappers' host microseconds."""
+    from .ops import glue_kernels as tk
+    N = blocks.shape[1]
+    w = min(p.window, N)
+    pbits = (w - 1).bit_length()
+    stride = tk.ldm_stride(p.ldm or 4, N)
+    if p.sync:
+        key, minz = tk.hash_keys_winmin_sync(blocks, p.widths[0], p.window,
+                                             stride)
+        pos_mask = w - 1
+    else:
+        key, minz = tk.hash_keys_winmin(blocks, p.widths[0], p.window,
+                                        stride)
+        pos_mask = None
+    ops = {"unsorted": _ops_a_call(
+        lambda: tk._unsorted(key, pbits, p.neighbors, pos_mask))}
+    span = p.ldm or 4
+    if p.ldm and blocks.shape[0] % span == 0:
+        ops["ldm_unsorted"] = _ops_a_call(
+            lambda: tk.ldm_unsorted(minz, span, neighbors=1))
+    row = tk._sort_rows(key[:1].contiguous())
+    one_span = minz[:span].contiguous()
+    host = {"neighbor_unsort_keys": _host_us(
+                lambda: tk.neighbor_unsort_keys(row, pbits, p.neighbors,
+                                                pos_mask)),
+            "ldm_keys": _host_us(lambda: tk.ldm_keys(one_span, span,
+                                                     stride))}
+    return ops, host
+
+
 def _write_table(prof, path: str) -> None:
     with open(path, "w") as f:
         f.write(prof.key_averages().table(row_limit=40,
@@ -244,7 +321,12 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
     _write_table(prof, os.path.join(trace_dir, "device_ops.txt"))
     events = _device_events(prof)
     emit("device_ops", batches=10, ops=_top_ops(events),
-         port_kernels=_port_kernels(events, 10, csrc_kernels()))
+         port_kernels=_port_kernels(events, 10, csrc_kernels()),
+         elementwise=_elementwise(events) / 10)
+    if not content and not sections:
+        ops, host = chains(codec.params, blocks)
+        emit("chains", **ops)
+        emit("wrappers", host_us=host, calls=1000)
     del blocks, lengths
 
     # The main path's host-visible steps, one after the other.

@@ -64,6 +64,51 @@ def test_neighbor_unsort_and_ldm_keys(cuda):
                        tk.neighbor_unsort_keys_twin(slk, 15, 2))
 
 
+def _flip_modes(kernel, twin, x):
+    """kernel(x, 0) and kernel(x ^ sign, FLIP) against the twin's."""
+    for a, f in ((x, 0), (x ^ tk._SIGN, tk._FLIP)):
+        assert torch.equal(kernel(a, f), twin(a, f))
+
+
+@pytest.mark.parametrize("neighbors", [1, 2, 3, 7, 100])
+@pytest.mark.parametrize("width", [WINDOW, 4100, 4097])
+def test_neighbor_unsort_keys_flip_modes(cuda, width, neighbors):
+    """Full-resolution rows at every neighbors value, at a width with a
+    part of a CTA (4100) and one of no multiple of 4 (4097, the scalar
+    path), and one row."""
+    x = torch.from_numpy(_blocks()).to(cuda)
+    sk = tk._sort_rows(tk.hash_keys(x, 4, WINDOW))[:, :width].contiguous()
+    for rows in (sk, sk[:1].contiguous()):
+        _flip_modes(lambda a, f: tk.neighbor_unsort_keys(a, 15, neighbors,
+                                                         flip=f),
+                    lambda a, f: tk.neighbor_unsort_keys_twin(
+                        a, 15, neighbors, None, f), rows)
+
+
+@pytest.mark.parametrize("span,B", [(4, 4), (4, 8), (8, 8), (16, 16)])
+def test_ldm_keys_flip_modes(cuda, span, B):
+    """One span (all context the fill), two spans, spans 8 and 16, and
+    1027 samples a block."""
+    x = torch.from_numpy(_blocks(B, seed=span)).to(cuda)
+    stride = tk.ldm_stride(span, N)
+    _, m = tk.hash_keys_winmin(x, 4, WINDOW, stride)
+    for minz in (m, m[:, :32 * 1027].contiguous()):
+        s = tk.ldm_stride(span, minz.shape[1])
+        _flip_modes(lambda a, f: tk.ldm_keys(a, span, s, flip=f),
+                    lambda a, f: tk.ldm_keys_twin(a, span, s, f), minz)
+
+
+def test_unsorted_chains_card_vs_cpu(cuda):
+    """_unsorted and ldm_unsorted (signed sorts, K2 and K3 flipped) on
+    the card equal the same on the CPU."""
+    x = torch.from_numpy(_blocks()).to(cuda)
+    k, m = tk.hash_keys_winmin_sync(x, 6, WINDOW, 32)
+    assert torch.equal(tk._unsorted(k, 15, 1, WINDOW - 1).cpu(),
+                       tk._unsorted(k.cpu(), 15, 1, WINDOW - 1))
+    assert torch.equal(tk.ldm_unsorted(m, 4).cpu(),
+                       tk.ldm_unsorted(m.cpu(), 4))
+
+
 LENGTHS = np.array([N, N - 1, N // 2, 100, 0, N, N, 7], np.int32)
 L1_KERNELS = ("hash_keys_winmin_sync", "neighbor_unsort_keys", "ldm_keys",
               "compact_slots_sync")

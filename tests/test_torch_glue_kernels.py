@@ -112,6 +112,17 @@ def test_sort_rows_is_unsigned():
                                   np.sort(x, axis=1))
 
 
+def test_launch_refuses_cpu_tensors():
+    """A kernel is never handed host pointers, even when its entry point
+    is called past the wrappers' device dispatch."""
+    x = torch.zeros((2, 16), dtype=torch.int32)
+    before = tk.launches["neighbor_unsort_keys"]
+    with pytest.raises(ValueError, match="CUDA device"):
+        tk._launch("neighbor_unsort_keys", x, torch.empty_like(x), 2, 16,
+                   4, 1, 15, 0)
+    assert tk.launches["neighbor_unsort_keys"] == before
+
+
 # --- K1 hash_keys_winmin_sync ----------------------------------------------
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -201,6 +212,131 @@ def test_ldm_unsorted_and_ldm_est():
     assert int((np.asarray(est_ref) > 0).sum()) > 0  # LDM claims exist
     np.testing.assert_array_equal(est.numpy(), np.asarray(est_ref))
     np.testing.assert_array_equal(off.numpy(), np.asarray(off_ref))
+
+
+# --- K2 and K3 with the sign flip ------------------------------------------
+#
+# The main path sorts rows signed; K2 and K3 take the flip word 0x80000000
+# and XOR it into every word they read (K2) and write (both). Under that
+# mapping the twins must give the reference's words: twin(x ^ F, flip=F)
+# == ref(x) ^ F for K2, and twin(flip=F) == ref ^ F for K3; with flip 0
+# they give the reference's words themselves.
+
+F = np.uint32(0x80000000)
+
+
+def _full_rows(B=2, seed=3):
+    """Sorted full-resolution keys (B rows of WINDOW, pbits 15)."""
+    blocks = make_blocks("mixed", B=B, n=WINDOW, seed=seed)
+    return np.sort(np.asarray(gk.hash_keys(jnp.asarray(blocks), 4, WINDOW,
+                                           interpret=True)), axis=1)
+
+
+def _crafted_rows(w=4096, seed=7):
+    """Rows (pbits 12) whose equal hashes run across many 1024-word
+    chunks: sorted over 4 hash values, sorted over one, unsorted."""
+    rng = np.random.default_rng(seed)
+    pos = rng.permutation(w).astype(np.uint64)
+    return np.stack([
+        np.sort((rng.integers(0, 4, w).astype(np.uint64) << 12) | pos),
+        np.sort((np.uint64(5) << 12) | pos),
+        (rng.integers(0, 4, w).astype(np.uint64) << 12)
+        | rng.integers(0, w, w).astype(np.uint64)]).astype(np.uint32)
+
+
+def _k2_case(case):
+    """(sorted keys as u32, pbits, neighbors, pos_mask) of a K2 case."""
+    if case == "pair rows":
+        key, _ = jax_k1(make_blocks("mixed", B=2, n=WINDOW))
+        return np.sort(key, axis=1), 15, 1, WINDOW - 1
+    if case == "one pair row":
+        key, _ = jax_k1(make_blocks("text", B=1, n=WINDOW))
+        return np.sort(key, axis=1), 15, 1, WINDOW - 1
+    if case == "ldm rows":
+        _, minz = jax_k1(make_blocks("mixed"))
+        lk = np.asarray(gk.ldm_keys(jnp.asarray(minz), 4, 32,
+                                    interpret=True))
+        return np.sort(lk, axis=1), 15, 1, None
+    if case.startswith("full rows"):
+        return _full_rows(), 15, int(case.split()[-1]), None
+    if case.startswith("width"):
+        return _full_rows()[:, :int(case.split()[-1])].copy(), 15, 2, None
+    return _crafted_rows(), 12, int(case.split()[-1]), None
+
+
+K2_CASES = ["pair rows", "one pair row", "ldm rows", "full rows nb 2",
+            "full rows nb 3", "full rows nb 7", "full rows nb 100",
+            "width 4100", "width 4097", "crafted nb 1", "crafted nb 3",
+            "crafted nb 100"]
+
+
+@pytest.mark.parametrize("case", K2_CASES)
+def test_neighbor_unsort_keys_flip_modes(case):
+    sk, pbits, nb, pmask = _k2_case(case)
+    want = np.asarray(gk.neighbor_unsort_keys(jnp.asarray(sk), pbits, nb,
+                                              pos_mask=pmask,
+                                              interpret=True))
+    assert (want & ((1 << (32 - pbits)) - 1)).any()  # some entry claims
+    got = tk.neighbor_unsort_keys(i32(sk), pbits, nb, pmask, flip=0)
+    np.testing.assert_array_equal(u32(got), want)
+    got = tk.neighbor_unsort_keys(i32(sk ^ F), pbits, nb, pmask,
+                                  flip=tk._FLIP)
+    np.testing.assert_array_equal(u32(got), want ^ F)
+    np.testing.assert_array_equal(
+        u32(tk.neighbor_unsort_keys(i32(sk), pbits, nb, pmask)), want)
+
+
+K3_CASES = {"span 4": (4, 8, 8192), "span 8": (8, 8, 8192),
+            "span 16": (16, 32, 4096), "one span": (4, 4, 8192),
+            "two spans": (4, 8, 8192),
+            "1027 samples a block": (4, 8, 32 * 1027)}
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_ldm_keys_flip_modes(case):
+    span, B, n = K3_CASES[case]
+    stride = tk.ldm_stride(span, n)
+    rng = np.random.default_rng(len(case))
+    minz = rng.integers(0, 1 << 32, (B, n), np.uint64).astype(np.uint32)
+    minz[0, ::3] = 0xFFFFFFFF
+    want = np.asarray(gk.ldm_keys(jnp.asarray(minz), span, stride,
+                                  interpret=True))
+    for flip in (0, tk._FLIP):
+        got = tk.ldm_keys(i32(minz), span, stride, flip=flip)
+        np.testing.assert_array_equal(u32(got), want ^ np.uint32(flip))
+    np.testing.assert_array_equal(u32(tk.ldm_keys(i32(minz), span, stride)),
+                                  want)
+
+
+@pytest.mark.parametrize("case", ["pair rows", "full rows nb 2",
+                                  "crafted nb 3"])
+def test_unsorted_equals_reference(case):
+    """_unsorted (XOR, signed sort, K2 flipped, signed sort, XOR) gives
+    the reference's unsigned sort -> neighbor_unsort_keys -> sort."""
+    sk, pbits, nb, pmask = _k2_case(case)
+    key = np.random.default_rng(1).permuted(sk, axis=1)
+    want = np.asarray(gk._sort_rows(gk.neighbor_unsort_keys(
+        gk._sort_rows(jnp.asarray(key)), pbits, nb, pos_mask=pmask,
+        interpret=True)))
+    np.testing.assert_array_equal(u32(tk._unsorted(i32(key), pbits, nb,
+                                                   pmask)), want)
+
+
+@pytest.mark.parametrize("span", [4, 8, 16])
+def test_ldm_unsorted_equals_reference(span):
+    """ldm_unsorted (K3 flipped, signed sort, K2 flipped, signed sort,
+    XOR) gives the reference's ldm_unsorted."""
+    n = 8192
+    blocks = make_blocks("text", B=2 * span, n=n, seed=span)
+    stride = tk.ldm_stride(span, n)
+    _, minz = jax_k1(blocks, stride=stride, window=n)
+    want = np.asarray(gk.ldm_unsorted(jnp.asarray(blocks), span, 1,
+                                      interpret=True,
+                                      minz=jnp.asarray(minz)))
+    pbits = (want.shape[1] - 1).bit_length()
+    assert (want & ((1 << (32 - pbits)) - 1)).any()  # some sample claims
+    np.testing.assert_array_equal(u32(tk.ldm_unsorted(i32(minz), span, 1)),
+                                  want)
 
 
 # --- K4 compact_slots_sync -------------------------------------------------

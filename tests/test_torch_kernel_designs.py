@@ -1,4 +1,5 @@
-"""The designs of the B14 and B19 CUDA kernels, checked on the CPU.
+"""The designs of the K2, K3, B7, B13, B14 and B19 CUDA kernels, checked
+on the CPU.
 
 A CUDA kernel cannot run here, so what its correctness rests on is held
 against the twins in numpy:
@@ -24,6 +25,16 @@ against the twins in numpy:
     a 64-position tile that crosses many tiles; it must equal
     `_offset1_runs`, the twins, and the JAX package's finalize_candidates
     and finalize_verified (interpret mode) on crafted rows.
+  * K2 and K3 (csrc/l1_kernels.cu) take a flip word, XORed into K2's
+    reads and both kernels' writes. `_k2_model` runs K2's launches with
+    their 32-bit index arithmetic (each thread's 8-word window of its 4
+    words and the 4 before them, reads past the window from the row, a
+    part of a CTA at a row's end, the scalar path of widths that are no
+    multiple of 4, groups of 65535 rows);
+    `_k3_model` runs K3's (one thread a sample, its two writes, span row
+    0's context from the last span). Each must write every output word
+    once (K3 read every sample once) and equal the twin in both flip
+    modes, at the kernels' CTA sizes and at small ones.
 Everything compared is an integer, so the tolerance is 0.
 """
 
@@ -701,3 +712,191 @@ def test_tiled_scan_needs_its_whole_look_ahead(T, threads):
     short = _tiled_runs(x, blen, zero, zero, T, threads,
                         look=(tk.RUN_CAP + 1) // T - 1)
     assert not np.array_equal(full[0], short[0])
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3: 32-bit index arithmetic, flip words, one read and one write
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+FLIPS = [0, 0x80000000]
+
+
+def _l1_constant(name: str) -> int:
+    with open(os.path.join(_build.CSRC, "l1_kernels.cu")) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             f.read()).group(1))
+
+
+K2_THREADS = _l1_constant("kK2Threads")
+K3_THREADS = _l1_constant("kK3Threads")
+MAX_GRID = _l1_constant("kMaxGridY")
+
+
+def _k2_claims(sh, sp, j, neighbors, word, pbits, pmask):
+    """off for each (sh, sp) at row position j; word(k) gives the words
+    k back (valid where k <= j), as the kernel reads them."""
+    off = np.zeros_like(sh)
+    for k in range(1, neighbors + 1):
+        q = word(k)
+        pp = q & pmask
+        hit = (k <= j) & (off == 0) & ((q >> pbits) == sh) & (pp < sp)
+        off = np.where(hit, sp - pp, off)
+    return off
+
+
+def _k2_model(sk, pbits, neighbors, pmask, flip, threads=K2_THREADS,
+              max_grid=MAX_GRID):
+    """neighbor_unsort_keys_kernel and its launches, thread by thread (in
+    numpy, all threads of a row at once): u32 rows in; the outputs and how
+    often each output word was written."""
+    rows, w = sk.shape
+    out = np.zeros(sk.shape, np.int64)
+    writes = np.zeros(sk.shape, np.int64)
+    vec = w % 4 == 0
+    per = 4 * threads if vec else threads
+    chunks = -(-w // per)
+    shift = 32 - pbits
+    i = np.arange(chunks * threads)  # blockIdx.x * kK2Threads + threadIdx.x
+    for r0 in range(0, rows, max_grid):
+        for y in range(min(rows - r0, max_grid)):
+            x = sk[r0 + y].astype(np.int64) ^ flip  # every read flipped
+            row = writes[r0 + y], out[r0 + y]
+            if vec:
+                t = 4 * i[4 * i < w]
+                # The register window: a = words t-4..t-1 (0 at t = 0),
+                # b = words t..t+3, from two 16-byte loads.
+                win = x[np.clip(t[:, None] + np.arange(-4, 4), 0, w - 1)]
+                win[t < 4, :4] = 0
+                for e in range(4):
+                    j = t + e
+                    sv = win[:, 4 + e]
+                    word = (lambda k, e=e, j=j: win[:, 4 + e - k] if k <= 4
+                            else x[np.maximum(j - k, 0)])
+                    off = _k2_claims(sv >> pbits, sv & pmask, j, neighbors,
+                                     word, pbits, pmask)
+                    row[0][j] += 1
+                    row[1][j] = (((sv << shift) | off) & M32) ^ flip
+            else:
+                j = i[i < w]
+                sv = x[j]
+                off = _k2_claims(sv >> pbits, sv & pmask, j, neighbors,
+                                 lambda k: x[np.maximum(j - k, 0)], pbits,
+                                 pmask)
+                row[0][j] += 1
+                row[1][j] = (((sv << shift) | off) & M32) ^ flip
+    return out, writes
+
+
+def _k2_rows(case: str):
+    """(u32 rows, pbits, pos_mask): sorted rows with runs of equal hashes
+    across many chunks (4 hash values over a row, one, 64), unsorted rows,
+    a width of no multiple of 4 (the scalar path) and one that ends in a
+    part of a CTA (4100: 4 words past a whole number of CTAs)."""
+    rng = np.random.default_rng(len(case))
+    w = int(case.split()[1]) if case.startswith("width") else 4096
+    pos = rng.permutation(w).astype(np.int64)
+    if case == "unsorted":
+        rows = [(rng.integers(0, 4, w) << 13) | rng.integers(0, w, w)
+                for _ in range(3)]
+    else:
+        rows = [np.sort((rng.integers(0, 4, w) << 13) | pos),
+                np.sort((3 << 13) | pos), np.sort((rng.integers(0, 64, w)
+                                                   << 13) | pos)]
+    return np.stack(rows).astype(np.uint32), 13, (1 << 13) - 1
+
+
+@pytest.mark.parametrize("flip", FLIPS, ids=["flip0", "flip"])
+@pytest.mark.parametrize("neighbors", [0, 1, 2, 3, 7, 100])
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "width 4097",
+                                  "width 4100"])
+@pytest.mark.parametrize("threads,max_grid", [(K2_THREADS, MAX_GRID),
+                                              (4, 2)],
+                         ids=["kernel-launch", "4-thread-ctas"])
+def test_k2_model_equals_twin(case, neighbors, flip, threads, max_grid):
+    """The model of the kernel (register window, reads past it, chunk and
+    row-group edges, the scalar path) writes each output word once and
+    equals the twin, in both flip modes; 4-thread CTAs and groups of two
+    rows put many chunk and launch edges inside the rows."""
+    sk, pbits, pmask = _k2_rows(case)
+    x = sk ^ np.uint32(flip)
+    got, writes = _k2_model(x, pbits, neighbors, pmask, flip, threads,
+                            max_grid)
+    assert (writes == 1).all()
+    twin = tk.neighbor_unsort_keys_twin(
+        torch.from_numpy(x.view(np.int32)), pbits, neighbors, pmask, flip)
+    np.testing.assert_array_equal(got, twin.numpy().view(np.uint32))
+    if neighbors:
+        assert ((got ^ flip) & ((1 << (32 - pbits)) - 1)).any()  # claims
+
+
+def _k3_model(minz, span, stride, flip, threads=K3_THREADS,
+              max_grid=MAX_GRID):
+    """ldm_keys_kernel and its launches, thread by thread: the outputs,
+    how often each output word was written and each sample read."""
+    B, n = minz.shape
+    spb = n // stride
+    nspans = B // span
+    half = span * spb
+    pbits = (2 * half - 1).bit_length()
+    out = np.zeros((nspans, 2 * half), np.int64)
+    writes = np.zeros(out.shape, np.int64)
+    reads = np.zeros((B, spb), np.int64)
+    chunks = -(-spb // threads)
+
+    def key(m, column):
+        return ((((m * 2654435761) & M32) >> pbits << pbits) | column) ^ flip
+
+    q = np.arange(chunks * threads)  # blockIdx.x * kK3Threads + threadIdx.x
+    q = q[q < spb]
+    for r0 in range(0, nspans, max_grid):
+        for z in range(min(nspans - r0, max_grid)):  # blockIdx.z
+            r = r0 + z
+            last = r + 1 == nspans
+            for bs in range(span):  # blockIdx.y
+                c = bs * spb + q
+                b = r * span + bs
+                m = minz[b, q * stride].astype(np.int64)
+                reads[b, q] += 1
+                out[r, half + c] = key(m, half + c)
+                writes[r, half + c] += 1
+                ctx = 0 if last else r + 1
+                out[ctx, c] = key(np.full_like(m, M32) if last else m, c)
+                writes[ctx, c] += 1
+    return out, writes, reads
+
+
+K3_SHAPES = {"span 4": (4, 8, 8192), "span 8": (8, 16, 8192),
+             "span 16": (16, 32, 8192), "one span": (4, 4, 8192),
+             "1027 samples a block": (4, 12, 32 * 1027)}
+
+
+@pytest.mark.parametrize("flip", FLIPS, ids=["flip0", "flip"])
+@pytest.mark.parametrize("case", sorted(K3_SHAPES))
+@pytest.mark.parametrize("threads,max_grid", [(K3_THREADS, MAX_GRID),
+                                              (32, 1)],
+                         ids=["kernel-launch", "32-thread-ctas"])
+def test_k3_model_equals_twin(case, flip, threads, max_grid):
+    """The model reads each sample once, writes each output word once
+    (span row 0's context from the last span's threads) and equals the
+    twin, in both flip modes; launches of one span row each exercise the
+    row-group loop."""
+    span, B, n = K3_SHAPES[case]
+    stride = tk.ldm_stride(span, n)
+    rng = np.random.default_rng(B + n)
+    minz = rng.integers(0, 1 << 32, (B, n), np.uint64).astype(np.uint32)
+    got, writes, reads = _k3_model(minz, span, stride, flip, threads,
+                                   max_grid)
+    assert (writes == 1).all() and (reads == 1).all()
+    twin = tk.ldm_keys_twin(torch.from_numpy(minz.view(np.int32)), span,
+                            stride, flip)
+    np.testing.assert_array_equal(got, twin.numpy().view(np.uint32))
+
+
+def test_rejected_designs_script_needs_a_card(monkeypatch):
+    """designs/k2_k3.py times K2's and K3's rejected designs beside csrc's
+    kernels on a card; without one it stops before it builds anything."""
+    from qat_zstd_plugin_tpu_torch.designs import k2_k3
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA device"):
+        k2_k3.main([])

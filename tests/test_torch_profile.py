@@ -60,3 +60,16 @@ def test_port_kernels_split_by_name_per_batch():
         "fse_maps_kernel": {"ms": 0.2, "launches": 1.0},
         "sort_global_kernel<4>": {"ms": 0.05, "launches": 0.5},
         "finalize_tile_kernel<VerifiedPass>": {"ms": 0.01, "launches": 0.5}}
+
+
+def test_elementwise_counts_pytorch_elementwise_kernels():
+    """The XOR passes around the row sorts are PyTorch elementwise
+    kernels; the sorts and the port's kernels are not."""
+    evs = [_ev("void at::native::vectorized_elementwise_kernel<4, "
+               "at::native::BitwiseXorFunctor<int>>()", 0, 1),
+           _ev("void at::native::unrolled_elementwise_kernel<>()", 1, 2),
+           _ev("void at_cuda_detail::cub::DeviceSegmentedRadixSortKernel<>"
+               "()", 2, 5),
+           _ev("void (anonymous namespace)::neighbor_unsort_keys_kernel<"
+               "true>(unsigned int const*)", 5, 6)]
+    assert profile_l1._elementwise(evs) == 2
