@@ -31,8 +31,13 @@ Run from the repository root on a machine with one CUDA device. Phases
      (copy_ms); K3 at spans 4 (B=128), 8 and 16 (B=64), on one span, two
      spans and 1027 samples a block, with its sector floor (one 32-byte
      sector read a sample) and the same sampled words copied out by
-     torch (gather_ms); B9 at strides 32 and 64 on corpus,
-     random and mixed bytes; B10 on the L5 and L12 candidate lengths of
+     torch (gather_ms); B5 at widths 4, 5, 6 and 8, B6 and B9 at every
+     power-of-two stride from 1 to 4096, each on corpus, random and
+     mixed bytes, on 37 rows of 65536, 64 rows of 4100 and one row of 8
+     bytes (B5 and B6 with flip 0 and with the sign flip), each case also
+     over 20 back-to-back calls (stream_ms) beside torch's widening copy
+     of the same bytes (copy_ms: to int32 for B5 and B9, to int64 for
+     B6); B10 on the L5 and L12 candidate lengths of
      the B=64 batch and on crafted rows, lazy on and off; B11 and B13
      (full and ragged lengths) on corpus, random and mixed bytes; B7 and
      B13 also timed on corpus, random and mixed bytes apart, and at
@@ -126,6 +131,7 @@ SORT_SRC = "qat_zstd_plugin_tpu_torch/csrc/sort_kernels.cu"
 REF = "qat_zstd_plugin_tpu/ops/glue_kernels.py"
 LIT_REF = "qat_zstd_plugin_tpu/ops/literals_kernel.py"
 HYBRID_LEVELS = (1, 9)  # hybrid device entropy: the hash and content paths
+WINMIN_STRIDES = tuple(1 << s for s in range(13))  # B6's and B9's: 1-4096
 MAX_SEQ = 16384  # GpuCodec's max_seq, bench.py's hybrid row
 # Each CUDA kernel: its source and the Pallas kernel it replaces.
 KERNELS = {
@@ -412,6 +418,18 @@ def _test_bytes(torch, corpus, rng):
     return rand, mixed
 
 
+def _winmin_inputs(torch, corpus, rand, mixed):
+    """(what, blocks) of B5's, B6's and B9's cases: corpus, random and
+    mixed bytes at B=64 x 128 KiB, then 37 rows of 65536 and 64 rows of
+    4100 mixed bytes (a row ending inside a warp's tile) and one row of
+    8 bytes."""
+    return [("corpus bytes", corpus), ("random bytes", rand),
+            ("mixed bytes", mixed),
+            ("B=37, N=65536", mixed[:37, :65536].contiguous()),
+            ("B=64, N=4100", mixed[:, :4100].contiguous()),
+            ("one row of 8 bytes", mixed[:1, :8].contiguous())]
+
+
 SPIN_CYCLES = 4_000_000  # about 2 ms of the card's clock (1.98 GHz)
 
 
@@ -472,30 +490,46 @@ def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
     ragged = _ragged(torch, rng, B, N, dev)
     case = Cases(results)
 
-    # B5 at every width, on the corpus and on random bytes.
+    # B5 at every width and B6 at every stride, on corpus, random and
+    # mixed bytes and the ragged shapes, in both flip modes; timed on the
+    # mixed bytes with the main path's flip, beside torch's widening copy
+    # of the same bytes (B5: n read, 4n written; B6: n read, 8n written).
+    inputs = _winmin_inputs(torch, corpus, rand, mixed)
+    flips = (0, tk._FLIP)
     for width in (4, 5, 6, 8):
-        err = max(exact(torch, tk.hash_keys(x, width, WINDOW),
-                        tk.hash_keys_twin(x, width, WINDOW),
-                        f"hash_keys width {width}") for x in (corpus, rand))
-        case("hash_keys", f"width {width}", err, 5 * nbytes(corpus),
-             lambda: tk.hash_keys(corpus, width, WINDOW),
-             lambda: tk.hash_keys_twin(corpus, width, WINDOW),
-             main=width == 6)
+        err = max(exact(torch, tk.hash_keys(x, width, WINDOW, flip=f),
+                        tk.hash_keys_twin(x, width, WINDOW, f),
+                        f"hash_keys width {width} ({what}, flip {f:#x})")
+                  for what, x in inputs for f in flips)
+        run = lambda: tk.hash_keys(mixed, width, WINDOW, flip=tk._FLIP)
+        case("hash_keys", f"width {width}", err, 5 * nbytes(mixed), run,
+             lambda: tk.hash_keys_twin(mixed, width, WINDOW, tk._FLIP),
+             main=width == 6, stream_ms=stream_ms(torch, run),
+             copy_ms=stream_ms(torch, lambda: mixed.to(torch.int32)))
 
-    # B6 at the strides of spans 4/8 (32) and 16 (64).
+    # B6 at every stride (32 and 64 are spans 4/8 and 16's): its main case
+    # is level 4's stride 64.
     minz = {}
-    for stride in (32, 64):
+    for stride in WINMIN_STRIDES:
         err = 0
-        for x in (rand, mixed):
-            k, m = tk.hash_keys_winmin(x, 4, WINDOW, stride)
-            tw_k, tw_m = tk.hash_keys_winmin_twin(x, 4, WINDOW, stride)
-            err = max(err, exact(torch, k, tw_k, "hash_keys_winmin keys"),
-                      exact(torch, m, tw_m, f"hash_keys_winmin minz {stride}"))
-        minz[stride] = m
+        for what, x in inputs:
+            for f in flips:
+                k, m = tk.hash_keys_winmin(x, 4, WINDOW, stride, flip=f)
+                tw_k, tw_m = tk.hash_keys_winmin_twin(x, 4, WINDOW, stride, f)
+                err = max(err, exact(torch, k, tw_k,
+                                     f"hash_keys_winmin keys {stride} "
+                                     f"({what}, flip {f:#x})"),
+                          exact(torch, m, tw_m,
+                                f"hash_keys_winmin minz {stride} ({what})"))
+        minz[stride] = tk.hash_keys_winmin(mixed, 4, WINDOW, stride)[1]
+        run = lambda: tk.hash_keys_winmin(mixed, 4, WINDOW, stride,
+                                          flip=tk._FLIP)
         case("hash_keys_winmin", f"stride {stride}", err, 9 * nbytes(mixed),
-             lambda: tk.hash_keys_winmin(mixed, 4, WINDOW, stride),
-             lambda: tk.hash_keys_winmin_twin(mixed, 4, WINDOW, stride),
-             main=stride == 64)
+             run,
+             lambda: tk.hash_keys_winmin_twin(mixed, 4, WINDOW, stride,
+                                              tk._FLIP),
+             main=stride == 64, stream_ms=stream_ms(torch, run),
+             copy_ms=stream_ms(torch, lambda: mixed.to(torch.int64)))
 
     # The LDM estimates of spans 4 and 16 for B8.
     ests = {span: tk._ldm_est(tk.ldm_unsorted(
@@ -605,15 +639,20 @@ def content_kernels_vs_twins(torch, tk, pk, mp, blocks_np: np.ndarray,
     rand, mixed = _test_bytes(torch, corpus, rng)
     case = Cases(results)
 
-    # B9 at the strides of spans 4 (32) and 16 (64).
-    for stride in (32, 64):
+    # B9 at every stride on corpus, random and mixed bytes and the ragged
+    # shapes; timed on the mixed bytes beside torch's widening copy (n
+    # read, 4n written). Its main case is spans 4 and 8's stride 32.
+    inputs = _winmin_inputs(torch, corpus, rand, mixed)
+    for stride in WINMIN_STRIDES:
         err = max(exact(torch, tk.ldm_winmin(x, stride),
                         tk.ldm_winmin_twin(x, stride),
-                        f"ldm_winmin stride {stride}")
-                  for x in (corpus, rand, mixed))
-        case("ldm_winmin", f"stride {stride}", err, 5 * nbytes(corpus),
-             lambda: tk.ldm_winmin(corpus, stride),
-             lambda: tk.ldm_winmin_twin(corpus, stride), main=stride == 32)
+                        f"ldm_winmin stride {stride} ({what})")
+                  for what, x in inputs)
+        run = lambda: tk.ldm_winmin(mixed, stride)
+        case("ldm_winmin", f"stride {stride}", err, 5 * nbytes(mixed), run,
+             lambda: tk.ldm_winmin_twin(mixed, stride), main=stride == 32,
+             stream_ms=stream_ms(torch, run),
+             copy_ms=stream_ms(torch, lambda: mixed.to(torch.int32)))
 
     # B10 on the L5 and L12 parse inputs of the batch and on crafted rows.
     lengths = torch.full((B,), N, dtype=torch.int32, device=dev)

@@ -49,101 +49,259 @@ inline unsigned blocks_for(long long total) {
 // hash: B5 hash_keys (kKeys), B6 hash_keys_winmin (kKeys and kMinz) in
 // dense_kernels.cu, B9 ldm_winmin (kMinz only) in content_kernels.cu.
 //
-// One thread per 4 consecutive positions; a CTA covers kHashSpan
-// positions of one row. It stages the tile's bytes plus a halo in shared
-// memory (zero past the row's end, as the reference's shifted reads), and
-// each thread writes (hash_w(i) << pbits | i & pmask) for its four
-// positions with one 16-byte store: the (rows * nseg, w) key layout is the
-// (rows, n) row-major one. With kMinz the CTA first hashes every 8-gram of
-// the tile plus a stride-wide halo once into shared memory (0xFFFFFFFF at
-// or past n, the reference's fill) and each thread writes minz[i..i+3],
-// the minimum over [i+k, i+k+stride): the inner [i+3, i+stride) is shared
-// by the four. Bound: reads n bytes, writes 4n (keys) and 4n (minz) per
-// row.
+// keys[i] = (hash_w(i) >> pbits << pbits | i & pmask) ^ flip in the
+// (rows * nseg, w) layout, which is the (rows, n) row-major one; minz[i]
+// = the unsigned minimum of h8 over [i, i + stride), h8 the 8-gram hash
+// with bytes past the row read as 0 and 0xFFFFFFFF at or past n.
+//
+// Bound: device memory, n bytes read and 4n written per output plane
+// (B6 9n, B9 and B5 5n bytes a row). The design makes a position's work
+// the same at every stride and touches no shared memory:
+//  - one warp per tile of kHashRows rows of kRowSpan = 128 positions of
+//    a block row, lane l holding positions 4l..4l+3 of each row; no
+//    warp waits on another, so there is no __syncthreads;
+//  - loads: lane l loads word l of each row of the tile, of the row
+//    after it (the halo, for the minima) and, with kMinz, of the row
+//    after that (the halo's last grams), all at once: each warp load is
+//    one whole 128-byte line (16-byte loads would need the words moved
+//    between lanes to their rows), 0 past the row's end;
+//  - grams: the lane's next two words come from lanes l+1 and l+2 by
+//    shuffle (lanes 30 and 31 take lanes 0 and 1's words of the next
+//    row: each source lane sends the row its reader needs), the
+//    big-endian words at 4l+k and 4l+k+4 are __byte_perm of them, and
+//    h8 and the width's hash are computed from those in registers;
+//  - the windowed minimum, van Herk/Gil-Werman: the row is cut into
+//    blocks of S = stride positions (L = S/4 lanes) and minz[i] =
+//    min(suffix[i], prefix[i + S - 1]), suffix the minimum from i to its
+//    block's end and prefix from its block's start to i. The lane's own
+//    four first, then segmented shuffle scans over the block's L lanes
+//    (log2 L steps each, __shfl_*_sync's width); prefix[i + S - 1] lies L
+//    lanes on (for lane l + L >= 32 in the next row's lane l + L - 32),
+//    one shuffle a position. Rows go in order and each keeps its
+//    prefixes for the row before it; the tile's last row takes the halo
+//    row's. S = 1 and 2 take h8 and min(h8[i], h8[i+1]) directly. S >
+//    128 (up to 4096; no level takes it): the kernel writes the S = 128
+//    plane into scratch and winmin_stretch_kernel takes, for each i, the
+//    minimum of that plane at i, i + 128, ..., i + S - 128;
+//  - stores: one 16-byte store per output a lane and row: a warp writes
+//    512 contiguous bytes.
 // ---------------------------------------------------------------------------
 
-constexpr int kHashThreads = 256;
-constexpr int kHashSpan = 4 * kHashThreads;
+constexpr int kHashWarps = 4;   // warps a CTA
+constexpr int kHashRows = 8;    // rows a warp tile
+constexpr int kRowSpan = 128;   // positions a row: 32 lanes x 4
+constexpr int kWarpSpan = kHashRows * kRowSpan;
+constexpr int kHashSpan = kHashWarps * kWarpSpan;  // positions a CTA
+constexpr int kMaxStride = 4096;
 
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// The big-endian word of bytes k..k+3 of the little-endian pair (lo, hi).
+__device__ __forceinline__ uint32_t be_at(uint32_t lo, uint32_t hi, int k) {
+    return __byte_perm(lo, hi, 0x0123u + 0x1111u * unsigned(k));
+}
+
+// gram_hash's arithmetic (before the shift) from the big-endian words a
+// and b at the gram's first and fifth byte.
+__device__ __forceinline__ uint32_t hash_words(uint32_t a, uint32_t b,
+                                               int width) {
+    const uint32_t h = a * kC1;
+    if (width == 4) return h;
+    if (width == 5) return h ^ (((b >> 24) * kC2) << 11);
+    if (width == 6) return h ^ ((b >> 16) * kC2);
+    return h ^ (b * kC2 * kC3);
+}
+
+__device__ __forceinline__ uint4 min4(uint4 a, uint32_t b) {
+    return make_uint4(min(a.x, b), min(a.y, b), min(a.z, b), min(a.w, b));
+}
+
+struct HashArgs {
+    uint32_t* keys;  // the row's keys (kKeys)
+    int n, width, pbits;
+    uint32_t pmask, flip;
+};
+
+// One row of a warp tile: lane `lane` at positions i..i+3 (i % 4 == 0)
+// with its word `own` of the row and `next` of the row after. Writes the
+// keys when `write_keys` is set; returns h8 (kEmpty at or past n).
 template <bool kKeys, bool kMinz>
-__global__ void __launch_bounds__(kHashThreads)
-hash_keys_kernel(const uint8_t* __restrict__ blocks,
-                 uint32_t* __restrict__ keys, uint32_t* __restrict__ minz,
-                 int n, int width, int pbits, uint32_t pmask, int stride) {
-    extern __shared__ uint32_t smem[];
-    const int nh = kMinz ? kHashSpan + stride : 0;  // h8 entries
-    uint32_t* h8 = smem;
-    uint8_t* bytes = reinterpret_cast<uint8_t*>(smem + nh);
-    const int nb = (kMinz ? nh : kHashSpan) + 7;
-    const int row = blockIdx.y;
-    const int base = blockIdx.x * kHashSpan;
-    const uint8_t* x = blocks + size_t(row) * n;
+__device__ __forceinline__ uint4 tile_row(const HashArgs& a, uint32_t own,
+                                          uint32_t next, int lane, int i,
+                                          bool write_keys) {
+    const uint32_t b = __shfl_sync(kFull, lane >= 1 ? own : next,
+                                   (lane + 1) & 31);
+    const uint32_t c = __shfl_sync(kFull, lane >= 2 ? own : next,
+                                   (lane + 2) & 31);
+    uint32_t lo[4], hi[4];  // big-endian words at i + k and i + k + 4
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        lo[k] = be_at(own, b, k);
+        hi[k] = be_at(b, c, k);
+    }
+    if (kKeys && write_keys && i < a.n) {  // n % 4 == 0: all four are in
+        uint32_t k4[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            k4[k] = ((hash_words(lo[k], hi[k], a.width) >> a.pbits
+                      << a.pbits) | (uint32_t(i + k) & a.pmask)) ^ a.flip;
+        *reinterpret_cast<uint4*>(a.keys + i) =
+            make_uint4(k4[0], k4[1], k4[2], k4[3]);
+    }
+    if (!kMinz || i >= a.n) return make_uint4(kEmpty, kEmpty, kEmpty, kEmpty);
+    return make_uint4(hash_words(lo[0], hi[0], 8), hash_words(lo[1], hi[1], 8),
+                      hash_words(lo[2], hi[2], 8), hash_words(lo[3], hi[3], 8));
+}
 
-    for (int j = threadIdx.x; j < nb; j += kHashThreads) {
-        const int p = base + j;
-        bytes[j] = p < n ? x[p] : 0;
+// Prefix and suffix minima of h within blocks of L lanes (4L positions):
+// the lane's own four, then segmented shuffle scans over the block.
+__device__ __forceinline__ void block_scans(uint4 h, int lane, int L,
+                                            uint4& pre, uint4& suf) {
+    pre.x = h.x;
+    pre.y = min(pre.x, h.y);
+    pre.z = min(pre.y, h.z);
+    pre.w = min(pre.z, h.w);
+    suf.w = h.w;
+    suf.z = min(h.z, suf.w);
+    suf.y = min(h.y, suf.z);
+    suf.x = min(h.x, suf.y);
+    uint32_t ip = pre.w, is = suf.x;  // inclusive over the block's lanes
+    for (int d = 1; d < L; d *= 2) {
+        ip = min(ip, __shfl_up_sync(kFull, ip, d, L));
+        is = min(is, __shfl_down_sync(kFull, is, d, L));
     }
-    __syncthreads();
-    if (kMinz) {
-        for (int j = threadIdx.x; j < nh; j += kHashThreads)
-            h8[j] = base + j < n ? gram_hash(bytes + j, 8, 32) : kEmpty;
-        __syncthreads();
-    }
+    uint32_t ep = __shfl_up_sync(kFull, ip, 1, L);  // the lanes before
+    uint32_t es = __shfl_down_sync(kFull, is, 1, L);  // the lanes after
+    if ((lane & (L - 1)) == 0) ep = kEmpty;
+    if ((lane & (L - 1)) == L - 1) es = kEmpty;
+    pre = min4(pre, ep);
+    suf = min4(suf, es);
+}
 
-    const int t = 4 * threadIdx.x;
-    const int i = base + t;
-    if (i >= n) return;  // n % 4 == 0: positions i..i+3 are all in the row
-    const size_t at = (size_t(row) * n + i) >> 2;
-    if (kKeys) {
-        const int hbits = 32 - pbits;
-        uint4 k;
-        k.x = (gram_hash(bytes + t, width, hbits) << pbits) |
-              (uint32_t(i) & pmask);
-        k.y = (gram_hash(bytes + t + 1, width, hbits) << pbits) |
-              (uint32_t(i + 1) & pmask);
-        k.z = (gram_hash(bytes + t + 2, width, hbits) << pbits) |
-              (uint32_t(i + 2) & pmask);
-        k.w = (gram_hash(bytes + t + 3, width, hbits) << pbits) |
-              (uint32_t(i + 3) & pmask);
-        reinterpret_cast<uint4*>(keys)[at] = k;
+// minz at the lane's four positions of a row from its h8, prefixes and
+// suffixes and the next row's h8 and prefixes.
+__device__ __forceinline__ uint4 window_min(uint4 h, uint4 pre, uint4 suf,
+                                            uint4 hn, uint4 pn, int lane,
+                                            int stride) {
+    if (stride >= 4) {
+        // prefix[i + S - 1]: at k > 0 lane + L's prefix k - 1, at k = 0
+        // lane + L - 1's prefix 3; the source lane sends this row's
+        // prefix when its reader is in this row, else the next row's.
+        const int L = stride >> 2;
+        const int up = (lane + L) & 31;
+        const uint32_t q0 = __shfl_sync(kFull, lane >= L ? pre.x : pn.x, up);
+        const uint32_t q1 = __shfl_sync(kFull, lane >= L ? pre.y : pn.y, up);
+        const uint32_t q2 = __shfl_sync(kFull, lane >= L ? pre.z : pn.z, up);
+        const uint32_t q3 = __shfl_sync(kFull, lane >= L - 1 ? pre.w : pn.w,
+                                        (lane + L - 1) & 31);
+        return make_uint4(min(suf.x, q3), min(suf.y, q0), min(suf.z, q1),
+                          min(suf.w, q2));
     }
-
-    if (kMinz) {
-        uint4 m;
-        if (stride >= 4) {
-            uint32_t inner = kEmpty;  // min over [t+3, t+stride)
-            for (int q = 3; q < stride; ++q) inner = min(inner, h8[t + q]);
-            const uint32_t a0 = h8[t], a1 = h8[t + 1], a2 = h8[t + 2];
-            const uint32_t b0 = h8[t + stride], b1 = h8[t + stride + 1],
-                           b2 = h8[t + stride + 2];
-            m.x = min(inner, min(a0, min(a1, a2)));
-            m.y = min(inner, min(a1, min(a2, b0)));
-            m.z = min(inner, min(a2, min(b0, b1)));
-            m.w = min(inner, min(b0, min(b1, b2)));
-        } else {
-            uint32_t v[4] = {kEmpty, kEmpty, kEmpty, kEmpty};
-            for (int p = 0; p < 4; ++p)
-                for (int q = 0; q < stride; ++q)
-                    v[p] = min(v[p], h8[t + p + q]);
-            m = make_uint4(v[0], v[1], v[2], v[3]);
-        }
-        reinterpret_cast<uint4*>(minz)[at] = m;
+    if (stride == 2) {
+        const uint32_t h4 = __shfl_sync(kFull, lane >= 1 ? h.x : hn.x,
+                                        (lane + 1) & 31);
+        return make_uint4(min(h.x, h.y), min(h.y, h.z), min(h.z, h.w),
+                          min(h.w, h4));
     }
+    return h;
 }
 
 template <bool kKeys, bool kMinz>
-int launch_hash_keys(const void* blocks, void* keys, void* minz, int rows,
-                     int n, int width, int pbits, int pmask, int stride,
-                     void* stream) {
-    const int nh = kMinz ? kHashSpan + stride : 0;
-    const int nb = (kMinz ? nh : kHashSpan) + 7;
-    const size_t smem = size_t(nh) * 4 + ((size_t(nb) + 3) & ~size_t(3));
+__global__ void __launch_bounds__(kHashWarps * 32)
+hash_keys_kernel(const uint8_t* __restrict__ blocks,
+                 uint32_t* __restrict__ keys, uint32_t* __restrict__ minz,
+                 int n, int width, int pbits, uint32_t pmask, int stride,
+                 uint32_t flip) {
+    constexpr int kLoads = kHashRows + (kMinz ? 2 : 1);  // rows of words
+    const int lane = threadIdx.x & 31;
+    const int t0 =
+        (int(blockIdx.x) * kHashWarps + int(threadIdx.x >> 5)) * kWarpSpan;
+    if (t0 >= n) return;  // the whole warp
+    const size_t base = size_t(blockIdx.y) * n;
+    const uint32_t* x = reinterpret_cast<const uint32_t*>(blocks + base);
+    uint32_t w[kLoads];
+#pragma unroll
+    for (int r = 0; r < kLoads; ++r) {
+        const int q = (t0 >> 2) + 32 * r + lane;
+        w[r] = q < (n >> 2) ? __ldg(x + q) : 0u;
+    }
+    const HashArgs a = {kKeys ? keys + base : nullptr, n, width, pbits,
+                        pmask, flip};
+    const int i0 = t0 + 4 * lane;
+    if (!kMinz) {
+#pragma unroll
+        for (int r = 0; r < kHashRows; ++r)
+            tile_row<kKeys, false>(a, w[r], w[r + 1], lane,
+                                   i0 + r * kRowSpan, true);
+        return;
+    }
+    uint32_t* m_row = minz + base;
+    const int L = stride >= 4 ? stride >> 2 : 1;
+    uint4 h = tile_row<kKeys, true>(a, w[0], w[1], lane, i0, true);
+    uint4 pre = h, suf = h;
+    if (stride >= 4) block_scans(h, lane, L, pre, suf);
+#pragma unroll
+    for (int r = 0; r < kHashRows; ++r) {
+        // Row r + 1; at r + 1 == kHashRows the halo, which writes no keys.
+        const uint4 hn = tile_row<kKeys, true>(
+            a, w[r + 1], w[r + 2], lane, i0 + (r + 1) * kRowSpan,
+            r + 1 < kHashRows);
+        uint4 pn = hn, sn = hn;
+        if (stride >= 4) block_scans(hn, lane, L, pn, sn);
+        const int i = i0 + r * kRowSpan;
+        const uint4 m = window_min(h, pre, suf, hn, pn, lane, stride);
+        if (i < n) *reinterpret_cast<uint4*>(m_row + i) = m;
+        h = hn;
+        pre = pn;
+        suf = sn;
+    }
+}
+
+// minz[i] = the minimum of the stride-128 plane m128 at i, i + 128, ...,
+// i + 128 (reps - 1) (kEmpty at or past n): the windowed minimum over
+// [i, i + 128 reps). One thread per 4 positions, 16-byte accesses.
+__global__ void __launch_bounds__(kThreads)
+winmin_stretch_kernel(const uint32_t* __restrict__ m128,
+                      uint32_t* __restrict__ minz, int n, int reps) {
+    const int i = 4 * (int(blockIdx.x) * kThreads + int(threadIdx.x));
+    if (i >= n) return;
+    const size_t at = size_t(blockIdx.y) * n + i;
+    uint4 m = *reinterpret_cast<const uint4*>(m128 + at);
+    for (int r = 1; r < reps && i + r * kRowSpan < n; ++r) {
+        const uint4 v = *reinterpret_cast<const uint4*>(m128 + at +
+                                                         r * kRowSpan);
+        m = make_uint4(min(m.x, v.x), min(m.y, v.y), min(m.z, v.z),
+                       min(m.w, v.w));
+    }
+    *reinterpret_cast<uint4*>(minz + at) = m;
+}
+
+// Launches B5, B6 or B9 on the stream: cudaErrorInvalidValue, and no
+// launch, for a shape the grid cannot hold, a stride that is not a power
+// of two up to 4096, or a stride above 128 without scratch (rows * n
+// words, the stride-128 plane).
+template <bool kKeys, bool kMinz>
+int launch_hash_keys(const void* blocks, void* keys, void* minz,
+                     void* scratch, int rows, int n, int width, int pbits,
+                     int pmask, int stride, unsigned flip, void* stream) {
+    const bool wide = kMinz && stride > kRowSpan;
+    if (rows < 1 || rows > 65535 || n < 4 || n % 4 != 0 ||
+        (kMinz && (stride < 1 || stride > kMaxStride ||
+                   (stride & (stride - 1)) != 0)) ||
+        (wide && scratch == nullptr))
+        return int(cudaErrorInvalidValue);
+    const auto s = static_cast<cudaStream_t>(stream);
+    auto* plane = static_cast<uint32_t*>(wide ? scratch : minz);
     const dim3 grid((n + kHashSpan - 1) / kHashSpan, rows);
-    hash_keys_kernel<kKeys, kMinz><<<grid, kHashThreads, smem,
-                                     static_cast<cudaStream_t>(stream)>>>(
+    hash_keys_kernel<kKeys, kMinz><<<grid, kHashWarps * 32, 0, s>>>(
         static_cast<const uint8_t*>(blocks), static_cast<uint32_t*>(keys),
-        static_cast<uint32_t*>(minz), n, width, pbits, uint32_t(pmask),
-        stride);
+        plane, n, width, pbits, uint32_t(pmask), wide ? kRowSpan : stride,
+        flip);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || !wide) return int(err);
+    const dim3 stretch((n / 4 + kThreads - 1) / kThreads, rows);
+    winmin_stretch_kernel<<<stretch, kThreads, 0, s>>>(
+        plane, static_cast<uint32_t*>(minz), n, stride / kRowSpan);
     return int(cudaGetLastError());
 }
 
@@ -206,8 +364,6 @@ static_assert(kRunWords == 64, "the word scan gives each lane two words");
 static_assert(kRunTile % 512 == 0 && kRunTile % kRunThreads == 0 &&
               kRunThreads % 32 == 0, "tile geometry");
 static_assert(kRunLook * kRunTile >= kRunCap - 1, "look-ahead too short");
-
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // First change among the 16 bytes of v (byte k at c + k), the byte after
 // them nb: offset 0-15, or kBig.

@@ -23,13 +23,14 @@ constexpr int kMinMatch = 4;  // match_pipeline.MIN_MATCH
 // B9 ldm_winmin: the windowed minimum of the 8-gram hash over [i, i+stride).
 // Replaces glue_kernels.ldm_winmin (Pallas), which computes the same words
 // as the minimizer half of hash_keys_winmin. It is that kernel's templated
-// body (common.cuh) with the keys switched off: a CTA stages 1024 positions
-// plus a stride + 7 halo of bytes, hashes each 8-gram once in shared
-// memory, and each thread writes four minima with one 16-byte store.
+// body (common.cuh) with the keys switched off: a warp per tile of 8 rows
+// of 128 positions, whole-word loads, h8 from shuffled words and
+// __byte_perm in registers, the van Herk/Gil-Werman windowed minimum over
+// segmented shuffle scans (no shared memory; the same work a position at
+// strides 4 to 128; strides 256 to 4096 take a second launch over the
+// stride-128 plane in scratch), one 16-byte store a lane and row.
 // Bound: memory, n bytes read and 4n written per row (40 MiB at
 // B=64 x 128 KiB, 12.5 us at 3.35 TB/s).
-// ---------------------------------------------------------------------------
-
 // ---------------------------------------------------------------------------
 // B10 parse_greedy: the greedy parse with the optional one-step lazy.
 // Replaces parse_kernel.parse_greedy_pallas / _make_kernel (Pallas), which
@@ -130,10 +131,10 @@ parse_greedy_kernel(const int32_t* __restrict__ mlen,
 
 extern "C" {
 
-int qz_ldm_winmin(const void* blocks, void* minz, int rows, int n, int stride,
-                  void* stream) {
-    return launch_hash_keys<false, true>(blocks, nullptr, minz, rows, n, 0, 0,
-                                         0, stride, stream);
+int qz_ldm_winmin(const void* blocks, void* minz, void* scratch, int rows,
+                  int n, int stride, void* stream) {
+    return launch_hash_keys<false, true>(blocks, nullptr, minz, scratch, rows,
+                                         n, 8, 0, 0, stride, 0u, stream);
 }
 
 int qz_parse_greedy(const void* mlen, void* chosen, int rows, int n, int lazy,

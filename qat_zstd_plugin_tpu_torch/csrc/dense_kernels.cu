@@ -30,8 +30,18 @@ constexpr int kChainSteps = 2;  // glue_kernels.CHAIN_STEPS
 // Replaces glue_kernels.hash_keys and glue_kernels.hash_keys_winmin
 // (Pallas). The templated body, shared with B9 ldm_winmin, is
 // hash_keys_kernel in common.cuh: kKeys for B5, kKeys and kMinz for B6.
-// ---------------------------------------------------------------------------
-
+// `flip` is XORed into every key written, so the signed row sort that
+// follows on the main path needs no XOR pass of its own; minz is never
+// flipped.
+//
+// Bound: device memory, n bytes read and 4n written per plane: B6 9n
+// bytes a row (0.0225 ms at B=64 x 128 KiB at 3.35 TB/s), B5 5n
+// (0.0125 ms). B6's design (common.cuh) is a warp per tile of 8 rows of
+// 128 positions: whole-word loads, the grams from shuffled words and
+// __byte_perm in registers, the windowed minimum by the van Herk/Gil-
+// Werman split over segmented shuffle scans (the same work a position
+// at every stride up to 128, no shared memory), one 16-byte store per
+// plane a lane and row.
 // ---------------------------------------------------------------------------
 // B7 finalize_candidates: per-width chain doubling, cross-width merge, cost
 // filter, offset-1 run scan.
@@ -165,16 +175,18 @@ __global__ void compact_slots_dense_kernel(const int32_t* __restrict__ mlen,
 extern "C" {
 
 int qz_hash_keys(const void* blocks, void* keys, int rows, int n, int width,
-                 int pbits, int pmask, void* stream) {
-    return launch_hash_keys<true, false>(blocks, keys, nullptr, rows, n,
-                                         width, pbits, pmask, 0, stream);
+                 int pbits, int pmask, unsigned flip, void* stream) {
+    return launch_hash_keys<true, false>(blocks, keys, nullptr, nullptr,
+                                         rows, n, width, pbits, pmask, 0,
+                                         flip, stream);
 }
 
-int qz_hash_keys_winmin(const void* blocks, void* keys, void* minz, int rows,
-                        int n, int width, int pbits, int pmask, int stride,
-                        void* stream) {
-    return launch_hash_keys<true, true>(blocks, keys, minz, rows, n, width,
-                                        pbits, pmask, stride, stream);
+int qz_hash_keys_winmin(const void* blocks, void* keys, void* minz,
+                        void* scratch, int rows, int n, int width, int pbits,
+                        int pmask, int stride, unsigned flip, void* stream) {
+    return launch_hash_keys<true, true>(blocks, keys, minz, scratch, rows, n,
+                                        width, pbits, pmask, stride, flip,
+                                        stream);
 }
 
 int qz_finalize_candidates(const void* su0, const void* su1, const void* su2,

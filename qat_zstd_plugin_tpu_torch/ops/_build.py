@@ -36,11 +36,11 @@ SIGNATURES = {
     "qz_neighbor_unsort_keys": (_P, _P, _I, _I, _I, _I, _I, _U, _P),
     "qz_ldm_keys": (_P, _P, _I, _I, _I, _I, _I, _U, _P),
     "qz_compact_slots_sync": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "qz_hash_keys": (_P, _P, _I, _I, _I, _I, _I, _P),
-    "qz_hash_keys_winmin": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "qz_hash_keys": (_P, _P, _I, _I, _I, _I, _I, _U, _P),
+    "qz_hash_keys_winmin": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _P),
     "qz_finalize_candidates": (_P,) * 9 + (_I,) * 8 + (_Z, _P),
     "qz_compact_slots_dense": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "qz_ldm_winmin": (_P, _P, _I, _I, _I, _P),
+    "qz_ldm_winmin": (_P, _P, _P, _I, _I, _I, _P),
     "qz_parse_greedy": (_P, _P, _I, _I, _I, _P),
     "qz_gram_pos_planes": (_P, _P, _P, _I, _I, _I, _P),
     "qz_neighbor_verify_keys": (_P, _P, _P, _I, _I, _I, _I, _P),

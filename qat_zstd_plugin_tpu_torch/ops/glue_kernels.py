@@ -65,7 +65,8 @@ from . import _build
 
 _M32 = 0xFFFFFFFF
 _SIGN = -0x80000000  # int32 bit 31: xor maps u32 order onto int32 order
-_FLIP = 0x80000000  # the same bit as a u32 word: K2's and K3's flip word
+_FLIP = 0x80000000  # the same bit as a u32 word: the flip word of B5, B6,
+                    # K2 and K3
 _C1 = 2654435761
 _C2 = 2246822519
 _C3 = 3266489917
@@ -312,13 +313,13 @@ def _dense_geometry(blocks: torch.Tensor, window: int):
     return B, N, w, (w - 1).bit_length()
 
 
-def hash_keys_twin(blocks: torch.Tensor, width: int,
-                   window: int) -> torch.Tensor:
+def hash_keys_twin(blocks: torch.Tensor, width: int, window: int,
+                   flip: int = 0) -> torch.Tensor:
     """Plain-torch B5 (see hash_keys)."""
     B, N, w, pbits = _dense_geometry(blocks, window)
     h = _hash_tile(blocks.to(torch.int64), width, 32 - pbits)
     pos = torch.arange(N, device=blocks.device) & (w - 1)
-    return _i32((h << pbits) | pos).reshape(B * (N // w), w)
+    return _i32(((h << pbits) | pos) ^ flip).reshape(B * (N // w), w)
 
 
 def _check_hash_args(blocks: torch.Tensor, name: str, width: int) -> None:
@@ -327,19 +328,27 @@ def _check_hash_args(blocks: torch.Tensor, name: str, width: int) -> None:
         raise ValueError(f"unsupported hash width {width}")
 
 
-def hash_keys(blocks: torch.Tensor, width: int, window: int) -> torch.Tensor:
+def hash_keys(blocks: torch.Tensor, width: int, window: int,
+              flip: int = 0) -> torch.Tensor:
     """B5. (B, N) uint8 blocks -> (B*nseg, w) int32 sort keys, position i
     of a block holding (hash_width(i) << pbits | i & (w - 1)) at row
     i // w, column i % w of its block's segments. Port of the Pallas
-    kernel of the same name."""
+    kernel of the same name. `flip` (0 or _FLIP) is XORed into every key
+    written, for a signed row sort that follows (_unsorted's
+    flipped=True)."""
     _check_hash_args(blocks, "hash_keys", width)
     B, N, w, pbits = _dense_geometry(blocks, window)
     if _use_twin(blocks, "hash_keys"):
-        return hash_keys_twin(blocks, width, window)
+        return hash_keys_twin(blocks, width, window, flip)
     keys = torch.empty((B * (N // w), w), dtype=torch.int32,
                        device=blocks.device)
-    _launch("hash_keys", blocks, keys, B, N, width, pbits, w - 1)
+    _launch("hash_keys", blocks, keys, B, N, width, pbits, w - 1, flip)
     return keys
+
+
+WINMIN_ROW_SPAN = 128  # common.cuh kRowSpan: the largest stride the
+                       # winmin kernels take in one launch; above it they
+                       # take a second over the stride-128 plane in scratch
 
 
 def _check_stride(stride: int) -> None:
@@ -347,29 +356,39 @@ def _check_stride(stride: int) -> None:
         raise ValueError(f"stride {stride} must be a power of two <= 4096")
 
 
+def _winmin_scratch(blocks: torch.Tensor, stride: int):
+    """The stride-128 plane's (B, N) int32 scratch for a stride above
+    WINMIN_ROW_SPAN, else None."""
+    if stride <= WINMIN_ROW_SPAN:
+        return None
+    return torch.empty(blocks.shape, dtype=torch.int32, device=blocks.device)
+
+
 def hash_keys_winmin_twin(blocks: torch.Tensor, width: int, window: int,
-                          stride: int):
+                          stride: int, flip: int = 0):
     """Plain-torch B6 (see hash_keys_winmin)."""
-    keys = hash_keys_twin(blocks, width, window)
+    keys = hash_keys_twin(blocks, width, window, flip)
     h8 = _hash_tile(blocks.to(torch.int64), 8, 32)
     return keys, _i32(_winmin_tail(h8, stride))
 
 
 def hash_keys_winmin(blocks: torch.Tensor, width: int, window: int,
-                     stride: int):
+                     stride: int, flip: int = 0):
     """B6. hash_keys for one width plus the (B, N) int32 windowed-minimum
     plane of the 8-gram hash (minz[i] = min over [i, i+stride)), from one
-    read of the bytes. Port of the Pallas kernel of the same name."""
+    read of the bytes. Port of the Pallas kernel of the same name. `flip`
+    is XORed into the keys as in hash_keys; minz is never flipped."""
     _check_hash_args(blocks, "hash_keys_winmin", width)
     _check_stride(stride)
     B, N, w, pbits = _dense_geometry(blocks, window)
     if _use_twin(blocks, "hash_keys_winmin"):
-        return hash_keys_winmin_twin(blocks, width, window, stride)
+        return hash_keys_winmin_twin(blocks, width, window, stride, flip)
     keys = torch.empty((B * (N // w), w), dtype=torch.int32,
                        device=blocks.device)
     minz = torch.empty((B, N), dtype=torch.int32, device=blocks.device)
-    _launch("hash_keys_winmin", blocks, keys, minz, B, N, width, pbits,
-            w - 1, stride)
+    _launch("hash_keys_winmin", blocks, keys, minz,
+            _winmin_scratch(blocks, stride), B, N, width, pbits, w - 1,
+            stride, flip)
     return keys, minz
 
 
@@ -397,7 +416,8 @@ def ldm_winmin(blocks: torch.Tensor, stride: int) -> torch.Tensor:
     if _use_twin(blocks, "ldm_winmin"):
         return ldm_winmin_twin(blocks, stride)
     minz = torch.empty((B, N), dtype=torch.int32, device=blocks.device)
-    _launch("ldm_winmin", blocks, minz, B, N, stride)
+    _launch("ldm_winmin", blocks, minz, _winmin_scratch(blocks, stride), B,
+            N, stride)
     return minz
 
 
@@ -1233,11 +1253,14 @@ def _dense_tail_fused(sus, blocks, lengths, minz, widths: tuple,
 
 
 def _unsorted(key: torch.Tensor, pbits: int, neighbors: int,
-              pos_mask: int | None = None) -> torch.Tensor:
+              pos_mask: int | None = None,
+              flipped: bool = False) -> torch.Tensor:
     """sort -> neighbor/un-sort keys -> sort: position-ordered claims. The
     unsigned row sorts are signed ones with K2 flipping the sign bit on
-    its way in and out: two XOR passes, not four."""
-    sk = _sort_signed(key ^ _SIGN)
+    its way in and out. `flipped`: the keys come with the sign bit
+    flipped already (B5 and B6 with flip=_FLIP), so the only XOR pass is
+    the last one's; else two."""
+    sk = _sort_signed(key if flipped else key ^ _SIGN)
     return _sort_signed(neighbor_unsort_keys(sk, pbits, neighbors, pos_mask,
                                              flip=_FLIP)) ^ _SIGN
 
@@ -1247,7 +1270,8 @@ def candidates_hash_split(blocks, lengths, widths: tuple = (5, 8),
     """(mlen, moff) from hash_keys of every width, without LDM (reference:
     glue_kernels.candidates_hash_split)."""
     pbits = (min(window, blocks.shape[1]) - 1).bit_length()
-    sus = [_unsorted(hash_keys(blocks, width, window), pbits, neighbors)
+    sus = [_unsorted(hash_keys(blocks, width, window, flip=_FLIP), pbits,
+                     neighbors, flipped=True)
            for width in widths]
     return finalize_candidates(sus, blocks, lengths, tuple(widths), window)
 
@@ -1285,9 +1309,10 @@ def find_matches_positions(blocks: torch.Tensor, lengths: torch.Tensor,
     if dense and ldm:
         # The first width's key build also writes the minimizer plane.
         key, minz = hash_keys_winmin(blocks, widths[0], window,
-                                     ldm_stride(ldm, N))
-        sus = [_unsorted(key, pbits, neighbors)]
-        sus += [_unsorted(hash_keys(blocks, width, window), pbits, neighbors)
+                                     ldm_stride(ldm, N), flip=_FLIP)
+        sus = [_unsorted(key, pbits, neighbors, flipped=True)]
+        sus += [_unsorted(hash_keys(blocks, width, window, flip=_FLIP),
+                          pbits, neighbors, flipped=True)
                 for width in widths[1:]]
         return _dense_tail_fused(sus, blocks, lengths, minz, widths, window,
                                  span_blocks=ldm, local_cap=local_cap,

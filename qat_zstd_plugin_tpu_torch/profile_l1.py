@@ -215,12 +215,13 @@ def chains(p, blocks) -> tuple[dict, dict]:
         key, minz = tk.hash_keys_winmin_sync(blocks, p.widths[0], p.window,
                                              stride)
         pos_mask = w - 1
-    else:
+    else:  # the main path's keys: B6 writes them flipped
         key, minz = tk.hash_keys_winmin(blocks, p.widths[0], p.window,
-                                        stride)
+                                        stride, flip=tk._FLIP)
         pos_mask = None
     ops = {"unsorted": _ops_a_call(
-        lambda: tk._unsorted(key, pbits, p.neighbors, pos_mask))}
+        lambda: tk._unsorted(key, pbits, p.neighbors, pos_mask,
+                             flipped=not p.sync))}
     span = p.ldm or 4
     if p.ldm and blocks.shape[0] % span == 0:
         ops["ldm_unsorted"] = _ops_a_call(

@@ -150,6 +150,38 @@ def test_hash_keys_and_winmin(cuda):
         assert torch.equal(k, tw_k) and torch.equal(m, tw_m)
 
 
+WINMIN_SHAPES = [(8, N), (37, 65536), (64, 4100), (1, 8)]
+
+
+def _winmin_blocks(B, n, seed=4):
+    """_blocks' rows (low alphabet, random, one byte, a copy) cut to n
+    bytes, cycled over B rows."""
+    return np.resize(_blocks(seed=seed)[:, :n], (B, n))
+
+
+@pytest.mark.parametrize("shape", WINMIN_SHAPES,
+                         ids=[f"{b}x{n}" for b, n in WINMIN_SHAPES])
+@pytest.mark.parametrize("stride", [1 << s for s in range(13)])
+def test_winmin_every_stride(cuda, stride, shape):
+    """B6 in both flip modes and B9 equal their twins at every stride the
+    wrappers take, 256-4096 through the stride-128 plane in scratch."""
+    x = torch.from_numpy(_winmin_blocks(*shape)).to(cuda)
+    for flip in (0, tk._FLIP):
+        k, m = tk.hash_keys_winmin(x, 4, WINDOW, stride, flip=flip)
+        tw_k, tw_m = tk.hash_keys_winmin_twin(x, 4, WINDOW, stride, flip)
+        assert torch.equal(k, tw_k) and torch.equal(m, tw_m)
+    assert torch.equal(tk.ldm_winmin(x, stride), tw_m)
+
+
+@pytest.mark.parametrize("width", [4, 5, 6, 8])
+def test_hash_keys_flip_modes(cuda, width):
+    for shape in WINMIN_SHAPES:
+        x = torch.from_numpy(_winmin_blocks(*shape, seed=width)).to(cuda)
+        for flip in (0, tk._FLIP):
+            assert torch.equal(tk.hash_keys(x, width, WINDOW, flip=flip),
+                               tk.hash_keys_twin(x, width, WINDOW, flip))
+
+
 def _sus(x, widths, neighbors=2):
     pbits = (min(WINDOW, x.shape[1]) - 1).bit_length()
     return [tk._unsorted(tk.hash_keys(x, w, WINDOW), pbits, neighbors)

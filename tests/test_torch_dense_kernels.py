@@ -126,6 +126,79 @@ def test_hash_keys_winmin(kind, stride):
     np.testing.assert_array_equal(u32(minz), np.asarray(minz_ref))
 
 
+# --- B5 and B6 in the flip mode of the main path ---------------------------
+
+@pytest.mark.parametrize("width", [4, 5, 6, 8])
+def test_hash_keys_flip_mode(width):
+    """flip=_FLIP XORs the sign bit into every key: the reference's keys
+    ^ 0x80000000, which a signed row sort orders as the unsigned sort
+    orders the reference's."""
+    blocks = make_blocks("mixed", B=2, seed=width)
+    want = np.asarray(gk.hash_keys(jnp.asarray(blocks), width, WINDOW,
+                                   interpret=True))
+    got = tk.hash_keys(torch.from_numpy(blocks), width, WINDOW,
+                       flip=tk._FLIP)
+    np.testing.assert_array_equal(u32(got), want ^ np.uint32(0x80000000))
+
+
+@pytest.mark.parametrize("stride", [1, 32, 64, 256])
+def test_hash_keys_winmin_flip_mode(stride):
+    """B6's keys take the flip; its minz plane never does."""
+    blocks = make_blocks("mixed", B=2, seed=stride)
+    key_ref, minz_ref = gk.hash_keys_winmin(jnp.asarray(blocks), 6, WINDOW,
+                                            stride, interpret=True)
+    key, minz = tk.hash_keys_winmin(torch.from_numpy(blocks), 6, WINDOW,
+                                    stride, flip=tk._FLIP)
+    np.testing.assert_array_equal(u32(key), np.asarray(key_ref)
+                                  ^ np.uint32(0x80000000))
+    np.testing.assert_array_equal(u32(minz), np.asarray(minz_ref))
+
+
+@pytest.mark.parametrize("widths,neighbors", [((6,), 1), ((5, 8), 1),
+                                              ((4, 5, 6, 8), 2)])
+def test_unsorted_takes_flipped_keys(widths, neighbors):
+    """_unsorted(flipped=True) on B5's flipped keys gives the words of
+    _unsorted on plain keys, which are the reference's."""
+    blocks = make_blocks("mixed", B=2, seed=len(widths))
+    x = torch.from_numpy(blocks)
+    for width, want in zip(widths, jax_sus(blocks, widths, neighbors)):
+        flipped = tk._unsorted(tk.hash_keys(x, width, WINDOW, flip=tk._FLIP),
+                               PBITS, neighbors, flipped=True)
+        plain = tk._unsorted(tk.hash_keys(x, width, WINDOW), PBITS,
+                             neighbors)
+        assert torch.equal(flipped, plain)
+        np.testing.assert_array_equal(u32(flipped), want)
+
+
+@pytest.mark.parametrize("case", ["L2_b4_128k", "L4_b16_32k",
+                                  "L4_b8_32k_no_ldm"])
+def test_dense_path_sorts_the_kernels_keys(case, monkeypatch):
+    """On the dense path each width's first row sort takes B5's or B6's
+    keys as the kernel wrote them (flipped): no XOR pass between."""
+    level, B, n, _ = SLOT_CASES[case]
+    p = TPU_LEVEL_TABLE[level]
+    written, sorted_in, flips = [], [], []
+    for name in ("hash_keys", "hash_keys_winmin"):
+        def spy(*a, _fn=getattr(tk, name), _keys_only=name == "hash_keys",
+                **k):
+            flips.append(k.get("flip"))
+            out = _fn(*a, **k)
+            written.append(out if _keys_only else out[0])
+            return out
+        monkeypatch.setattr(tk, name, spy)
+    sort = tk._sort_signed
+    monkeypatch.setattr(tk, "_sort_signed",
+                        lambda x: sorted_in.append(x) or sort(x))
+    blocks = make_blocks("mixed", B=B, n=n, seed=level)
+    tmp.find_matches_positions(torch.from_numpy(blocks),
+                               torch.from_numpy(ragged_lengths(B, n)),
+                               widths=p.widths, neighbors=p.neighbors,
+                               window=p.window, ldm=p.ldm, dense=True,
+                               sync=False)
+    assert len(written) == len(p.widths) and flips == [tk._FLIP] * len(flips)
+    assert all(any(s is k for s in sorted_in) for k in written)
+
+
 # --- B7 finalize_candidates ------------------------------------------------
 
 @pytest.mark.parametrize("widths, neighbors", [((6,), 1), ((5, 8), 1),

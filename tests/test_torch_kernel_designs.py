@@ -900,3 +900,286 @@ def test_rejected_designs_script_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA device"):
         k2_k3.main([])
+
+
+# ---------------------------------------------------------------------------
+# B5, B6 and B9: the warp-tiled keys and windowed minimum (common.cuh)
+# ---------------------------------------------------------------------------
+
+HASH_WARPS = _common_constant("kHashWarps")
+HASH_ROWS = _common_constant("kHashRows")
+ROW_SPAN = _common_constant("kRowSpan")
+GEOMETRIES = [(HASH_ROWS, HASH_WARPS), (1, 1)]  # (rows a warp, warps a CTA)
+LANES = np.arange(32)
+C1, C2, C3 = 2654435761, 2246822519, 3266489917
+
+
+def _shfl(v, src):
+    """__shfl_sync(v, src): lane l gets lane src[l]'s v (lanes last)."""
+    return v[..., src]
+
+
+def _shfl_up(v, d: int, width: int):
+    """__shfl_up_sync(v, d, width): a lane whose segment has no lane d
+    before it keeps its own v."""
+    return v[..., np.where(LANES % width >= d, LANES - d, LANES)]
+
+
+def _shfl_down(v, d: int, width: int):
+    return v[..., np.where(LANES % width + d < width, LANES + d, LANES)]
+
+
+def _be_at(lo, hi, k: int):
+    """__byte_perm(lo, hi, 0x0123 + 0x1111 k): the big-endian word of
+    bytes k..k+3 of the little-endian pair (lo, hi)."""
+    sel = 0x0123 + 0x1111 * k
+    out = np.zeros_like(lo)
+    for j in range(4):
+        s = (sel >> (4 * j)) & 7
+        byte = ((lo if s < 4 else hi) >> np.uint64(8 * (s & 3))) & 0xFF
+        out |= byte << np.uint64(8 * j)
+    return out
+
+
+def _hash_words(a, b, width: int):
+    """common.cuh hash_words on u32 values held in uint64 (products wrap
+    mod 2^64, a multiple of 2^32)."""
+    def mul(x, c):
+        return (x * np.uint64(c)) & np.uint64(M32)
+    h = mul(a, C1)
+    if width == 4:
+        return h
+    if width == 5:
+        return h ^ ((mul(b >> np.uint64(24), C2) << np.uint64(11))
+                    & np.uint64(M32))
+    if width == 6:
+        return h ^ mul(b >> np.uint64(16), C2)
+    return h ^ mul(mul(b, C2), C3)
+
+
+def _block_scans(h, L: int):
+    """Prefix and suffix minima within blocks of L lanes: the lane's own
+    four (h: k first), then segmented shuffle scans."""
+    pre = np.minimum.accumulate(h, axis=0)
+    suf = np.minimum.accumulate(h[::-1], axis=0)[::-1]
+    ip, is_ = pre[3], suf[0]
+    d = 1
+    while d < L:
+        ip = np.minimum(ip, _shfl_up(ip, d, L))
+        is_ = np.minimum(is_, _shfl_down(is_, d, L))
+        d *= 2
+    ep = np.where(LANES % L == 0, M32, _shfl_up(ip, 1, L))
+    es = np.where(LANES % L == L - 1, M32, _shfl_down(is_, 1, L))
+    return np.minimum(pre, ep), np.minimum(suf, es)
+
+
+def _window_min(h, pre, suf, hn, pn, stride: int):
+    if stride >= 4:
+        L = stride // 4
+        up = (LANES + L) & 31
+        q = [_shfl(np.where(LANES >= L, pre[k], pn[k]), up) for k in range(3)]
+        q3 = _shfl(np.where(LANES >= L - 1, pre[3], pn[3]),
+                   (LANES + L - 1) & 31)
+        return np.stack([np.minimum(suf[0], q3)] +
+                        [np.minimum(suf[k], q[k - 1]) for k in (1, 2, 3)])
+    if stride == 2:
+        h4 = _shfl(np.where(LANES >= 1, h[0], hn[0]), (LANES + 1) & 31)
+        nxt = np.concatenate([h[1:], h4[None]])
+        return np.minimum(h, nxt)
+    return h
+
+
+def _winmin_model(x, width, pbits, stride, flip, keys_on: bool,
+                  minz_on: bool, rows=HASH_ROWS, warps=HASH_WARPS):
+    """hash_keys_kernel<keys_on, minz_on> and, for a stride above 128,
+    winmin_stretch_kernel, lane by lane (all warps of all rows at once):
+    (B, n) uint8 -> u32 keys and minz planes (uint64) and how often each
+    word of each was written."""
+    B, n = x.shape
+    pmask = min(32768, n) - 1  # the wrappers' w - 1 at window 32768
+    wide = minz_on and stride > ROW_SPAN
+    S = ROW_SPAN if wide else stride
+    span = rows * ROW_SPAN
+    tiles = -(-n // (span * warps)) * warps  # the grid's warps
+    t0 = np.arange(tiles) * span
+    t0 = t0[t0 < n]  # the others return at once
+    nw = n // 4
+    words = np.ascontiguousarray(x).view("<u4").astype(np.uint64)
+    loads = rows + (2 if minz_on else 1)
+    q = t0[:, None, None] // 4 + 32 * np.arange(loads)[:, None] + LANES
+    w = np.where(q < nw, words[:, np.minimum(q, nw - 1)], 0)  # (B,T,r,32)
+    w = np.moveaxis(w, 2, 0)  # row of words first
+    keys = np.zeros((B, n), np.uint64)
+    minz = np.zeros((B, n), np.uint64)
+    kw = np.zeros((B, n), np.int64)
+    mw = np.zeros((B, n), np.int64)
+
+    def store(out, cnt, i, vals):
+        live = np.broadcast_to(i < n, vals.shape[1:])
+        for k in range(4):
+            pos = np.broadcast_to(i + k, live.shape)
+            b = np.broadcast_to(np.arange(B)[:, None, None], live.shape)
+            out[b[live], pos[live]] = vals[k][live]
+            np.add.at(cnt, (b[live], pos[live]), 1)
+
+    def tile_row(r, write_keys):
+        own, nxt = w[r], w[r + 1]
+        b = _shfl(np.where(LANES >= 1, own, nxt), (LANES + 1) & 31)
+        c = _shfl(np.where(LANES >= 2, own, nxt), (LANES + 2) & 31)
+        lo = [_be_at(own, b, k) for k in range(4)]
+        hi = [_be_at(b, c, k) for k in range(4)]
+        i = t0[:, None] + r * ROW_SPAN + 4 * LANES  # (T, 32)
+        if keys_on and write_keys:
+            pb = np.uint64(pbits)
+            key = np.stack([((_hash_words(lo[k], hi[k], width) >> pb << pb)
+                             | ((i + k) & pmask).astype(np.uint64))
+                            ^ np.uint64(flip)
+                            for k in range(4)])
+            store(keys, kw, i, key)
+        h8 = np.stack([_hash_words(lo[k], hi[k], 8) for k in range(4)])
+        return np.where(i < n, h8, M32), i
+
+    if not minz_on:
+        for r in range(rows):
+            tile_row(r, True)
+        return keys, kw, None, None
+    L = max(S // 4, 1)
+    h, _ = tile_row(0, True)
+    pre, suf = _block_scans(h, L) if S >= 4 else (h, h)
+    for r in range(rows):
+        hn, _ = tile_row(r + 1, r + 1 < rows)  # the last: the halo
+        pn, sn = _block_scans(hn, L) if S >= 4 else (hn, hn)
+        i = t0[:, None] + r * ROW_SPAN + 4 * LANES
+        store(minz, mw, i, _window_min(h, pre, suf, hn, pn, S))
+        h, pre, suf = hn, pn, sn
+    if wide:  # the stretch over the stride-128 plane, 4 positions a thread
+        plane, minz = minz, np.full_like(minz, M32)
+        for r in range(stride // ROW_SPAN):
+            sh = np.full_like(plane, M32)
+            if r * ROW_SPAN < n:
+                sh[:, :n - r * ROW_SPAN] = plane[:, r * ROW_SPAN:]
+            minz = np.minimum(minz, sh)
+        assert (mw == 1).all()  # each scratch word written once
+    return keys, kw, minz, mw
+
+
+def _winmin_blocks(B: int, n: int, seed: int) -> np.ndarray:
+    """Bytes whose minima move: random and low-alphabet spans, a run and
+    copies of earlier spans."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (B, n), np.uint8)
+    x[:, n // 3:2 * n // 3] = rng.integers(0, 3, (B, 2 * n // 3 - n // 3))
+    if n >= 64:
+        x[0, 10:40] = 0x41
+        x[B - 1, n // 2:] = x[0, :n - n // 2]
+    return x
+
+
+WM_STRIDES = [1, 2, 4, 8, 32, 64, 128, 4096]
+WM_SHAPES = {131072: 2, 4100: 3, 8: 3, 4: 2}  # n: rows
+
+
+def _wm_pbits(n: int) -> int:
+    return (min(32768, n) - 1).bit_length()
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=["kernel", "1-row"])
+@pytest.mark.parametrize("flip", FLIPS, ids=["flip0", "flip"])
+@pytest.mark.parametrize("n", sorted(WM_SHAPES))
+@pytest.mark.parametrize("stride", WM_STRIDES)
+def test_winmin_model_equals_twins(stride, n, flip, geometry):
+    """B6's and B9's model (loads, shuffled words, block scans, the next
+    row's prefixes, the halo row, the stretch above stride 128) writes
+    every key and minz word once and equals _winmin_tail and the twins;
+    1-row warp tiles in 1-warp CTAs put a tile edge and its halo at every
+    128 positions."""
+    rows, warps = geometry
+    x = _winmin_blocks(WM_SHAPES[n], n, stride + n)
+    width = (4, 5, 6, 8)[stride % 4]
+    pbits = _wm_pbits(n)
+    keys, kw, minz, mw = _winmin_model(x, width, pbits, stride, flip, True,
+                                       True, rows, warps)
+    assert (kw == 1).all() and (mw == 1).all()
+    tx = torch.from_numpy(x)
+    tw_k, tw_m = tk.hash_keys_winmin_twin(tx, width, 32768, stride, flip)
+    np.testing.assert_array_equal(keys.reshape(-1),
+                                  tw_k.numpy().view(np.uint32).reshape(-1))
+    np.testing.assert_array_equal(minz, tw_m.numpy().view(np.uint32))
+    h8 = tk._hash_tile(tx.to(torch.int64), 8, 32)
+    np.testing.assert_array_equal(minz, tk._winmin_tail(h8, stride).numpy())
+    _, _, minz9, _ = _winmin_model(x, 8, 0, stride, 0, False, True, rows,
+                                   warps)
+    np.testing.assert_array_equal(minz9, minz)
+    np.testing.assert_array_equal(
+        minz9, tk.ldm_winmin_twin(tx, stride).numpy().view(np.uint32))
+
+
+@functools.lru_cache(maxsize=None)
+def _wm_reference(stride: int, n: int):
+    """The JAX package's hash_keys_winmin (width 4) and ldm_winmin,
+    interpret mode, as numpy arrays."""
+    x = jnp.asarray(_winmin_blocks(WM_SHAPES[n], n, stride + n))
+    key, minz = gk.hash_keys_winmin(x, 4, 32768, stride, interpret=True)
+    return (np.asarray(key), np.asarray(minz),
+            np.asarray(gk.ldm_winmin(x, stride, interpret=True)))
+
+
+# The reference's rolls take no shift past the row (7 for the 8-gram,
+# stride / 2 for the last doubling step): rows of 4 bytes, and of 8 at
+# strides above 16, are held to the twins above only.
+WM_REFERENCE = [(stride, n) for stride in WM_STRIDES for n in sorted(WM_SHAPES)
+                if n >= 7 and stride // 2 <= n]
+
+
+@pytest.mark.parametrize("flip", FLIPS, ids=["flip0", "flip"])
+@pytest.mark.parametrize("stride,n", WM_REFERENCE)
+def test_winmin_model_equals_reference(stride, n, flip):
+    """The model at the kernel's geometry equals the JAX package's
+    kernels word for word: keys (XORed with the flip word), minz and B9's
+    plane."""
+    x = _winmin_blocks(WM_SHAPES[n], n, stride + n)
+    key_ref, minz_ref, ldm_ref = _wm_reference(stride, n)
+    keys, _, minz, _ = _winmin_model(x, 4, _wm_pbits(n), stride, flip, True,
+                                     True)
+    np.testing.assert_array_equal(keys.reshape(key_ref.shape),
+                                  key_ref ^ np.uint32(flip))
+    np.testing.assert_array_equal(minz, minz_ref)
+    _, _, minz9, _ = _winmin_model(x, 8, 0, stride, 0, False, True)
+    np.testing.assert_array_equal(minz9, ldm_ref)
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=["kernel", "1-row"])
+@pytest.mark.parametrize("flip", FLIPS, ids=["flip0", "flip"])
+@pytest.mark.parametrize("n", [131072, 4100, 4])
+@pytest.mark.parametrize("width", [4, 5, 6, 8])
+def test_hash_keys_model_equals_twin(width, n, flip, geometry):
+    """B5's model (no minz: one row of words past the tile) writes every
+    key once and equals the twin in both flip modes."""
+    rows, warps = geometry
+    x = _winmin_blocks(2, n, width)
+    keys, kw, _, _ = _winmin_model(x, width, _wm_pbits(n), 0, flip, True,
+                                   False, rows, warps)
+    assert (kw == 1).all()
+    twin = tk.hash_keys_twin(torch.from_numpy(x), width, 32768, flip)
+    np.testing.assert_array_equal(keys.reshape(-1),
+                                  twin.numpy().view(np.uint32).reshape(-1))
+
+
+def test_winmin_row_span_is_the_kernels():
+    """The wrappers allocate scratch above WINMIN_ROW_SPAN: the kernels'
+    row, and a warp's 32 lanes of 4 positions."""
+    assert tk.WINMIN_ROW_SPAN == ROW_SPAN == 32 * 4
+
+
+def test_winmin_designs_script_needs_a_card(monkeypatch):
+    """designs/winmin.py times B5, B6 and B9 at other tile sizes and
+    beside a parent tree on a card; without one it stops before it builds
+    anything. Its tile sizes replace common.cuh's constants."""
+    from qat_zstd_plugin_tpu_torch.designs import winmin
+    srcs = winmin._sources(_build.CSRC, (4, 8))
+    assert "constexpr int kHashRows = 4;" in srcs["common.cuh"]
+    assert "constexpr int kHashWarps = 8;" in srcs["common.cuh"]
+    assert winmin.TILES[0] == (HASH_ROWS, HASH_WARPS)  # csrc's own
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA device"):
+        winmin.main([])
