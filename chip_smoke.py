@@ -48,9 +48,16 @@ Run from the repository root on a machine with one CUDA device. Phases
      crafted blocks at S = 2048 with codes outside a table, custom tables
      on and off, each case with its chain length and the split design's
      operation floor (its twin is a Python loop over the steps, timed in
-     its one checking run); B15 and B16 on the L1 and L9 parses of the
-     batch and on crafted rows of long chosen matches (to 65535, across the
-     kernel's tile edges, to the row's end) with ragged lengths; B17 and
+     its one checking run); B8 on level 4's claims of the mixed bytes,
+     LDM spans 0, 4 and 16, caps 24 and 32; B15 and B16 on the L1 and L9
+     parses of the batch and on crafted rows of long chosen matches (to
+     65535, across the kernel's steps and tiles, to the row's end) with
+     full and ragged lengths, B15 also on one match from position 0 to the
+     row's end in every row, 200 calls in a row, each exact (every tile's
+     keys rest on the first tile's carry); B8, B15 and B16 each case also
+     over 20 back-to-back calls (stream_ms), B15 and B16 beside their
+     library yardsticks (library_ms: torch.cummax of B15's int32 match
+     ends alone; B16's twin's scatter_add_ into (B, 257) alone); B17 and
      B18 on the parsed branch's parse at level 2's parameters, lazy off
      and on (B17 also on a dense mlen >= 4 mask); B19 on B=64 rows of
      1024, 8192, 16384, 32768 and 131072 and 4 rows of 262144, with 0 and
@@ -385,13 +392,17 @@ class Cases:
         self.results = results
 
     def __call__(self, kernel: str, name: str, err: int, moved: int,
-                 kernel_fn, twin_fn, main: bool = False, **extra) -> None:
+                 kernel_fn, twin_fn, main: bool = False, library_fn=None,
+                 **extra) -> None:
         """twin_fn is the twin to time, or its time in ms when the check
-        already timed it (B14's twin runs for seconds)."""
+        already timed it (B14's twin runs for seconds); library_fn the
+        PyTorch call timed as the kernel's library yardstick."""
         from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
         r = {"max_abs_err": err, "ms": cuda_ms(kernel_fn),
              "plain_ms": twin_fn if isinstance(twin_fn, float)
              else cuda_ms(twin_fn), **bound(moved)}
+        if library_fn is not None:
+            r["library_ms"] = cuda_ms(library_fn)
         phase("kernel_case", kernel=kernel, case=name, **r, **extra)
         prev = self.results.get(kernel)
         if main or prev is None:
@@ -587,13 +598,14 @@ def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
                 torch, tk.compact_slots_dense(ml, mo, WINDOW, est, off, cap),
                 tk.compact_slots_dense_twin(ml, mo, WINDOW, est, off, cap),
                 f"compact_slots_dense cap {cap} span {span}")
+            run = lambda: tk.compact_slots_dense(ml, mo, WINDOW, est, off,
+                                                 cap)
             case("compact_slots_dense", f"cap {cap}, LDM span {span}", err,
-                 nbytes(ml, mo, est, off) + nbytes(ml) // 4,
-                 lambda: tk.compact_slots_dense(ml, mo, WINDOW, est, off,
-                                                cap),
+                 nbytes(ml, mo, est, off) + nbytes(ml) // 4, run,
                  lambda: tk.compact_slots_dense_twin(ml, mo, WINDOW, est,
                                                      off, cap),
-                 main=(cap, span) == (32, 16))
+                 main=(cap, span) == (32, 16),
+                 stream_ms=stream_ms(torch, run))
     torch.cuda.synchronize()
 
 
@@ -830,32 +842,14 @@ def hybrid_kernels_vs_twins(torch, tk, fk, blocks_np: np.ndarray,
     torch.cuda.synchronize()
 
 
-def _crafted_parse(torch, rng, B: int, N: int, dev):
-    """(chosen, mlen) for B15: sparse random matches (lengths to 40),
-    chosen matches of 16383, 16384, 16385, 40000 and 65535 bytes,
-    matches across the kernel's 2048-position tile edges, one that ends
-    exactly at N and one that passes it (a raw plane, not a parse:
-    matches may overlap)."""
-    chosen = rng.random((B, N)) < 0.02
-    mlen = rng.integers(4, 41, (B, N)).astype(np.int32)
-    for row, length in enumerate((16383, 16384, 16385, 40000, 65535)):
-        chosen[row, 100 + row] = True
-        mlen[row, 100 + row] = length
-    edges = np.arange(2048, N, 2048)
-    chosen[5, edges - 3] = True
-    mlen[5, edges - 3] = 2100
-    chosen[6, N - 50], mlen[6, N - 50] = True, 50
-    chosen[7, N - 20], mlen[7, N - 20] = True, 65535
-    return (torch.from_numpy(chosen).to(dev),
-            torch.from_numpy(mlen).to(dev))
-
-
 def literals_kernels_vs_twins(torch, lk, blocks_np: np.ndarray, seed: int,
                               results: dict) -> None:
     """Phase 2, the full device-entropy kernels (B15, B16) against their
     twins on the card, at B=64 x 128 KiB: on the L1 and L9 parses of the
     batch and on crafted rows, with full and ragged lengths."""
     from qat_zstd_plugin_tpu_torch import GpuCodec
+    from qat_zstd_plugin_tpu_torch.designs.slots_literals import \
+        crafted_parse
     from qat_zstd_plugin_tpu_torch.profile_l1 import hybrid_first_stage
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 5)
@@ -871,9 +865,11 @@ def literals_kernels_vs_twins(torch, lk, blocks_np: np.ndarray, seed: int,
             GpuCodec(level=level, batch=B, max_seq=MAX_SEQ,
                      device_entropy=True), corpus, full)
         inputs[f"L{level} parse"] = (corpus, chosen, mlen)
-    inputs["crafted long matches"] = (mixed, *_crafted_parse(torch, rng, B,
-                                                             N, dev))
+    inputs["crafted long matches"] = (mixed, *crafted_parse(torch, rng, B,
+                                                            N, dev))
+    gp = torch.arange(N, dtype=torch.int32, device=dev)
     for what, (x, chosen, mlen) in inputs.items():
+        ends = torch.where(chosen, gp + mlen, 0)  # the library call's input
         for lens_name, lens in (("full", full), ("ragged", ragged)):
             name = f"{what}, {lens_name} lengths"
             keys = lk.literal_keys(x, lens, chosen, mlen)
@@ -881,17 +877,42 @@ def literals_kernels_vs_twins(torch, lk, blocks_np: np.ndarray, seed: int,
                                                           mlen),
                         f"literal_keys {name}")
             main = (what, lens_name) == ("L1 parse", "full")
+            run = lambda: lk.literal_keys(x, lens, chosen, mlen)
             case("literal_keys", name, err,
-                 nbytes(x, lens, chosen, mlen, keys),
-                 lambda: lk.literal_keys(x, lens, chosen, mlen),
+                 nbytes(x, lens, chosen, mlen, keys), run,
                  lambda: lk.literal_keys_twin(x, lens, chosen, mlen),
-                 main=main, literals=int((keys != -1).sum()))
+                 main=main, library_fn=lambda: torch.cummax(ends, 1),
+                 literals=int((keys != -1).sum()),
+                 stream_ms=stream_ms(torch, run))
             hist = lk.byte_hist(keys)
             err = exact(torch, hist, lk.byte_hist_twin(keys),
                         f"byte_hist {name}")
-            case("byte_hist", name, err, nbytes(keys, hist),
-                 lambda: lk.byte_hist(keys), lambda: lk.byte_hist_twin(keys),
-                 main=main)
+            idx = torch.where(keys != -1, keys.to(torch.int64) & 0xFF, 256)
+            bins = torch.zeros((B, 257), dtype=torch.int32, device=dev)
+            ones = torch.ones_like(idx, dtype=torch.int32)
+            run = lambda: lk.byte_hist(keys)
+            case("byte_hist", name, err, nbytes(keys, hist), run,
+                 lambda: lk.byte_hist_twin(keys), main=main,
+                 library_fn=lambda: bins.scatter_add_(1, idx, ones),
+                 stream_ms=stream_ms(torch, run))
+
+    # One match from position 0 to the row's end in every row (every
+    # other one ends a position short): every tile's keys rest on the
+    # first tile's carry, through the look-back. 200 calls in a row.
+    chosen = torch.zeros((B, N), dtype=torch.bool, device=dev)
+    chosen[:, 0] = True
+    mlen = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    mlen[:, 0] = N
+    mlen[1::2, 0] = N - 1
+    want = lk.literal_keys_twin(corpus, full, chosen, mlen)
+    err = max(exact(torch, lk.literal_keys(corpus, full, chosen, mlen), want,
+                    f"literal_keys carry from the first tile, call {i}")
+              for i in range(200))
+    run = lambda: lk.literal_keys(corpus, full, chosen, mlen)
+    case("literal_keys", "one match from 0 to the row's end, 200 calls",
+         err, nbytes(corpus, full, chosen, mlen, want), run,
+         lambda: lk.literal_keys_twin(corpus, full, chosen, mlen),
+         stream_ms=stream_ms(torch, run))
     torch.cuda.synchronize()
 
 

@@ -39,6 +39,7 @@ __device__ __forceinline__ uint32_t gram_hash(const uint8_t* b, int width,
 }
 
 constexpr int kThreads = 256;
+constexpr int kMaxGridY = 65535;  // a launch's rows go in groups of this
 
 inline unsigned blocks_for(long long total) {
     return unsigned((total + kThreads - 1) / kThreads);

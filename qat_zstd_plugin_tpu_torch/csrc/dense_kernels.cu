@@ -15,7 +15,7 @@
 // All four are integer passes with a few operations per byte moved, so
 // device-memory bandwidth bounds them on an H100 (3.35 TB/s).
 // finalize_candidates is two launches: a pre-pass over the bytes and one
-// tiled pass (common.cuh). The others are written simple and right first.
+// tiled pass (common.cuh); B8 takes four slots a thread.
 
 #include "common.cuh"
 
@@ -129,45 +129,117 @@ struct CandidatesPass {
 // B8 compact_slots_dense: dense claims -> slot words, LDM take rule.
 // Replaces glue_kernels.compact_slots_dense (Pallas).
 //
-// One thread per 4-byte slot s of a block: one 16-byte load each of mlen
-// and moff at 4s..4s+3 (the reference makes four strided copies first),
-// the smallest (k << 30 | moff) over the lanes with mlen >= MIN_MATCH, or
-// the empty sentinel. On every (ns / spb)-th slot, when LDM estimates are
-// given, the LDM offset takes the slot under merge_ldm's rule against the
-// true lane-0 length: est > mlen[4s] and (mlen[4s] < local_cap or
-// est >= 128). 32 bytes read and 4 written per slot.
+// Slot s of a row holds the smallest (k << 30 | moff[4s+k]) over the
+// lanes k with mlen[4s+k] >= MIN_MATCH, or the empty sentinel. When LDM
+// estimates are given (spb > 0), each sample slot (every sls = ns/spb-th)
+// takes the LDM offset under merge_ldm's rule against the true lane-0
+// length: est > mlen[4s] and (mlen[4s] < local_cap or est >= 128).
+//
+// Bound: device memory, 8 bytes read and 1 written a position (0.0225 ms
+// at B=64 x 128 KiB at 3.35 TB/s). Grid (chunks, rows), rows in groups of
+// kMaxGridY, 32-bit in-row indices: no 64-bit division or modulo. A
+// thread takes kSlotsPer consecutive slots (16 positions at 4): it issues
+// all of its 16-byte loads of mlen and moff (128 bytes) before it uses
+// any, through the streaming cache hint (both planes are dead after B8),
+// and writes its words with one store (16 bytes at 4 slots). The level
+// paths' ldm_stride is 32 * 2^k, so sls = stride / 4 is a power of two
+// of at least 8: the entry point passes its log2 when sls is a power of
+// two no smaller than kSlotsPer, and then only a thread's first slot can
+// be a sample, found by a mask and indexed by a shift, its lane-0 length
+// already in registers. Any other sls (no level's) takes a 32-bit % and /
+// a slot. A row count ns that kSlotsPer does not divide (ns = 1025 at N
+// = 4100) takes the guarded path (kVec false): the same loads where in
+// the row, one 4-byte store a slot.
 // ---------------------------------------------------------------------------
 
-__global__ void compact_slots_dense_kernel(const int32_t* __restrict__ mlen,
-                                           const int32_t* __restrict__ moff,
-                                           const int32_t* __restrict__ est,
-                                           const int32_t* __restrict__ ldo,
-                                           uint32_t* __restrict__ out,
-                                           long long total, int ns, int spb,
-                                           int local_cap) {
-    const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (idx >= total) return;
-    const int4 ml = reinterpret_cast<const int4*>(mlen)[idx];
-    const int4 of = reinterpret_cast<const int4*>(moff)[idx];
-    const int mls[4] = {ml.x, ml.y, ml.z, ml.w};
-    const int ofs[4] = {of.x, of.y, of.z, of.w};
-    uint32_t best = kEmpty;
+constexpr int kSlotsPer = 2;          // slots a thread
+constexpr bool kSlotsStream = true;   // __ldcs on mlen and moff
+constexpr int kSlotThreads = 256;
+constexpr int kSlotChunk = kSlotThreads * kSlotsPer;
+
+__device__ __forceinline__ int4 load_claims(const int4* p) {
+    if constexpr (kSlotsStream) return __ldcs(p);
+    return __ldg(p);
+}
+
+// v: the slot word; m0: its lane-0 length; e, lo: the sample's estimate
+// and LDM offset.
+__device__ __forceinline__ uint32_t take_ldm(uint32_t v, int m0, int e,
+                                             int lo, int local_cap) {
+    return e > m0 && (m0 < local_cap || e >= 128) ? uint32_t(lo) : v;
+}
+
+template <bool kVec>  // kVec: kSlotsPer divides ns
+__global__ void __launch_bounds__(kSlotThreads)
+compact_slots_dense_kernel(const int4* __restrict__ mlen,
+                           const int4* __restrict__ moff,
+                           const int32_t* __restrict__ est,
+                           const int32_t* __restrict__ ldo,
+                           uint32_t* __restrict__ out, int ns, int spb,
+                           int sls, int sls_log2, int local_cap, int r0) {
+    const int row = r0 + int(blockIdx.y);
+    const int s0 = (int(blockIdx.x) * kSlotThreads + int(threadIdx.x)) *
+                   kSlotsPer;
+    if (s0 >= ns) return;
+    const size_t base = size_t(row) * ns;  // a slot is one int4 of a plane
+    int4 ml[kSlotsPer], mo[kSlotsPer];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        if (mls[k] >= kMinMatch)
-            best = min(best, (uint32_t(k) << 30) | uint32_t(ofs[k]));
-    }
-    if (spb > 0) {
-        const int sls = ns / spb;  // slots per LDM sample
-        const int s = int(idx % ns);
-        if (s % sls == 0) {
-            const size_t t = size_t(idx / ns) * spb + s / sls;
-            const int e = est[t];
-            if (e > ml.x && (ml.x < local_cap || e >= 128))
-                best = uint32_t(ldo[t]);
+    for (int k = 0; k < kSlotsPer; ++k) {
+        if (kVec || s0 + k < ns) {
+            ml[k] = load_claims(mlen + base + s0 + k);
+            mo[k] = load_claims(moff + base + s0 + k);
+        } else {
+            ml[k] = mo[k] = make_int4(0, 0, 0, 0);
         }
     }
-    out[idx] = best;
+    // The sample of the shift path, loaded beside the claims.
+    const bool sample = spb > 0 && sls_log2 >= 0 && (s0 & (sls - 1)) == 0;
+    int e = 0, lo = 0;
+    if (sample) {
+        const size_t t = size_t(row) * spb + (s0 >> sls_log2);
+        e = __ldg(est + t);
+        lo = __ldg(ldo + t);
+    }
+    uint32_t best[kSlotsPer];
+#pragma unroll
+    for (int k = 0; k < kSlotsPer; ++k) {
+        const int m[4] = {ml[k].x, ml[k].y, ml[k].z, ml[k].w};
+        const int o[4] = {mo[k].x, mo[k].y, mo[k].z, mo[k].w};
+        uint32_t b = kEmpty;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (m[j] >= kMinMatch)
+                b = min(b, (uint32_t(j) << 30) | uint32_t(o[j]));
+        }
+        best[k] = b;
+    }
+    if (sample) best[0] = take_ldm(best[0], ml[0].x, e, lo, local_cap);
+    if (spb > 0 && sls_log2 < 0) {
+#pragma unroll
+        for (int k = 0; k < kSlotsPer; ++k) {
+            const int s = s0 + k;
+            if ((kVec || s < ns) && s % sls == 0) {
+                const size_t t = size_t(row) * spb + s / sls;
+                best[k] = take_ldm(best[k], ml[k].x, __ldg(est + t),
+                                   __ldg(ldo + t), local_cap);
+            }
+        }
+    }
+    uint32_t* dst = out + base + s0;
+    if constexpr (kVec && kSlotsPer == 1) {
+        dst[0] = best[0];
+    } else if constexpr (kVec && kSlotsPer == 2) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(best[0], best[1]);
+    } else if constexpr (kVec) {
+#pragma unroll
+        for (int k = 0; k < kSlotsPer; k += 4)
+            *reinterpret_cast<uint4*>(dst + k) =
+                make_uint4(best[k], best[k + 1], best[k + 2], best[k + 3]);
+    } else {
+#pragma unroll
+        for (int k = 0; k < kSlotsPer; ++k)
+            if (s0 + k < ns) dst[k] = best[k];
+    }
 }
 
 }  // namespace
@@ -213,13 +285,26 @@ int qz_compact_slots_dense(const void* mlen, const void* moff,
                            const void* est, const void* ldo, void* out,
                            int rows, int ns, int spb, int local_cap,
                            void* stream) {
-    const long long total = (long long)rows * ns;
-    compact_slots_dense_kernel<<<blocks_for(total), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(mlen), static_cast<const int32_t*>(moff),
-        static_cast<const int32_t*>(est), static_cast<const int32_t*>(ldo),
-        static_cast<uint32_t*>(out), total, ns, spb, local_cap);
-    return int(cudaGetLastError());
+    if (rows <= 0 || ns <= 0) return int(cudaSuccess);
+    const int sls = spb > 0 ? ns / spb : 0;
+    int sls_log2 = -1;  // the shift path: a power of two >= kSlotsPer
+    if (sls >= kSlotsPer && (sls & (sls - 1)) == 0)
+        sls_log2 = __builtin_ctz(unsigned(sls));
+    const unsigned chunks = unsigned((ns + kSlotChunk - 1) / kSlotChunk);
+    auto s = static_cast<cudaStream_t>(stream);
+    for (int r0 = 0; r0 < rows; r0 += kMaxGridY) {
+        const dim3 grid(chunks, unsigned(min(rows - r0, kMaxGridY)));
+        auto kernel = ns % kSlotsPer ? compact_slots_dense_kernel<false>
+                                     : compact_slots_dense_kernel<true>;
+        kernel<<<grid, kSlotThreads, 0, s>>>(
+            static_cast<const int4*>(mlen), static_cast<const int4*>(moff),
+            static_cast<const int32_t*>(est),
+            static_cast<const int32_t*>(ldo), static_cast<uint32_t*>(out),
+            ns, spb, sls, sls_log2, local_cap, r0);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return int(err);
+    }
+    return int(cudaSuccess);
 }
 
 }  // extern "C"

@@ -127,7 +127,6 @@ hash_keys_winmin_sync_kernel(const uint8_t* __restrict__ blocks,
 // ---------------------------------------------------------------------------
 
 constexpr int kK2Threads = 256;
-constexpr int kMaxGridY = 65535;
 
 __device__ __forceinline__ uint4 xor4(uint4 v, uint32_t flip) {
     return make_uint4(v.x ^ flip, v.y ^ flip, v.z ^ flip, v.w ^ flip);

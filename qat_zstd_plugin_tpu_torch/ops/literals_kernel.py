@@ -39,7 +39,9 @@ from . import bitconcat, huffman_tables
 from .bitpack import backward_stream_bytes
 from .glue_kernels import _M32, _check, _i32, _launch, _use_twin
 
-LIT_TILE = 2048  # positions per CTA of B15 (kLitTile in the CUDA source)
+LIT_TILE = 32768  # positions a tile of B15 (kLitTile in the CUDA source)
+LIT_BOUND_STRIDE = 32  # words between two tiles' bounds (kLitBoundStride)
+LIT_MAX_N = 1 << 29  # B15's 30-bit status words hold ends up to n
 
 
 def _check_rows(name: str, n: int) -> None:
@@ -95,11 +97,17 @@ def literal_keys(blocks: torch.Tensor, lengths: torch.Tensor,
     if _use_twin(blocks, "literal_keys"):
         return literal_keys_twin(blocks, lengths, chosen, mlen)
     _check_rows("literal_keys", N)
+    if N >= LIT_MAX_N:
+        raise ValueError(f"literal_keys: the kernel takes rows of fewer "
+                         f"than {LIT_MAX_N} positions, got {N}")
     keys = torch.empty((B, N), dtype=torch.int32, device=blocks.device)
     if keys.numel():
-        tile_max = torch.empty((B, -(-N // LIT_TILE)), dtype=torch.int32,
-                               device=blocks.device)
-        _launch("literal_keys", blocks, lengths, chosen, mlen, tile_max,
+        # Each tile's status word and bound line, then the tile counter;
+        # the entry point zeroes them on the stream.
+        words = B * -(-N // LIT_TILE) * (1 + LIT_BOUND_STRIDE)
+        scratch = torch.empty(words + 1, dtype=torch.int32,
+                              device=blocks.device)
+        _launch("literal_keys", blocks, lengths, chosen, mlen, scratch,
                 keys, B, N)
     return keys
 

@@ -242,6 +242,56 @@ def test_compact_slots_dense(cuda, ldm):
             tk.compact_slots_dense_twin(ml, mo, WINDOW, est, off, cap))
 
 
+@pytest.mark.parametrize("span", [0, 4, 8, 16])
+def test_compact_slots_dense_spans(cuda, span):
+    """B8 on level 4's claims at every LDM span the levels take (sample
+    slots every 8 and 16 slots: the shift path) and without LDM, on 16
+    blocks where block 5 repeats half of block 4 (LDM claims)."""
+    blocks = _blocks(B=16)
+    blocks[5, :N // 2] = blocks[4, N // 2:]
+    x = torch.from_numpy(blocks).to(cuda)
+    lengths = torch.from_numpy(np.tile(LENGTHS, 2)).to(cuda)
+    widths = (4, 5, 6, 8)
+    ml, mo = tk.finalize_candidates(_sus(x, widths), x, lengths, widths,
+                                    WINDOW)
+    est = off = None
+    if span:
+        _, m = tk.hash_keys_winmin(x, 6, WINDOW, tk.ldm_stride(span, N))
+        est, off = tk._ldm_est(tk.ldm_unsorted(m, span), lengths, N, span,
+                               1 << 19)
+        assert int((est > 0).sum()) > 0
+    for cap in (24, 32):
+        assert torch.equal(
+            tk.compact_slots_dense(ml, mo, WINDOW, est, off, cap),
+            tk.compact_slots_dense_twin(ml, mo, WINDOW, est, off, cap))
+
+
+@pytest.mark.parametrize("n,spb", [
+    (4100, 0), (4100, 1025), (4100, 41), (4100, 5), (4100, 205),
+    (4104, 513), (4104, 0), (4096, 256), (4096, 1024), (6144, 128),
+    (4608, 384), (4608, 9)])
+def test_compact_slots_dense_ragged_rows(cuda, n, spb):
+    """B8 on seeded claim planes at rows whose slot count 4 does not
+    divide (4100, 4104: the guarded path), a partial last chunk, and
+    sample spacings of 1, 2, 3, 4, 5, 12, 25, 128 and 205 slots: powers of
+    two of at least four take the shift path, the others 32-bit % and
+    /."""
+    rng = np.random.default_rng(n + spb)
+    B = 6
+    ml = rng.integers(0, 48, (B, n)).astype(np.int32)
+    ml[:, ::7] = rng.integers(-3, 300, (B, -(-n // 7)))
+    mo = rng.integers(0, WINDOW, (B, n)).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    est = off = None
+    if spb:
+        est = t(rng.integers(0, 260, (B, spb)).astype(np.int32))
+        off = t(rng.integers(1, 1 << 19, (B, spb)).astype(np.int32))
+    for cap in (24, 32):
+        got = tk.compact_slots_dense(t(ml), t(mo), n, est, off, cap)
+        assert torch.equal(got, tk.compact_slots_dense_twin(
+            t(ml), t(mo), n, est, off, cap))
+
+
 def test_l4_frames_card_vs_cpu(cuda):
     data = _blocks(B=8, seed=2).tobytes() + b"tail" * 1000
     tk.reset_launches()
@@ -444,6 +494,60 @@ def test_literal_keys_and_byte_hist(cuda):
         assert torch.equal(keys.cpu(), lk.literal_keys(
             x.cpu(), lengths.cpu(), ch.cpu(), ml.cpu()))
         assert torch.equal(lk.byte_hist(keys), lk.byte_hist_twin(keys))
+
+
+def _lit_args(dev, chosen, mlen, seed=0, lengths=None):
+    rng = np.random.default_rng(seed)
+    B, n = chosen.shape
+    blocks = rng.integers(0, 256, (B, n), np.uint8)
+    if lengths is None:
+        lengths = np.full(B, n, np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (blocks, lengths, chosen, mlen))
+
+
+def test_literal_keys_carry_from_tile_zero(cuda):
+    """One chosen match from position 0 of length N on every row: every
+    later tile's keys rest on tile 0's carry through the look-back. 200
+    calls in a row, each exact."""
+    B = 64
+    chosen = np.zeros((B, N), bool)
+    chosen[:, 0] = True
+    mlen = np.zeros((B, N), np.int32)
+    mlen[:, 0] = N
+    mlen[1::2, 0] = N - 1  # the row's last position stays a literal
+    args = _lit_args(cuda, chosen, mlen)
+    want = lk.literal_keys_twin(*args)
+    assert int((want != -1).sum()) == B // 2
+    for _ in range(200):
+        assert torch.equal(lk.literal_keys(*args), want)
+
+
+@pytest.mark.parametrize("B", [1, 64, 300])
+def test_literal_keys_rows(cuda, B):
+    """B15 on 1, 64 and 300 rows of the seeded long matches, ragged
+    lengths, with lengths near 2**31 that the clamped ends must keep."""
+    chosen, mlen = _long_matches(B=max(B, 8), seed=B)
+    chosen, mlen = chosen[:B], mlen[:B]
+    chosen[-1, 5], mlen[-1, 5] = True, 2**31 - 1
+    chosen[0, N // 2], mlen[0, N // 2] = True, 2**31 - 7
+    lengths = np.random.default_rng(B).integers(0, N + 1, B).astype(
+        np.int32)
+    args = _lit_args(cuda, chosen, mlen, B, lengths)
+    assert torch.equal(lk.literal_keys(*args), lk.literal_keys_twin(*args))
+
+
+def test_literal_keys_back_to_back(cuda):
+    """Two B15 calls in a row on different inputs (the second reuses the
+    first's scratch from the allocator): both exact."""
+    a = _lit_args(cuda, *_long_matches(seed=1), seed=1)
+    ch, ml = _long_matches(seed=2)
+    ml[:, ::3] = 0
+    b = _lit_args(cuda, ch, ml, seed=2)
+    got_a = lk.literal_keys(*a)
+    got_b = lk.literal_keys(*b)
+    assert torch.equal(got_a, lk.literal_keys_twin(*a))
+    assert torch.equal(got_b, lk.literal_keys_twin(*b))
 
 
 def test_encode_literals_device_card_vs_cpu(cuda):

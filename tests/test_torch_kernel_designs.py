@@ -730,7 +730,7 @@ def _l1_constant(name: str) -> int:
 
 K2_THREADS = _l1_constant("kK2Threads")
 K3_THREADS = _l1_constant("kK3Threads")
-MAX_GRID = _l1_constant("kMaxGridY")
+MAX_GRID = _common_constant("kMaxGridY")
 
 
 def _k2_claims(sh, sp, j, neighbors, word, pbits, pmask):
