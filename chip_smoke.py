@@ -21,24 +21,32 @@ Run from the repository root on a machine with one CUDA device. Phases
      must move at 3.35 TB/s): K1-K4 at level 1's shapes (B=128 blocks of
      128 KiB), B5-B14 at the level 2-12 shapes (B=64 blocks of 128 KiB,
      bench.py's device level ladder and its hybrid row), on the corpus
-     and on random bytes; K2 and K3 with flip 0 and with the sign flip
-     of the main path's signed row sorts, every case also over 20
-     back-to-back calls (stream_ms): K2 on level 1's pair rows and LDM
+     and on random bytes; K1 with the LDM samples (the main path's) and
+     with the full plane, K2, K3 and K4 with flip 0 and with the sign
+     flip of the main path's signed row sorts, every case also over 20
+     back-to-back calls (stream_ms): K1 on corpus, random and mixed
+     bytes at B=128, on 37 rows of 65536 and on 64 rows of 4100 (there at
+     every stride from 1 to 4096 and 0); K4 on level 1's pair rows with
+     ragged lengths, with the LDM rows of span 4 (the estimates computed
+     in the kernel) and without; K2 on level 1's pair rows and LDM
      rows and one pair row at neighbors 1, on full-resolution rows at
      neighbors 2, 3, 7 and 100, on rows of 4100 and 4097 words, and on
      crafted rows whose equal hashes straddle the kernel's chunks at
      neighbors 1, 3 and 100, with a clone of its input beside it
-     (copy_ms); K3 at spans 4 (B=128), 8 and 16 (B=64), on one span, two
-     spans and 1027 samples a block, with its sector floor (one 32-byte
-     sector read a sample) and the same sampled words copied out by
-     torch (gather_ms); B5 at widths 4, 5, 6 and 8, B6 and B9 at every
+     (copy_ms); K3 at span 4 (B=128) on K1's samples (the main path's)
+     and on its plane, at spans 8 and 16 (B=64), on one span, two spans
+     and 1027 samples a block, with its sector floor (on a plane one
+     32-byte sector read a sample) and on a plane the same sampled words
+     copied out by torch (gather_ms); B5 at widths 4, 5, 6 and 8, B6 and
+     B9 at every
      power-of-two stride from 1 to 4096, each on corpus, random and
      mixed bytes, on 37 rows of 65536, 64 rows of 4100 and one row of 8
      bytes (B5 and B6 with flip 0 and with the sign flip), each case also
      over 20 back-to-back calls (stream_ms) beside torch's widening copy
      of the same bytes (copy_ms: to int32 for B5 and B9, to int64 for
      B6); B10 on the L5 and L12 candidate lengths of
-     the B=64 batch and on crafted rows, lazy on and off; B11 and B13
+     the B=64 batch and on crafted rows, lazy on and off, each case also
+     back to back (stream_ms, as B11, B12, B17 and B18); B11 and B13
      (full and ragged lengths) on corpus, random and mixed bytes; B7 and
      B13 also timed on corpus, random and mixed bytes apart, and at
      B=37 x 65536 and B=64 x 4100 with ragged lengths, each B7 and B13
@@ -228,9 +236,19 @@ def _ragged(torch, rng, B: int, N: int, dev):
     return torch.from_numpy(lengths).to(dev)
 
 
-def kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int) -> dict:
-    """Phase 2, level 1's kernels: each against its twin on the card."""
-    from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
+def kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
+                     results: dict) -> None:
+    """Phase 2, K1 and K4 against their twins on the card, every case also
+    back to back (stream_ms). K1 with the LDM samples and with the plane,
+    flip 0 and the sign flip, at stride 32 on corpus, random and mixed
+    bytes at B=128 x 128 KiB and on 37 rows of 65536 and 64 of 4100 mixed
+    bytes (a row ending inside a warp's tile), and at every stride from 1
+    to 4096 and 0 on the rows of 4100; its main case is the main path's,
+    the samples with the flip on the corpus. K4 on level 1's pair rows of
+    the corpus with ragged lengths, with the LDM rows of span 4 and
+    without, flip 0 and the sign flip; its main case the main path's (span
+    4, the flip). K2 and K3, which make K4's inputs, are checked in
+    unsort_kernels_vs_twins."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 1)
     B, N = blocks_np.shape
@@ -238,45 +256,69 @@ def kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int) -> dict:
     stride = tk.ldm_stride(span, N)
     pbits = (WINDOW - 1).bit_length()
     blocks = torch.from_numpy(blocks_np).to(dev)
-    rand = torch.from_numpy(rng.integers(0, 256, (B, N), np.uint8)).to(dev)
+    rand, mixed = _test_bytes(torch, blocks, rng)
     ragged = _ragged(torch, rng, B, N, dev)
-    results = {}
+    case = Cases(results)
+    flips = (0, tk._FLIP)
 
-    def record(name, err, moved, kernel_fn, twin_fn):
-        results[name] = {"max_abs_err": err, "ms": cuda_ms(kernel_fn),
-                         "plain_ms": cuda_ms(twin_fn), **bound(moved)}
+    def k1(what, x, s, main_case=False):
+        err = 0
+        for samples in (True, False):
+            for f in flips:
+                got = tk.hash_keys_winmin_sync(x, width, WINDOW, s, f,
+                                               samples)
+                want = tk.hash_keys_winmin_sync_twin(x, width, WINDOW, s, f,
+                                                     samples)
+                err = max(err, exact(torch, got[0], want[0],
+                                     f"hash_keys_winmin_sync keys ({what})"),
+                          0 if s == 0 else exact(
+                              torch, got[1], want[1],
+                              f"hash_keys_winmin_sync minima ({what}, "
+                              f"samples={samples})"))
+        for samples in (True, False) if s else (True,):
+            run = lambda: tk.hash_keys_winmin_sync(x, width, WINDOW, s,
+                                                   tk._FLIP, samples)
+            out = run()
+            case("hash_keys_winmin_sync",
+                 f"{what}, stride {s}, samples={samples}, flip", err,
+                 nbytes(x, *out), run,
+                 lambda: tk.hash_keys_winmin_sync_twin(
+                     x, width, WINDOW, s, tk._FLIP, samples),
+                 main=main_case and samples, stream_ms=stream_ms(torch, run))
 
-    # K1 on the corpus and on random bytes.
-    err = 0
-    for x in (rand, blocks):
-        k, m = tk.hash_keys_winmin_sync(x, width, WINDOW, stride)
-        tw_k, tw_m = tk.hash_keys_winmin_sync_twin(x, width, WINDOW, stride)
-        err = max(err, exact(torch, k, tw_k, "hash_keys_winmin_sync keys"),
-                  exact(torch, m, tw_m, "hash_keys_winmin_sync minz"))
-    record("hash_keys_winmin_sync", err, nbytes(blocks, k, m),
-           lambda: tk.hash_keys_winmin_sync(blocks, width, WINDOW, stride),
-           lambda: tk.hash_keys_winmin_sync_twin(blocks, width, WINDOW,
-                                                 stride))
+    for what, x in (("corpus bytes", blocks), ("random bytes", rand),
+                    ("mixed bytes", mixed),
+                    ("B=37, N=65536", mixed[:37, :65536].contiguous())):
+        k1(what, x, stride, main_case=what == "corpus bytes")
+    small = mixed[:64, :4100].contiguous()
+    for s in (0,) + WINMIN_STRIDES:
+        k1("B=64, N=4100", small, s)
 
-    # K4 with ragged lengths, with and without LDM estimates (K2 and K3,
-    # which make its inputs, are checked in unsort_kernels_vs_twins).
-    su = tk._unsorted(k, pbits, 1, WINDOW - 1)
-    est, off = tk._ldm_est(tk.ldm_unsorted(m, span), ragged, N, span,
-                           1 << 19)
-    out = tk.compact_slots_sync(su, WINDOW, ragged, width, est, off)
-    err = max(
-        exact(torch, out,
-              tk.compact_slots_sync_twin(su, WINDOW, ragged, width, est, off),
-              "compact_slots_sync (LDM)"),
-        exact(torch, tk.compact_slots_sync(su, WINDOW, ragged, width),
-              tk.compact_slots_sync_twin(su, WINDOW, ragged, width),
-              "compact_slots_sync"))
-    record("compact_slots_sync", err, nbytes(su, ragged, est, off, out),
-           lambda: tk.compact_slots_sync(su, WINDOW, ragged, width, est, off),
-           lambda: tk.compact_slots_sync_twin(su, WINDOW, ragged, width,
-                                              est, off))
+    # K4 on the main path's pair rows and LDM rows.
+    key, samples = tk.hash_keys_winmin_sync(blocks, width, WINDOW, stride,
+                                            samples=True)
+    su = tk._unsorted(key, pbits, 1, WINDOW - 1)
+    su_l = tk.ldm_unsorted(samples, span, 1, stride=1)
+    for sp in (4, 0):
+        rows = su_l if sp else None
+        want = tk.compact_slots_sync_twin(su, WINDOW, ragged, width, rows, sp)
+        err = max(exact(torch, tk.compact_slots_sync(
+                      a, WINDOW, ragged, width, r, sp, flip=f), want,
+                      f"compact_slots_sync (LDM span {sp}, flip {f:#x})")
+                  for a, r, f in ((su, rows, 0),
+                                  (su ^ tk._SIGN, None if rows is None
+                                   else rows ^ tk._SIGN, tk._FLIP)))
+        a, r = su ^ tk._SIGN, None if rows is None else rows ^ tk._SIGN
+        run = lambda: tk.compact_slots_sync(a, WINDOW, ragged, width, r, sp,
+                                            flip=tk._FLIP)
+        # K4 reads the span's half of each LDM row.
+        ldm_read = 0 if r is None else nbytes(r) // 2
+        case("compact_slots_sync", f"LDM span {sp}, flip, ragged lengths",
+             err, nbytes(a, ragged, want) + ldm_read, run,
+             lambda: tk.compact_slots_sync_twin(a, WINDOW, ragged, width, r,
+                                                sp, flip=tk._FLIP),
+             main=sp == 4, stream_ms=stream_ms(torch, run))
     torch.cuda.synchronize()
-    return results
 
 
 def _crafted_unsort_rows(rng, w: int = 8192) -> np.ndarray:
@@ -320,27 +362,30 @@ def unsort_kernels_vs_twins(torch, tk, blocks_np: np.ndarray,
              lambda: tk.neighbor_unsort_keys_twin(sk, pb, nb, pmask),
              main=main, stream_ms=stream_ms(torch, run), **extra)
 
-    def k3(what, minz, span, main=False):
-        stride = tk.ldm_stride(span, minz.shape[1])
+    def k3(what, minz, span, main=False, stride=None):
+        stride = stride or tk.ldm_stride(span, minz.shape[1])
         err = max(exact(torch, tk.ldm_keys(minz, span, stride, flip=f),
                         tk.ldm_keys_twin(minz, span, stride, f),
                         f"ldm_keys ({what}, flip {f:#x})")
                   for f in (0, tk._FLIP))
-        run = lambda: tk.ldm_keys(minz, span, stride)
+        run = lambda: tk.ldm_keys(minz, span, stride, flip=tk._FLIP)
         out = run()
         samples = minz.shape[0] * (minz.shape[1] // stride)
         extra = {"gather_ms": stream_ms(
-            torch, lambda: minz[:, ::stride].contiguous())} if main else {}
+            torch, lambda: minz[:, ::stride].contiguous())} \
+            if stride > 1 else {}
         case("ldm_keys", what, err, 4 * samples + nbytes(out), run,
-             lambda: tk.ldm_keys_twin(minz, span, stride), main=main,
-             stream_ms=stream_ms(torch, run), **extra,
-             sector_floor_ms=(32 * samples + nbytes(out))
-             / HBM_BYTES_PER_S * 1e3)
+             lambda: tk.ldm_keys_twin(minz, span, stride, tk._FLIP),
+             main=main, stream_ms=stream_ms(torch, run), **extra,
+             sector_floor_ms=((32 if stride > 1 else 4) * samples
+                              + nbytes(out)) / HBM_BYTES_PER_S * 1e3)
 
     # Level 1: the pair rows and the LDM rows of the B=128 batch.
     blocks = torch.from_numpy(blocks_np).to(dev)
     N = blocks.shape[1]
     key, m = tk.hash_keys_winmin_sync(blocks, 6, WINDOW, tk.ldm_stride(4, N))
+    samples = tk.hash_keys_winmin_sync(blocks, 6, WINDOW,
+                                       tk.ldm_stride(4, N), samples=True)[1]
     sk = tk._sort_rows(key)
     lk = tk._sort_rows(tk.ldm_keys(m, 4, tk.ldm_stride(4, N)))
     k2("pair rows, neighbors 1", sk, pbits, 1, WINDOW - 1, main=True)
@@ -365,10 +410,12 @@ def unsort_kernels_vs_twins(torch, tk, blocks_np: np.ndarray,
         k2(f"crafted rows across chunk edges, neighbors {nb}", crafted, 13,
            nb)
 
-    # K3 at level 1's span 4, levels 3 and 4's spans 8 and 16 on the
-    # B=64 planes, one span (all context the fill), two spans, and 1027
-    # samples a block (a part of a CTA).
-    k3("span 4", m, 4, main=True)
+    # K3 at level 1's span 4 on K1's samples (the main path's, stride 1)
+    # and on its plane, levels 3 and 4's spans 8 and 16 on the B=64
+    # planes, one span (all context the fill), two spans, and 1027 samples
+    # a block (a part of a CTA).
+    k3("span 4, K1's samples", samples, 4, main=True, stride=1)
+    k3("span 4, K1's plane", m, 4)
     for span in (8, 16):
         stride = tk.ldm_stride(span, N)
         k3(f"span {span}", tk.hash_keys_winmin(mixed, 4, WINDOW, stride)[1],
@@ -681,11 +728,12 @@ def content_kernels_vs_twins(torch, tk, pk, mp, blocks_np: np.ndarray,
             chosen = pk.parse_greedy(mlen, lazy)
             err = exact(torch, chosen, pk.parse_greedy_twin(mlen, lazy),
                         f"parse_greedy {what} lazy={lazy}")
+            run = lambda: pk.parse_greedy(mlen, lazy)
             case("parse_greedy", f"{what}, lazy={lazy}", err,
-                 4 * _visited(torch, chosen, mlen) + nbytes(chosen),
-                 lambda: pk.parse_greedy(mlen, lazy),
+                 4 * _visited(torch, chosen, mlen) + nbytes(chosen), run,
                  lambda: pk.parse_greedy_twin(mlen, lazy),
-                 main=(what, lazy) == ("L5 candidates", True))
+                 main=(what, lazy) == ("L5 candidates", True),
+                 stream_ms=stream_ms(torch, run))
     torch.cuda.synchronize()
 
 
@@ -757,9 +805,11 @@ def hybrid_kernels_vs_twins(torch, tk, fk, blocks_np: np.ndarray,
         tw_g, tw_p = tk.gram_pos_planes_twin(x, WINDOW)
         err = max(err, exact(torch, g, tw_g, "gram_pos_planes grams"),
                   exact(torch, p, tw_p, "gram_pos_planes positions"))
+    run = lambda: tk.gram_pos_planes(corpus, WINDOW)
     case("gram_pos_planes", "corpus, random and mixed bytes", err,
-         nbytes(corpus, g, p), lambda: tk.gram_pos_planes(corpus, WINDOW),
-         lambda: tk.gram_pos_planes_twin(corpus, WINDOW), main=True)
+         nbytes(corpus, g, p), run,
+         lambda: tk.gram_pos_planes_twin(corpus, WINDOW), main=True,
+         stream_ms=stream_ms(torch, run))
 
     # B12 at neighbors 1 and 2 on the (gram, pos)-sorted rows.
     rows = {name: tk._sort_rows2(*tk.gram_pos_planes(x, WINDOW), pbits)
@@ -771,11 +821,11 @@ def hybrid_kernels_vs_twins(torch, tk, fk, blocks_np: np.ndarray,
                         tk.neighbor_verify_keys_twin(a, b, pbits, neighbors),
                         f"neighbor_verify_keys {name} rows, neighbors "
                         f"{neighbors}") for name, (a, b) in rows.items())
+        run = lambda: tk.neighbor_verify_keys(sg, sp, pbits, neighbors)
         case("neighbor_verify_keys", f"neighbors {neighbors}", err,
-             nbytes(sg, sp, sg),
-             lambda: tk.neighbor_verify_keys(sg, sp, pbits, neighbors),
+             nbytes(sg, sp, sg), run,
              lambda: tk.neighbor_verify_keys_twin(sg, sp, pbits, neighbors),
-             main=neighbors == 2)
+             main=neighbors == 2, stream_ms=stream_ms(torch, run))
 
     # B13 with full and ragged lengths.
     err = 0
@@ -971,21 +1021,22 @@ def parsed_kernels_vs_twins(torch, tk, tsk, blocks_np: np.ndarray,
             out = tk.compact_slots(ch, moff, WINDOW)
             err = exact(torch, out, tk.compact_slots_twin(ch, moff, WINDOW),
                         f"compact_slots {what} lazy={lazy}")
+            run = lambda: tk.compact_slots(ch, moff, WINDOW)
             case("compact_slots", f"L2 {what}, lazy={lazy}", err,
-                 nbytes(ch, moff, out),
-                 lambda: tk.compact_slots(ch, moff, WINDOW),
+                 nbytes(ch, moff, out), run,
                  lambda: tk.compact_slots_twin(ch, moff, WINDOW),
                  main=(what, lazy) == ("parse", False),
-                 claims=int((out != -1).sum()))
+                 claims=int((out != -1).sum()),
+                 stream_ms=stream_ms(torch, run))
         ops = tk.compact_operands(chosen, mlen, moff, WINDOW)
         err = max(exact(torch, g, w, f"compact_operands lazy={lazy}")
                   for g, w in zip(ops, tk.compact_operands_twin(
                       chosen, mlen, moff, WINDOW)))
+        run = lambda: tk.compact_operands(chosen, mlen, moff, WINDOW)
         case("compact_operands", f"L2 parse, lazy={lazy}, nseg 4", err,
-             nbytes(chosen, mlen, moff, *ops),
-             lambda: tk.compact_operands(chosen, mlen, moff, WINDOW),
+             nbytes(chosen, mlen, moff, *ops), run,
              lambda: tk.compact_operands_twin(chosen, mlen, moff, WINDOW),
-             main=not lazy)
+             main=not lazy, stream_ms=stream_ms(torch, run))
     phase("bitonic_sort_clusters", n=BLOCK, active_clusters=_build.load()
           .qz_bitonic_active_clusters(BLOCK))
     for n, rows in ((1024, B), (8192, B), (16384, B), (32768, B), (BLOCK, B),
@@ -1369,7 +1420,8 @@ def main() -> int:
         want_parsed = [pool.submit(cpu_parsed_slots, dense_np, kw)
                        for kw in PARSED_CASES]
         want_frames = [pool.submit(cpu_frame, *f) for f in frames]
-        kernels = kernels_vs_twins(torch, tk, blocks_np, args.seed)
+        kernels = {}
+        kernels_vs_twins(torch, tk, blocks_np, args.seed, kernels)
         unsort_kernels_vs_twins(torch, tk, blocks_np, dense_np, args.seed,
                                 kernels)
         dense_kernels_vs_twins(torch, tk, dense_np, args.seed, kernels)

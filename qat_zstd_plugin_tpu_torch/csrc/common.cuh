@@ -1,8 +1,9 @@
 // Helpers shared by the port's CUDA sources: the hash constants and gram
 // hash of qat_zstd_plugin_tpu.ops.glue_kernels._hash_tile, the launch
 // shape of the one-thread-per-element kernels, the templated body of the
-// full-resolution key and minimizer-plane kernels (B5, B6, B9), and the
-// tiled offset-1 run scan that B7 and B13 fuse with their first pass.
+// full-resolution key and minimizer-plane kernels (B5, B6, B9; K1 takes
+// its row scans), the LDM estimate of one sample (K4), and the tiled
+// offset-1 run scan that B7 and B13 fuse with their first pass.
 
 #pragma once
 
@@ -260,13 +261,24 @@ hash_keys_kernel(const uint8_t* __restrict__ blocks,
 
 // minz[i] = the minimum of the stride-128 plane m128 at i, i + 128, ...,
 // i + 128 (reps - 1) (kEmpty at or past n): the windowed minimum over
-// [i, i + 128 reps). One thread per 4 positions, 16-byte accesses.
+// [i, i + 128 reps). One thread per 4 positions, 16-byte accesses where
+// n % 4 == 0 (kVec), else 4-byte ones (K1's rows of n % 4 == 2).
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 winmin_stretch_kernel(const uint32_t* __restrict__ m128,
                       uint32_t* __restrict__ minz, int n, int reps) {
     const int i = 4 * (int(blockIdx.x) * kThreads + int(threadIdx.x));
     if (i >= n) return;
     const size_t at = size_t(blockIdx.y) * n + i;
+    if (!kVec) {
+        for (int k = 0; k < 4 && i + k < n; ++k) {
+            uint32_t m = m128[at + k];
+            for (int r = 1; r < reps && i + k + r * kRowSpan < n; ++r)
+                m = min(m, m128[at + k + r * kRowSpan]);
+            minz[at + k] = m;
+        }
+        return;
+    }
     uint4 m = *reinterpret_cast<const uint4*>(m128 + at);
     for (int r = 1; r < reps && i + r * kRowSpan < n; ++r) {
         const uint4 v = *reinterpret_cast<const uint4*>(m128 + at +
@@ -301,9 +313,64 @@ int launch_hash_keys(const void* blocks, void* keys, void* minz,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || !wide) return int(err);
     const dim3 stretch((n / 4 + kThreads - 1) / kThreads, rows);
-    winmin_stretch_kernel<<<stretch, kThreads, 0, s>>>(
+    winmin_stretch_kernel<true><<<stretch, kThreads, 0, s>>>(
         plane, static_cast<uint32_t*>(minz), n, stride / kRowSpan);
     return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// _ldm_est of one sample (glue_kernels._ldm_est, XLA glue in the
+// reference), for a kernel that reads the position-ordered LDM keys
+// itself: K4 compact_slots_sync (l1_kernels.cu). Sample q of block b
+// reads offs at columns c..c+5 of span row b / sb, c = half + (b % sb) spb
+// + q, 0 past the row's end (the chain runs on into block b + 1's
+// samples); the chain of offsets that agree (|nxt - offs| <= 1, nxt > 0)
+// has its reach capped at 6; the estimate reach * stride is valid for
+// reach >= 2, offs >= 2 and offs * stride <= max_off (the int32 product,
+// as the reference's), and only where q * stride + 40 <= length.
+// ---------------------------------------------------------------------------
+
+constexpr int kLdmReach = 6;  // a sample and the 5 after it
+
+struct LdmArgs {
+    const uint32_t* rows;  // (nspans, 2 half) LDM keys; null: no LDM
+    int sb, spb, stride, max_off;
+    uint32_t offmask;  // the keys' offset bits
+};
+
+// The offsets of sample q of block b and of the five after it (`flip`
+// XORed into each word read).
+__device__ __forceinline__ void ldm_offsets(const LdmArgs& a, int b, int q,
+                                            uint32_t flip,
+                                            uint32_t (&offs)[kLdmReach]) {
+    const int half = a.sb * a.spb;
+    const int span = b / a.sb;
+    const int p = (b - span * a.sb) * a.spb + q;  // column - half
+    const uint32_t* row = a.rows + size_t(span) * (2 * half) + half;
+#pragma unroll
+    for (int k = 0; k < kLdmReach; ++k)
+        offs[k] = p + k < half ? (__ldg(row + p + k) ^ flip) & a.offmask
+                               : 0u;
+}
+
+// The estimate (0: no claim) of sample q from its offsets; ldo gets the
+// LDM byte offset offs * stride.
+__device__ __forceinline__ int ldm_estimate(const uint32_t (&offs)[kLdmReach],
+                                            const LdmArgs& a, int q,
+                                            int blen, int& ldo) {
+    const int o = int(offs[0]);
+    bool agree = o > 0;
+    int reach = agree;
+#pragma unroll
+    for (int k = 1; k < kLdmReach; ++k) {
+        const int nx = int(offs[k]);
+        agree = agree && abs(nx - o) <= 1 && nx > 0;
+        reach += agree;
+    }
+    ldo = int(uint32_t(o) * uint32_t(a.stride));
+    const bool valid = reach >= 2 && o >= 2 && ldo <= a.max_off &&
+                       q * a.stride + 40 <= blen;
+    return valid ? reach * a.stride : 0;
 }
 
 // ---------------------------------------------------------------------------

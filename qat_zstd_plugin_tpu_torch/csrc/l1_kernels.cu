@@ -14,88 +14,235 @@
 // PyTorch side holds them in int32 tensors.
 //
 // All four are integer passes with a few operations per byte moved, so
-// device-memory bandwidth bounds them on an H100 (3.35 TB/s). K1 and K4
-// are written simple and right first: one thread per output element (K1
-// a byte pair), loads and stores coalesced along the row. K2 and K3 are
-// redesigned for the card: 32-bit index arithmetic, 16-byte accesses in
-// K2, one read of each LDM sample in K3, and the sign flips of the signed
-// row sorts around them folded into both.
+// device-memory bandwidth bounds them on an H100 (3.35 TB/s). Each is
+// designed for the card: 32-bit index arithmetic, whole lines a warp
+// load, and the sign flips of the signed row sorts around them folded
+// into each. On the level-1 path K1 writes its keys flipped and only the
+// LDM samples, K3 reads those contiguously, and K4 takes the last sorts'
+// flipped words and computes the LDM estimates itself, so no torch pass
+// runs between the kernels and the row sorts.
 
 #include "common.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// K1: pair-syncmer anchor keys + windowed-minimum plane.
+// K1: pair-syncmer anchor keys + the LDM samples (or the full plane).
 // Replaces glue_kernels.hash_keys_winmin_sync (Pallas).
 //
-// One thread per byte pair (positions i, i+1 with i even). A CTA covers
-// kK1Span positions of one row: it stages the bytes of the tile plus a
-// halo in shared memory, hashes every 8-byte gram of the tile plus the
-// window halo once into shared memory (entries past the row's end hold the
-// 0xFFFFFFFF fill of the reference's shifted reads), then each thread
-//   * takes the parity of the argmin of (h8 & ~1 | lane parity) over the
-//     4-wide window [i, i+4) and writes the key of the chosen pair member,
-//     (hash_w(sel) << pbits | sel & pmask), for the even lane only: the
-//     Pallas kernel writes full width and drops odd lanes afterwards
-//     because Mosaic cannot decimate lanes;
-//   * writes minz[i], minz[i+1]: the minimum h8 over [i, i+stride).
-// Bound: reads N bytes and writes 2N (keys) + 4N (minz) bytes per row;
-// the 8-gram hash is computed once per position in shared memory instead
-// of once per window member.
+// Pair p of a row (positions i = 2p and i + 1) holds (hash_width(sel) >>
+// pbits << pbits | sel & pmask) ^ flip, sel the member whose lane parity
+// is the parity of the argmin of (h8 & ~1 | position & 1) over [i, i + 4):
+// ties go to the even lane, positions at or past n count as 0xFFFFFFFF
+// (the reference's fill). The second output is, with kPlane, the
+// reference's (B, n) plane minz[i] = the minimum of h8 over [i, i +
+// stride); else only the words the LDM chain reads, minz[:, ::stride]:
+// sample j is the minimum of h8 over [j stride, (j + 1) stride). h8 is the
+// 8-gram hash with bytes past the row read as 0.
+//
+// Bound: device memory. A row reads n bytes and writes 2n bytes of keys
+// and 4n / stride of samples; the full plane would add 4n, of which the
+// chain reads one word in `stride`. The design is B6's (common.cuh): a
+// warp per tile of kK1Rows rows of 128 positions, lane l at positions
+// 4l..4l+3 of each row, one 128-byte line a warp load, the grams from
+// shuffled words by __byte_perm, 32-bit in-row indices, no shared memory.
+// A lane holds pairs 2l and 2l+1 of a row. The second pair's window needs
+// h8 at 4l+4 and 4l+5: the next lane's first two, for lane 31 the next
+// row's lane 0 (after the tile's last row, the halo row's), by shuffle.
+// Both keys go out in one 8-byte store. A sample at stride S <= 128 lies
+// in one row: the minimum over S/4 lanes by xor shuffles, log2(S/4) steps
+// (3 at level 1's stride of 32), stored by the first of them. Above 128
+// the kernel writes the stride-128 samples into scratch and
+// sync_samples_kernel takes the minimum of each S/128 of them; the full
+// plane takes block_scans/window_min, and above 128
+// winmin_stretch_kernel, as B6 does. A row whose length is no multiple of
+// 4 (n % 4 == 2) loads byte by byte and stores word by word (kVec false).
 // ---------------------------------------------------------------------------
 
-constexpr int kK1Threads = 256;
-constexpr int kK1Span = 2 * kK1Threads;
+constexpr int kK1Rows = 8;   // rows of 128 positions a warp tile
+constexpr int kK1Warps = 4;  // warps a CTA
+constexpr int kK1WarpSpan = kK1Rows * kRowSpan;
+constexpr int kK1Span = kK1Warps * kK1WarpSpan;  // positions a CTA
 
-__global__ void __launch_bounds__(kK1Threads)
-hash_keys_winmin_sync_kernel(const uint8_t* __restrict__ blocks,
-                             uint32_t* __restrict__ keys,
-                             uint32_t* __restrict__ minz, int n, int width,
-                             int pbits, uint32_t pmask, int stride,
-                             int halo) {
-    extern __shared__ uint32_t smem[];
-    const int nh = kK1Span + halo;  // h8 entries: tile + window halo
-    uint32_t* h8 = smem;
-    uint8_t* bytes = reinterpret_cast<uint8_t*>(smem + nh);  // nh + 7
-    const int row = blockIdx.y;
-    const int base = blockIdx.x * kK1Span;
-    const uint8_t* x = blocks + size_t(row) * n;
+// Word q of a row: its bytes 4q..4q+3, little-endian, 0 past n.
+template <bool kVec>
+__device__ __forceinline__ uint32_t row_word(const uint8_t* __restrict__ x,
+                                             int q, int n) {
+    if (kVec)
+        return q < (n >> 2)
+            ? __ldg(reinterpret_cast<const uint32_t*>(x) + q) : 0u;
+    uint32_t v = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+        if (4 * q + k < n) v |= uint32_t(__ldg(x + 4 * q + k)) << (8 * k);
+    return v;
+}
 
-    for (int j = threadIdx.x; j < nh + 7; j += kK1Threads) {
-        const int p = base + j;
-        bytes[j] = p < n ? x[p] : 0;  // zero past the row, as the reference
+// Stores the lane's four words of a row at i..i+3 (those below n).
+template <bool kVec>
+__device__ __forceinline__ void store4(uint32_t* row, int i, int n, uint4 v) {
+    if (kVec) {
+        if (i < n) *reinterpret_cast<uint4*>(row + i) = v;
+        return;
     }
-    __syncthreads();
-    for (int j = threadIdx.x; j < nh; j += kK1Threads) {
-        h8[j] = base + j < n ? gram_hash(bytes + j, 8, 32) : kEmpty;
-    }
-    __syncthreads();
+    const uint32_t a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+        if (i + k < n) row[i + k] = a[k];
+}
 
-    const int t = 2 * threadIdx.x;
-    const int i = base + t;
-    if (i >= n) return;
+struct SyncRow {
+    uint4 h8;  // the 8-gram hashes at i..i+3, kEmpty at or past n
+    uint4 hw;  // the width's hashes at i..i+3, low pbits cleared
+};
 
-    // Argmin parity over [i, i+4): the low bit carries the lane parity,
-    // so ties go to the even lane, as in the reference's sign-flipped min.
-    uint32_t v = kEmpty;
+// One row of a warp tile, starting at position `start`: lane `lane` at
+// positions i..i+3 with its word `own` of the row and `next` of the row
+// after (common.cuh tile_row). The compare with n is made only in a row
+// that reaches it (warp-uniform): K1's time follows its instructions more
+// than its bytes (its samples add 4% to the bytes and 22% to the time on
+// the card, designs/l1_sync.py).
+__device__ __forceinline__ SyncRow sync_row(uint32_t own, uint32_t next,
+                                            int lane, int start, int n,
+                                            int width, uint32_t hmask) {
+    const uint32_t b = __shfl_sync(kFull, lane >= 1 ? own : next,
+                                   (lane + 1) & 31);
+    const uint32_t c = __shfl_sync(kFull, lane >= 2 ? own : next,
+                                   (lane + 2) & 31);
+    uint32_t h[4], hw[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-        const uint32_t u = i + k < n
-            ? (h8[t + k] & 0xFFFFFFFEu) | uint32_t((i + k) & 1) : kEmpty;
-        v = min(v, u);
+        const uint32_t lo = be_at(own, b, k), hi = be_at(b, c, k);
+        h[k] = hash_words(lo, hi, 8);
+        hw[k] = hash_words(lo, hi, width) & hmask;
     }
-    const int pick = int(v & 1u);
-    const uint32_t selh = gram_hash(bytes + t + pick, width, 32 - pbits);
-    const uint32_t selp = uint32_t(i + pick) & pmask;
-    keys[(size_t(row) * n + i) >> 1] = (selh << pbits) | selp;
+    if (start + kRowSpan > n) {
+        const int i = start + 4 * lane;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            if (i + k >= n) h[k] = kEmpty;
+    }
+    return {make_uint4(h[0], h[1], h[2], h[3]),
+            make_uint4(hw[0], hw[1], hw[2], hw[3])};
+}
 
-    if (stride > 0) {
-        uint32_t inner = kEmpty;  // min over [i+1, i+stride)
-        for (int k = 1; k < stride; ++k) inner = min(inner, h8[t + k]);
-        *reinterpret_cast<uint2*>(minz + size_t(row) * n + i) =
-            make_uint2(min(h8[t], inner), min(inner, h8[t + stride]));
+// The keys of the pairs at i and i + 2 from the lane's row and h8 at
+// i + 4 and i + 5. The parity of the argmin of (h8 & ~1 | position & 1)
+// over [i, i + 4) is odd where the odd members' minimum with its low bit
+// set lies below the even members' with it cleared.
+__device__ __forceinline__ uint2 pair_keys(const SyncRow& r, uint32_t h4,
+                                           uint32_t h5, int i,
+                                           uint32_t pmask, uint32_t flip) {
+    const uint32_t p0 = (min(r.h8.y, r.h8.w) | 1u) < (min(r.h8.x, r.h8.z) &
+                                                      ~1u);
+    const uint32_t p1 = (min(r.h8.w, h5) | 1u) < (min(r.h8.z, h4) & ~1u);
+    const uint32_t k0 = (p0 ? r.hw.y : r.hw.x) | ((uint32_t(i) + p0) & pmask);
+    const uint32_t k1 = (p1 ? r.hw.w : r.hw.z) |
+                        ((uint32_t(i) + 2u + p1) & pmask);
+    return make_uint2(k0 ^ flip, k1 ^ flip);
+}
+
+// The samples of the lane's four positions at stride S = 2^slog <= 128
+// (L = S/4 lanes a sample at S >= 4).
+template <bool kVec>
+__device__ __forceinline__ void row_samples(uint4 h, int lane, int i, int n,
+                                            int slog, uint32_t* row) {
+    if (slog >= 2) {
+        const int L = 1 << (slog - 2);
+        uint32_t m = min(min(h.x, h.y), min(h.z, h.w));
+#pragma unroll
+        for (int d = 1; d < 32; d *= 2)
+            if (d < L) m = min(m, __shfl_xor_sync(kFull, m, d));
+        if ((lane & (L - 1)) == 0 && i < n) row[i >> slog] = m;
+    } else if (slog == 1) {
+        const uint2 m = make_uint2(min(h.x, h.y), min(h.z, h.w));
+        if (kVec) {
+            if (i < n) *reinterpret_cast<uint2*>(row + (i >> 1)) = m;
+        } else {
+            if (i < n) row[i >> 1] = m.x;
+            if (i + 2 < n) row[(i >> 1) + 1] = m.y;
+        }
+    } else {
+        store4<kVec>(row, i, n, h);
     }
+}
+
+template <bool kPlane, bool kVec>  // kVec: n % 4 == 0
+__global__ void __launch_bounds__(kK1Warps * 32)
+hash_keys_winmin_sync_kernel(const uint8_t* __restrict__ blocks,
+                             uint32_t* __restrict__ keys,
+                             uint32_t* __restrict__ out, int n, int width,
+                             int pbits, uint32_t pmask, int stride,
+                             uint32_t flip) {
+    constexpr int kLoads = kK1Rows + 2;  // the tile, the halo, one more
+    const int lane = threadIdx.x & 31;
+    const int t0 =
+        (int(blockIdx.x) * kK1Warps + int(threadIdx.x >> 5)) * kK1WarpSpan;
+    if (t0 >= n) return;  // the whole warp
+    const int row = blockIdx.y;
+    const uint8_t* x = blocks + size_t(row) * n;
+    uint32_t w[kLoads];
+#pragma unroll
+    for (int r = 0; r < kLoads; ++r)
+        w[r] = row_word<kVec>(x, (t0 >> 2) + 32 * r + lane, n);
+    uint32_t* krow = keys + size_t(row) * (n >> 1);
+    const int slog = stride > 0 ? __ffs(stride) - 1 : 0;
+    uint32_t* orow = out + size_t(row) *
+        (kPlane ? n : (n + stride - 1) >> slog);  // read when stride > 0
+    const int L = stride >= 4 ? stride >> 2 : 1;
+    const int i0 = t0 + 4 * lane;
+    const uint32_t hmask = ~0u << pbits;
+    SyncRow cur = sync_row(w[0], w[1], lane, t0, n, width, hmask);
+    uint4 pre = cur.h8, suf = cur.h8;
+    if (kPlane && stride >= 4) block_scans(cur.h8, lane, L, pre, suf);
+#pragma unroll
+    for (int r = 0; r < kK1Rows; ++r) {
+        // Row r + 1; at r + 1 == kK1Rows the halo row.
+        const SyncRow nxt = sync_row(w[r + 1], w[r + 2], lane,
+                                     t0 + (r + 1) * kRowSpan, n, width,
+                                     hmask);
+        const uint32_t h4 = __shfl_sync(kFull, lane >= 1 ? cur.h8.x
+                                                         : nxt.h8.x,
+                                        (lane + 1) & 31);
+        const uint32_t h5 = __shfl_sync(kFull, lane >= 1 ? cur.h8.y
+                                                         : nxt.h8.y,
+                                        (lane + 1) & 31);
+        const int i = i0 + r * kRowSpan;
+        const uint2 k = pair_keys(cur, h4, h5, i, pmask, flip);
+        if (kVec) {
+            if (i < n) *reinterpret_cast<uint2*>(krow + (i >> 1)) = k;
+        } else {
+            if (i < n) krow[i >> 1] = k.x;
+            if (i + 2 < n) krow[(i >> 1) + 1] = k.y;
+        }
+        if (kPlane) {
+            uint4 pn = nxt.h8, sn = nxt.h8;
+            if (stride >= 4) block_scans(nxt.h8, lane, L, pn, sn);
+            store4<kVec>(orow, i, n, window_min(cur.h8, pre, suf, nxt.h8,
+                                                pn, lane, stride));
+            pre = pn;
+            suf = sn;
+        } else if (stride > 0) {
+            row_samples<kVec>(cur.h8, lane, i, n, slog, orow);
+        }
+        cur = nxt;
+    }
+}
+
+// samples[j] = the minimum of a row's stride-128 samples m128[j reps ..
+// (j + 1) reps), those at or past n128 left out: K1's samples above
+// stride 128. One thread a sample.
+__global__ void __launch_bounds__(kThreads)
+sync_samples_kernel(const uint32_t* __restrict__ m128,
+                    uint32_t* __restrict__ samples, int n128, int reps,
+                    int ns) {
+    const int j = int(blockIdx.x) * kThreads + int(threadIdx.x);
+    if (j >= ns) return;
+    const uint32_t* src = m128 + size_t(blockIdx.y) * n128;
+    uint32_t m = kEmpty;
+    for (int q = j * reps; q < min((j + 1) * reps, n128); ++q)
+        m = min(m, __ldg(src + q));
+    samples[size_t(blockIdx.y) * ns + j] = m;
 }
 
 // ---------------------------------------------------------------------------
@@ -190,7 +337,9 @@ neighbor_unsort_keys_kernel(const uint32_t* __restrict__ sk,
 //
 // Span row r of the (nspans, 2 * half) output is [the previous span's
 // samples | this span's samples]: sample q of block b (minz[b, q *
-// stride]), remixed by x 2654435761, packs (h << pbits | column). One
+// stride]: on the level-1 path K1's sample plane at stride 1, else a full
+// plane at ldm_stride), remixed by x 2654435761, packs (h << pbits |
+// column). One
 // thread a sample: it reads the sample once and writes it to both places
 // it belongs, column half + (b % sb) * spb + q of span row b / sb and
 // column (b % sb) * spb + q of span row b / sb + 1, as that row's context.
@@ -200,12 +349,13 @@ neighbor_unsort_keys_kernel(const uint32_t* __restrict__ sk,
 // word (the LDM chain's signed row sort follows). Grid: (sample chunks,
 // b % sb, b / sb), no division.
 //
-// Bound: the reads are strided, one 32-byte sector a sample, so the pass
-// moves B * spb * 32 bytes in and 8 out a sample (the byte bound counts
-// 4 in). A warp's 32 samples lie in 32 consecutive 128-byte lines and its
-// stores are coalesced; taking 4 or 8 consecutive samples a thread, with
-// 16-byte stores, spread a warp's reads over 4 or 8 times as many lines
-// and was slower on the card.
+// Bound: 4 bytes in and 8 out a sample. On K1's sample plane (stride 1)
+// a warp's 32 samples are one 128-byte line; on a full plane the reads are
+// strided, one 32-byte sector a sample (B * spb * 32 bytes in), a warp's
+// samples in 32 consecutive lines. Stores are coalesced. Taking 4 or 8
+// consecutive samples a thread, with 16-byte stores, spread a warp's
+// strided reads over 4 or 8 times as many lines and was slower on the
+// card.
 // ---------------------------------------------------------------------------
 
 constexpr int kK3Threads = 256;
@@ -234,53 +384,139 @@ ldm_keys_kernel(const uint32_t* __restrict__ minz, uint32_t* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// K4: pair claims -> slot words.
-// Replaces glue_kernels.compact_slots_sync (Pallas).
+// K4: pair claims -> slot words, with the LDM estimates.
+// Replaces glue_kernels.compact_slots_sync (Pallas), its _ldm_est included.
 //
-// One thread per 4-byte slot i of a block: it reads the position-ordered
-// pair entries 2i and 2i+1 (pos << offbits | off) with one 8-byte load,
-// keeps each claim that has an offset and passes the tail guard
-// pos + width <= len, and writes the smaller (k << 30 | off) or the empty
-// sentinel. When LDM estimates are given (spb > 0), the slot on every
-// (Ns / spb)-th position takes the LDM offset if the estimate beats the
-// local claim's width. 8 bytes read and 4 written per slot.
+// Slot s of a block holds the smaller (k << 30 | off) of pair words 2s
+// and 2s + 1 of the block's position-ordered pair entries (pos << offbits
+// | off, `flip` XORed into each word read) whose claim has an offset and
+// passes the tail guard segbase + pos + width <= length, else the empty
+// sentinel. With the LDM rows (spb > 0: each span's position-ordered LDM
+// keys, `flip` XORed in too), every sls = ns / spb-th slot is the slot of
+// sample q of its block and computes the reference's _ldm_est for it
+// (ldm_estimate, common.cuh); the slot takes the LDM offset offs * stride
+// when the estimate beats the local claim's width.
+//
+// Bound: device memory, 8 bytes of pair words read and 4 written a slot
+// and the span's half of each LDM row (0.0157 ms at B=128 x 128 KiB, LDM
+// span 4, at 3.35 TB/s). B8's design (dense_kernels.cu): grid (chunks,
+// blocks) in groups of kMaxGridY, 32-bit in-row indices, kSyncSlots
+// consecutive slots a thread, their pair words loaded 16 bytes at a time
+// through the streaming cache hint (the pair rows are dead after K4), one
+// store (16 bytes at 4 slots). sls is stride / 4, a power of two >= 8
+// (ldm_stride is 32 * 2^k), so only a thread's first slot can be a
+// sample, found by a mask and indexed by a shift; its six LDM words are
+// loaded beside the pair words, through L1 (neighbouring samples share
+// them). Measured on the card (designs/l1_sync.py), 4 slots a thread run
+// as fast as the bytes allow with LDM and without; at 2, where a quarter
+// of a warp's lanes compute an estimate, 29% slower with LDM, at 1 twice
+// as slow. A block of an odd slot count (N = 4100: 1025) takes the
+// guarded path (kVec false).
 // ---------------------------------------------------------------------------
 
-__global__ void compact_slots_sync_kernel(const uint32_t* __restrict__ su,
-                                          const int32_t* __restrict__ lengths,
-                                          const int32_t* __restrict__ est,
-                                          const int32_t* __restrict__ ldo,
-                                          uint32_t* __restrict__ out,
-                                          long long total, int ns, int pbits,
-                                          int width, int spb) {
-    const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (idx >= total) return;
-    const int b = int(idx / ns);
-    const int i = int(idx % ns);
-    const int offbits = 32 - pbits;
+constexpr int kSyncSlots = 4;       // slots a thread
+constexpr bool kSyncStream = true;  // __ldcs on the pair words
+constexpr int kSyncThreads = 256;
+constexpr int kSyncChunk = kSyncThreads * kSyncSlots;
+
+template <class T>
+__device__ __forceinline__ T load_pairs(const T* p) {
+    if constexpr (kSyncStream) return __ldcs(p);
+    return __ldg(p);
+}
+
+// The slot word v after the estimate of sample q and K4's take rule: the
+// LDM offset where the estimate beats the local claim's width.
+__device__ __forceinline__ uint32_t take_ldm(uint32_t v,
+                                             const uint32_t (&offs)[kLdmReach],
+                                             const LdmArgs& a, int q,
+                                             int blen, int width) {
+    int ldo;
+    const int est = ldm_estimate(offs, a, q, blen, ldo);
+    return est > (v != kEmpty ? width : 0) ? uint32_t(ldo) : v;
+}
+
+// The slot word of pair words e0 and e1 (flip removed).
+__device__ __forceinline__ uint32_t slot_word(uint32_t e0, uint32_t e1,
+                                              int segbase, int offbits,
+                                              int width, int blen) {
     const uint32_t offmask = (1u << offbits) - 1u;
-    const int segbase = (i >> (pbits - 2)) << pbits;
-    const int blen = lengths[b];
-    const uint2 pair = reinterpret_cast<const uint2*>(su)[idx];
     uint32_t best = kEmpty;
-    const uint32_t entries[2] = {pair.x, pair.y};
+    const uint32_t e[2] = {e0, e1};
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-        const uint32_t s = entries[e];
-        const uint32_t posf = s >> offbits;
-        const uint32_t off = s & offmask;
+    for (int j = 0; j < 2; ++j) {
+        const uint32_t posf = e[j] >> offbits, off = e[j] & offmask;
         if (off > 0 && segbase + int(posf) + width <= blen)
             best = min(best, ((posf & 3u) << 30) | off);
     }
-    if (spb > 0) {
-        const int sls = ns / spb;  // slots per LDM sample
-        if (i % sls == 0) {
-            const size_t t = size_t(b) * spb + i / sls;
-            const int ml0 = best != kEmpty ? width : 0;
-            if (est[t] > ml0) best = uint32_t(ldo[t]);
+    return best;
+}
+
+template <bool kVec>  // kVec: kSyncSlots divides ns
+__global__ void __launch_bounds__(kSyncThreads)
+compact_slots_sync_kernel(const uint32_t* __restrict__ su,
+                          const int32_t* __restrict__ lengths, LdmArgs ldm,
+                          uint32_t* __restrict__ out, int ns, int pbits,
+                          int width, int sls_log2, uint32_t flip,
+                          int r0) {
+    const int b = r0 + int(blockIdx.y);
+    const int s0 = (int(blockIdx.x) * kSyncThreads + int(threadIdx.x)) *
+                   kSyncSlots;
+    if (s0 >= ns) return;
+    const uint32_t* src = su + size_t(b) * (2 * ns) + 2 * s0;
+    uint32_t pw[2 * kSyncSlots];
+#pragma unroll
+    for (int k = 0; k < kSyncSlots; k += 2) {
+        if (kVec && k + 1 < kSyncSlots) {
+            const uint4 v = load_pairs(reinterpret_cast<const uint4*>(src) +
+                                       k / 2);
+            pw[2 * k] = v.x;
+            pw[2 * k + 1] = v.y;
+            pw[2 * k + 2] = v.z;
+            pw[2 * k + 3] = v.w;
+        } else {
+#pragma unroll
+            for (int j = k; j < k + 2 && j < kSyncSlots; ++j) {
+                const uint2 v = kVec || s0 + j < ns
+                    ? load_pairs(reinterpret_cast<const uint2*>(src) + j)
+                    : make_uint2(flip, flip);  // no claim
+                pw[2 * j] = v.x;
+                pw[2 * j + 1] = v.y;
+            }
         }
     }
-    out[idx] = best;
+    const int blen = __ldg(lengths + b);
+    // A sample slot is a thread's first; its LDM words load beside the
+    // pair words.
+    const bool sample =
+        ldm.spb > 0 && (s0 & ((1 << sls_log2) - 1)) == 0;
+    uint32_t offs[kLdmReach];
+    const int q = s0 >> sls_log2;
+    if (sample) ldm_offsets(ldm, b, q, flip, offs);
+    const int offbits = 32 - pbits;
+    uint32_t best[kSyncSlots];
+#pragma unroll
+    for (int k = 0; k < kSyncSlots; ++k)
+        best[k] = slot_word(pw[2 * k] ^ flip, pw[2 * k + 1] ^ flip,
+                            ((s0 + k) >> (pbits - 2)) << pbits, offbits,
+                            width, blen);
+    if (sample)
+        best[0] = take_ldm(best[0], offs, ldm, q, blen, width);
+    uint32_t* dst = out + size_t(b) * ns + s0;
+    if constexpr (kVec && kSyncSlots == 1) {
+        dst[0] = best[0];
+    } else if constexpr (kVec && kSyncSlots == 2) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(best[0], best[1]);
+    } else if constexpr (kVec) {
+#pragma unroll
+        for (int k = 0; k < kSyncSlots; k += 4)
+            *reinterpret_cast<uint4*>(dst + k) =
+                make_uint4(best[k], best[k + 1], best[k + 2], best[k + 3]);
+    } else {
+#pragma unroll
+        for (int k = 0; k < kSyncSlots; ++k)
+            if (s0 + k < ns) dst[k] = best[k];
+    }
 }
 
 }  // namespace
@@ -291,18 +527,50 @@ const char* qz_cuda_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int qz_hash_keys_winmin_sync(const void* blocks, void* keys, void* minz,
-                             int rows, int n, int width, int pbits,
-                             int pmask, int stride, void* stream) {
-    const int halo = stride > 4 ? stride : 4;
-    const int nh = kK1Span + halo;
-    const size_t smem = size_t(nh) * 4 + ((size_t(nh) + 7 + 3) & ~size_t(3));
+// K1 on the stream: keys, and at stride > 0 the (rows, ceil(n / stride))
+// samples or, with samples == 0, the (rows, n) plane into `out`;
+// `scratch` holds the stride-128 samples (rows * ceil(n / 128) words) or
+// plane (rows * n) above stride 128. cudaErrorInvalidValue, and no
+// launch, for a shape the grid cannot hold, an odd n, a stride that is
+// not 0 or a power of two up to 4096, or no scratch where it is needed.
+int qz_hash_keys_winmin_sync(const void* blocks, void* keys, void* out,
+                             void* scratch, int rows, int n, int width,
+                             int pbits, int pmask, int stride, unsigned flip,
+                             int samples, void* stream) {
+    const bool wide = stride > kRowSpan;
+    if (rows < 1 || rows > 65535 || n < 2 || n % 2 != 0 || stride < 0 ||
+        stride > kMaxStride || (stride & (stride - 1)) != 0 ||
+        (stride > 0 && out == nullptr) || (wide && scratch == nullptr))
+        return int(cudaErrorInvalidValue);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const bool plane = !samples && stride > 0, vec = n % 4 == 0;
+    auto kernel = plane ? (vec ? hash_keys_winmin_sync_kernel<true, true>
+                               : hash_keys_winmin_sync_kernel<true, false>)
+                        : (vec ? hash_keys_winmin_sync_kernel<false, true>
+                               : hash_keys_winmin_sync_kernel<false, false>);
     const dim3 grid((n + kK1Span - 1) / kK1Span, rows);
-    hash_keys_winmin_sync_kernel<<<grid, kK1Threads, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<grid, kK1Warps * 32, 0, s>>>(
         static_cast<const uint8_t*>(blocks), static_cast<uint32_t*>(keys),
-        static_cast<uint32_t*>(minz), n, width, pbits, uint32_t(pmask),
-        stride, halo);
+        static_cast<uint32_t*>(wide ? scratch : out), n, width, pbits,
+        uint32_t(pmask), wide ? kRowSpan : stride, flip);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || !wide) return int(err);
+    const auto m128 = static_cast<const uint32_t*>(scratch);
+    const auto dst = static_cast<uint32_t*>(out);
+    if (plane) {
+        const dim3 stretch((n + 4 * kThreads - 1) / (4 * kThreads), rows);
+        if (vec)
+            winmin_stretch_kernel<true><<<stretch, kThreads, 0, s>>>(
+                m128, dst, n, stride / kRowSpan);
+        else
+            winmin_stretch_kernel<false><<<stretch, kThreads, 0, s>>>(
+                m128, dst, n, stride / kRowSpan);
+    } else {
+        const int ns = (n + stride - 1) / stride;
+        sync_samples_kernel<<<dim3((ns + kThreads - 1) / kThreads, rows),
+                              kThreads, 0, s>>>(
+            m128, dst, (n + kRowSpan - 1) / kRowSpan, stride / kRowSpan, ns);
+    }
     return int(cudaGetLastError());
 }
 
@@ -343,18 +611,41 @@ int qz_ldm_keys(const void* minz, void* out, int nspans, int n, int stride,
     return int(cudaGetLastError());
 }
 
+// K4 on the stream over rows blocks of ns slots; ldm_rows (null: no LDM)
+// holds spans of sb blocks of spb samples each at `stride` positions, its
+// keys carrying ldm_pbits position bits. cudaErrorInvalidValue, and no
+// launch, for bits the kernel cannot take or a sample every sls = ns /
+// spb slots where sls is no power of two >= kSyncSlots.
 int qz_compact_slots_sync(const void* su, const void* lengths,
-                          const void* est, const void* ldo, void* out,
-                          int rows, int ns, int pbits, int width, int spb,
-                          void* stream) {
-    const long long total = (long long)rows * ns;
-    compact_slots_sync_kernel<<<blocks_for(total), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(su),
-        static_cast<const int32_t*>(lengths),
-        static_cast<const int32_t*>(est), static_cast<const int32_t*>(ldo),
-        static_cast<uint32_t*>(out), total, ns, pbits, width, spb);
-    return int(cudaGetLastError());
+                          const void* ldm_rows, void* out, int rows, int ns,
+                          int pbits, int width, int sb, int spb,
+                          int ldm_pbits, int stride, int max_off,
+                          unsigned flip, void* stream) {
+    if (rows <= 0 || ns <= 0) return int(cudaSuccess);
+    const int sls = spb > 0 ? ns / spb : 0;
+    if (pbits < 2 || pbits > 31 ||
+        (spb > 0 && (ldm_rows == nullptr || sb < 1 || ns % spb != 0 ||
+                     sls < kSyncSlots || (sls & (sls - 1)) != 0 ||
+                     ldm_pbits < 1 || ldm_pbits > 31 || stride < 1)))
+        return int(cudaErrorInvalidValue);
+    const LdmArgs ldm = {static_cast<const uint32_t*>(ldm_rows), sb,
+                         spb > 0 ? spb : 0, stride, max_off,
+                         spb > 0 ? (1u << (32 - ldm_pbits)) - 1u : 0u};
+    const unsigned chunks = unsigned((ns + kSyncChunk - 1) / kSyncChunk);
+    const auto s = static_cast<cudaStream_t>(stream);
+    auto kernel = ns % kSyncSlots ? compact_slots_sync_kernel<false>
+                                  : compact_slots_sync_kernel<true>;
+    for (int r0 = 0; r0 < rows; r0 += kMaxGridY) {
+        const dim3 grid(chunks, unsigned(min(rows - r0, kMaxGridY)));
+        kernel<<<grid, kSyncThreads, 0, s>>>(
+            static_cast<const uint32_t*>(su),
+            static_cast<const int32_t*>(lengths), ldm,
+            static_cast<uint32_t*>(out), ns, pbits, width,
+            sls > 0 ? __builtin_ctz(unsigned(sls)) : 0, flip, r0);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return int(err);
+    }
+    return int(cudaSuccess);
 }
 
 }  // extern "C"

@@ -32,10 +32,10 @@ _P, _I, _U, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_size_t
 # C entry points of csrc/*.cu: argument types, each ending in the stream;
 # every one returns a cudaError_t as int.
 SIGNATURES = {
-    "qz_hash_keys_winmin_sync": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "qz_hash_keys_winmin_sync": (_P,) * 4 + (_I,) * 6 + (_U, _I, _P),
     "qz_neighbor_unsort_keys": (_P, _P, _I, _I, _I, _I, _I, _U, _P),
     "qz_ldm_keys": (_P, _P, _I, _I, _I, _I, _I, _U, _P),
-    "qz_compact_slots_sync": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "qz_compact_slots_sync": (_P,) * 4 + (_I,) * 9 + (_U, _P),
     "qz_hash_keys": (_P, _P, _I, _I, _I, _I, _I, _U, _P),
     "qz_hash_keys_winmin": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _P),
     "qz_finalize_candidates": (_P,) * 9 + (_I,) * 8 + (_Z, _P),

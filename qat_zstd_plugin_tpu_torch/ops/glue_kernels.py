@@ -6,9 +6,13 @@ Port of qat_zstd_plugin_tpu.ops.glue_kernels `find_matches_positions`
 syncmer pair anchors, csrc/l1_kernels.cu):
 
   hash_keys_winmin_sync -> sort -> neighbor_unsort_keys -> sort --+
-    +- minz plane -> ldm_keys -> sort -> neighbor_unsort_keys      |
-         -> sort -> _ldm_est                                      v
-                              compact_slots_sync -> (B*nseg, w/4) slot words
+    +- LDM samples -> ldm_keys -> sort -> neighbor_unsort_keys     |
+         -> sort ---------------------------------------------------+
+                                                                   v
+    compact_slots_sync (the LDM estimates inside) -> (B*nseg, w/4) slot words
+
+with the sign bit flipped on every word from K1 to K4, so that the row
+sorts are signed ones with no torch pass between the kernels.
 
 Levels 2-4, sync=False (full-resolution keys, csrc/dense_kernels.cu):
 
@@ -65,8 +69,8 @@ from . import _build
 
 _M32 = 0xFFFFFFFF
 _SIGN = -0x80000000  # int32 bit 31: xor maps u32 order onto int32 order
-_FLIP = 0x80000000  # the same bit as a u32 word: the flip word of B5, B6,
-                    # K2 and K3
+_FLIP = 0x80000000  # the same bit as a u32 word: the flip word of K1-K4,
+                    # B5 and B6
 _C1 = 2654435761
 _C2 = 2246822519
 _C3 = 3266489917
@@ -251,7 +255,8 @@ def _k1_geometry(blocks: torch.Tensor, window: int):
 
 
 def hash_keys_winmin_sync_twin(blocks: torch.Tensor, width: int,
-                               window: int, stride: int):
+                               window: int, stride: int, flip: int = 0,
+                               samples: bool = False):
     """Plain-torch K1 (see hash_keys_winmin_sync)."""
     B, N, w, pbits = _k1_geometry(blocks, window)
     x = blocks.to(torch.int64)
@@ -267,37 +272,52 @@ def hash_keys_winmin_sync_twin(blocks: torch.Tensor, width: int,
     pos = gp & (w - 1)
     selh = torch.where(pick_next, _shl(h, 1, 0), h)
     selp = torch.where(pick_next, pos + 1, pos)
-    key = (selh << pbits) | selp
+    key = ((selh << pbits) | selp) ^ flip
     keys = _i32(key[:, ::2].reshape(B * (N // w), w // 2))
-    minz = _i32(_winmin_tail(h8, stride)) if stride else None
-    return keys, minz
+    if not stride:
+        return keys, None
+    minz = _winmin_tail(h8, stride)
+    return keys, _i32(minz[:, ::stride] if samples else minz)
 
 
 def hash_keys_winmin_sync(blocks: torch.Tensor, width: int, window: int,
-                          stride: int):
+                          stride: int, flip: int = 0,
+                          samples: bool = False):
     """K1. (B, N) uint8 blocks -> ((B*nseg, w/2) int32 pair-anchor keys,
-    (B, N) int32 windowed-minimum plane, or None when stride is 0).
+    the windowed minima of the 8-gram hash: with samples=False the (B, N)
+    int32 plane minz[i] = min over [i, i+stride), with samples=True only
+    the (B, ceil(N/stride)) samples minz[:, ::stride] that the LDM chain
+    reads (ldm_keys at stride 1), or None when stride is 0).
 
     Pair p of a segment holds (hash_width(sel) << pbits | sel) with sel in
     {2p, 2p+1} chosen by the parity of the argmin of the 8-gram hash over
-    a 4-wide window; minz[i] is the minimum 8-gram hash over
-    [i, i+stride). Port of the Pallas kernel of the same name."""
+    a 4-wide window. Port of the Pallas kernel of the same name, which
+    writes the plane. `flip` (0 or _FLIP) is XORed into every key, for a
+    signed row sort that follows (_unsorted's flipped=True); the minima
+    are never flipped."""
     _check(blocks, "hash_keys_winmin_sync", torch.uint8, 2)
     if width not in (4, 5, 6, 8):
         raise ValueError(f"unsupported hash width {width}")
-    if stride & (stride - 1) or stride > 4096:
+    if stride & (stride - 1) or not 0 <= stride <= 4096:
         raise ValueError(f"stride {stride} must be 0 or a power of two "
                          "<= 4096")
     if _use_twin(blocks, "hash_keys_winmin_sync"):
-        return hash_keys_winmin_sync_twin(blocks, width, window, stride)
+        return hash_keys_winmin_sync_twin(blocks, width, window, stride,
+                                          flip, samples)
     B, N, w, pbits = _k1_geometry(blocks, window)
-    keys = torch.empty((B * (N // w), w // 2), dtype=torch.int32,
-                       device=blocks.device)
-    minz = torch.empty((B, N), dtype=torch.int32, device=blocks.device) \
-        if stride else None
-    _launch("hash_keys_winmin_sync", blocks, keys, minz, B, N, width, pbits,
-            w - 1, stride)
-    return keys, minz
+    dev = blocks.device
+    keys = torch.empty((B * (N // w), w // 2), dtype=torch.int32, device=dev)
+    out = scratch = None
+    if stride:
+        out = torch.empty((B, -(-N // stride) if samples else N),
+                          dtype=torch.int32, device=dev)
+        if stride > WINMIN_ROW_SPAN:  # the stride-128 samples or plane
+            scratch = torch.empty(
+                (B, -(-N // WINMIN_ROW_SPAN) if samples else N),
+                dtype=torch.int32, device=dev)
+    _launch("hash_keys_winmin_sync", blocks, keys, out, scratch, B, N, width,
+            pbits, w - 1, stride, flip, int(samples))
+    return keys, out
 
 
 # ---------------------------------------------------------------------------
@@ -698,18 +718,25 @@ def ldm_keys(minz: torch.Tensor, span_blocks: int = 4, stride: int = 32,
 
 
 def ldm_unsorted(minz: torch.Tensor, span_blocks: int = 4,
-                 neighbors: int = 1) -> torch.Tensor:
+                 neighbors: int = 1, stride: int | None = None,
+                 flip_out: bool = False) -> torch.Tensor:
     """LDM candidate chain: keys -> sort -> neighbor/un-sort keys -> sort.
     Returns (B/span_blocks, sps) int32, entry j = (j << hbits | sample
     offset), position-ordered. The reference computes the minimizer plane
-    itself when none is given; here the caller always passes one (K1's,
-    B6's or B9's). The reference's two unsigned row sorts are signed ones
-    here, with K3 and K2 flipping the sign bit: one XOR pass in all."""
-    stride = ldm_stride(span_blocks, minz.shape[1])
+    itself when none is given; here the caller always passes one: a full
+    (B, N) plane (B6's or B9's, or K1's with samples=False), sampled at
+    ldm_stride(span_blocks, N) (stride None), or K1's sample plane, which
+    is sampled already (stride=1). The reference's two unsigned row sorts
+    are signed ones here, with K3 and K2 flipping the sign bit: one XOR
+    pass in all, none with flip_out (the words come back with the sign
+    bit flipped, for K4's flip=_FLIP)."""
+    if stride is None:
+        stride = ldm_stride(span_blocks, minz.shape[1])
     key = ldm_keys(minz, span_blocks, stride, flip=_FLIP)
     pbits = (key.shape[1] - 1).bit_length()
-    return _sort_signed(neighbor_unsort_keys(_sort_signed(key), pbits,
-                                             neighbors, flip=_FLIP)) ^ _SIGN
+    su = _sort_signed(neighbor_unsort_keys(_sort_signed(key), pbits,
+                                           neighbors, flip=_FLIP))
+    return su if flip_out else su ^ _SIGN
 
 
 def _ldm_est(su: torch.Tensor, lengths: torch.Tensor, n: int,
@@ -772,32 +799,42 @@ def merge_ldm(mlen: torch.Tensor, moff: torch.Tensor, su: torch.Tensor,
 # K4 compact_slots_sync
 # ---------------------------------------------------------------------------
 
-def _k4_geometry(su: torch.Tensor, lengths: torch.Tensor, est_b, off_b):
+def _k4_geometry(su: torch.Tensor, lengths: torch.Tensor, su_ldm,
+                 span_blocks: int):
+    """(B, Ns, w, pbits, ldm) of K4's arguments; ldm is None without LDM
+    rows, else (spb, stride, LDM key pbits) of their sample grid."""
     B = lengths.shape[0]
     R, w2 = su.shape
-    if R % B:
-        raise ValueError(f"compact_slots_sync: {R} rows for {B} blocks")
+    if B < 1 or R % B or w2 % 2:
+        raise ValueError(f"compact_slots_sync: {R} rows of {w2} pair "
+                         f"entries for {B} blocks (an even count a row)")
     w = 2 * w2
-    Ns = (R // B) * w // 4
-    spb = 0
-    if est_b is not None:
-        spb = est_b.shape[1]
-        if (est_b.shape != (B, spb) or off_b is None
-                or off_b.shape != est_b.shape or Ns % spb):
-            raise ValueError("compact_slots_sync: est_b and off_b must be "
-                             f"(B, spb) with spb dividing {Ns}")
-    return B, Ns, w, (w - 1).bit_length(), spb
+    N = (R // B) * w
+    if su_ldm is None:
+        return B, N // 4, w, (w - 1).bit_length(), None
+    nspans, sps = su_ldm.shape
+    sb = span_blocks
+    stride = ldm_stride(sb, N) if sb > 0 else 0
+    if sb < 1 or nspans * sb != B or sps % (2 * sb) or \
+            (sps // (2 * sb)) * stride != N:
+        raise ValueError(f"compact_slots_sync: LDM rows {nspans} x {sps} "
+                         f"are no spans of {sb} of {B} blocks of {N} "
+                         "positions")
+    return (B, N // 4, w, (w - 1).bit_length(),
+            (sps // (2 * sb), stride, (sps - 1).bit_length()))
 
 
 def compact_slots_sync_twin(su: torch.Tensor, window: int,
                             lengths: torch.Tensor, width: int = 6,
-                            est_b: torch.Tensor | None = None,
-                            off_b: torch.Tensor | None = None
-                            ) -> torch.Tensor:
-    """Plain-torch K4 (see compact_slots_sync)."""
-    B, Ns, w, pbits, spb = _k4_geometry(su, lengths, est_b, off_b)
+                            su_ldm: torch.Tensor | None = None,
+                            span_blocks: int = 0, local_cap: int = 24,
+                            max_off: int = 1 << 19,
+                            flip: int = 0) -> torch.Tensor:
+    """Plain-torch K4 (see compact_slots_sync): the torch _ldm_est and
+    the slot words."""
+    B, Ns, w, pbits, ldm = _k4_geometry(su, lengths, su_ldm, span_blocks)
     offbits = 32 - pbits
-    s = _u32(su).reshape(B, 2 * Ns)
+    s = (_u32(su) ^ flip).reshape(B, 2 * Ns)
     blen = lengths.to(torch.int64)[:, None]
     gp4 = torch.arange(Ns, device=su.device)
     segbase = (gp4 >> (pbits - 2)) << pbits  # (slot // ws) * w
@@ -808,8 +845,10 @@ def compact_slots_sync_twin(su: torch.Tensor, window: int,
         valid = (off > 0) & (segbase + posf + width <= blen)
         best = torch.minimum(best, torch.where(
             valid, ((posf & 3) << 30) | off, _M32))
-    if spb:
-        sls = Ns // spb
+    if ldm is not None:
+        est_b, off_b = _ldm_est(_i32(_u32(su_ldm) ^ flip), lengths, 4 * Ns,
+                                span_blocks, max_off)
+        sls = Ns // ldm[0]
         est = torch.zeros_like(best)
         ldo = torch.zeros_like(best)
         est[:, ::sls] = est_b.to(torch.int64)
@@ -820,30 +859,36 @@ def compact_slots_sync_twin(su: torch.Tensor, window: int,
 
 
 def compact_slots_sync(su: torch.Tensor, window: int, lengths: torch.Tensor,
-                       width: int = 6, est_b: torch.Tensor | None = None,
-                       off_b: torch.Tensor | None = None) -> torch.Tensor:
+                       width: int = 6, su_ldm: torch.Tensor | None = None,
+                       span_blocks: int = 0, local_cap: int = 24,
+                       max_off: int = 1 << 19,
+                       flip: int = 0) -> torch.Tensor:
     """K4. Position-ordered pair keys su (B*nseg, w/2), entry j =
     (pos << (32 - pbits) | off) -> (B*nseg, w/4) int32 slot words: slot i
     holds the smaller (k << 30 | off) of pairs 2i and 2i+1 whose claim has
-    an offset and passes pos + width <= length, else 0xFFFFFFFF. With LDM
-    estimates (est_b, off_b: (B, spb) from _ldm_est) the slot of each
-    sample takes the LDM offset when the estimate beats the local claim's
-    width. Port of the Pallas kernel of the same name, which computes
-    _ldm_est inside its program; window is the reference's argument and
-    follows from su's width."""
+    an offset and passes pos + width <= length, else 0xFFFFFFFF. With the
+    position-ordered LDM keys su_ldm (ldm_unsorted's (B/span_blocks,
+    sps) rows) the kernel computes _ldm_est's estimate of each sample,
+    and the sample's slot takes the LDM offset when the estimate beats the
+    local claim's width. Port of the Pallas kernel of the same name, with
+    its signature; window and local_cap are the reference's arguments
+    (window follows from su's width; local_cap is unused there too).
+    `flip` (0 or _FLIP) is XORed into every word read from su and su_ldm:
+    the last row sorts' signed words come in as they are."""
     _check(su, "compact_slots_sync", torch.int32, 2)
     _check(lengths, "compact_slots_sync", torch.int32, 1)
-    for t in (est_b, off_b):
-        if t is not None:
-            _check(t, "compact_slots_sync", torch.int32, 2)
-    B, Ns, w, pbits, spb = _k4_geometry(su, lengths, est_b, off_b)
+    if su_ldm is not None:
+        _check(su_ldm, "compact_slots_sync", torch.int32, 2)
+    B, Ns, w, pbits, ldm = _k4_geometry(su, lengths, su_ldm, span_blocks)
     if _use_twin(su, "compact_slots_sync"):
-        return compact_slots_sync_twin(su, window, lengths, width, est_b,
-                                       off_b)
+        return compact_slots_sync_twin(su, window, lengths, width, su_ldm,
+                                       span_blocks, local_cap, max_off, flip)
     out = torch.empty((su.shape[0], w // 4), dtype=torch.int32,
                       device=su.device)
-    _launch("compact_slots_sync", su, lengths, est_b, off_b, out, B, Ns,
-            pbits, width, spb)
+    spb, stride, lpbits = ldm or (0, 0, 0)
+    _launch("compact_slots_sync", su, lengths, su_ldm, out, B, Ns, pbits,
+            width, span_blocks, spb, lpbits, stride,
+            max(-1 << 31, min(max_off, (1 << 31) - 1)), flip)
     return out
 
 
@@ -1226,16 +1271,16 @@ def compact_fast_glue(chosen: torch.Tensor, mlen: torch.Tensor,
 # The compositions
 # ---------------------------------------------------------------------------
 
-def _sync_tail_fused(su, lengths, minz, width: int, window: int,
+def _sync_tail_fused(su, lengths, samples, width: int, window: int,
                      span_blocks: int, max_off: int) -> torch.Tensor:
     """LDM chain + pair-claim compaction (one XLA program in the
-    reference; here a sequence of launches on one stream)."""
-    est_b = off_b = None
-    if span_blocks:
-        su_l = ldm_unsorted(minz, span_blocks, neighbors=1)
-        est_b, off_b = _ldm_est(su_l, lengths, minz.shape[1], span_blocks,
-                                max_off)
-    return compact_slots_sync(su, window, lengths, width, est_b, off_b)
+    reference; here a sequence of launches on one stream). su and the LDM
+    rows come with the sign bit flipped, as the signed sorts leave them;
+    samples is K1's sample plane."""
+    su_l = ldm_unsorted(samples, span_blocks, neighbors=1, stride=1,
+                        flip_out=True) if span_blocks else None
+    return compact_slots_sync(su, window, lengths, width, su_l, span_blocks,
+                              max_off=max_off, flip=_FLIP)
 
 
 def _dense_tail_fused(sus, blocks, lengths, minz, widths: tuple,
@@ -1253,16 +1298,18 @@ def _dense_tail_fused(sus, blocks, lengths, minz, widths: tuple,
 
 
 def _unsorted(key: torch.Tensor, pbits: int, neighbors: int,
-              pos_mask: int | None = None,
-              flipped: bool = False) -> torch.Tensor:
+              pos_mask: int | None = None, flipped: bool = False,
+              flip_out: bool = False) -> torch.Tensor:
     """sort -> neighbor/un-sort keys -> sort: position-ordered claims. The
     unsigned row sorts are signed ones with K2 flipping the sign bit on
     its way in and out. `flipped`: the keys come with the sign bit
-    flipped already (B5 and B6 with flip=_FLIP), so the only XOR pass is
-    the last one's; else two."""
+    flipped already (K1, B5 and B6 with flip=_FLIP), which saves the first
+    XOR pass; `flip_out`: the words go out with the sign bit flipped (for
+    K4's flip=_FLIP), which saves the last."""
     sk = _sort_signed(key if flipped else key ^ _SIGN)
-    return _sort_signed(neighbor_unsort_keys(sk, pbits, neighbors, pos_mask,
-                                             flip=_FLIP)) ^ _SIGN
+    su = _sort_signed(neighbor_unsort_keys(sk, pbits, neighbors, pos_mask,
+                                           flip=_FLIP))
+    return su if flip_out else su ^ _SIGN
 
 
 def candidates_hash_split(blocks, lengths, widths: tuple = (5, 8),
@@ -1300,10 +1347,13 @@ def find_matches_positions(blocks: torch.Tensor, lengths: torch.Tensor,
         if not dense or len(widths) != 1:
             raise ValueError("sync implies single-width dense (got "
                              f"dense={dense}, widths={widths})")
-        stride = ldm_stride(ldm, N) if ldm else 0  # 0: no minimizer plane
-        key, minz = hash_keys_winmin_sync(blocks, widths[0], window, stride)
-        su = _unsorted(key, pbits, neighbors, pos_mask=w - 1)
-        return _sync_tail_fused(su, lengths, minz, width=widths[0],
+        stride = ldm_stride(ldm, N) if ldm else 0  # 0: no LDM samples
+        key, samples = hash_keys_winmin_sync(blocks, widths[0], window,
+                                             stride, flip=_FLIP,
+                                             samples=True)
+        su = _unsorted(key, pbits, neighbors, pos_mask=w - 1, flipped=True,
+                       flip_out=True)
+        return _sync_tail_fused(su, lengths, samples, width=widths[0],
                                 window=window, span_blocks=ldm,
                                 max_off=ldm_max_off)
     if dense and ldm:

@@ -211,28 +211,33 @@ def chains(p, blocks) -> tuple[dict, dict]:
     w = min(p.window, N)
     pbits = (w - 1).bit_length()
     stride = tk.ldm_stride(p.ldm or 4, N)
+    # The main path's keys and minima: K1's flipped keys and LDM samples
+    # (K3 at stride 1), whose chains keep the sign bit flipped for K4; B6's
+    # flipped keys and plane.
     if p.sync:
         key, minz = tk.hash_keys_winmin_sync(blocks, p.widths[0], p.window,
-                                             stride)
-        pos_mask = w - 1
-    else:  # the main path's keys: B6 writes them flipped
+                                             stride, flip=tk._FLIP,
+                                             samples=True)
+        pos_mask, lstride = w - 1, 1
+    else:
         key, minz = tk.hash_keys_winmin(blocks, p.widths[0], p.window,
                                         stride, flip=tk._FLIP)
-        pos_mask = None
+        pos_mask, lstride = None, stride
     ops = {"unsorted": _ops_a_call(
         lambda: tk._unsorted(key, pbits, p.neighbors, pos_mask,
-                             flipped=not p.sync))}
+                             flipped=True, flip_out=p.sync))}
     span = p.ldm or 4
     if p.ldm and blocks.shape[0] % span == 0:
         ops["ldm_unsorted"] = _ops_a_call(
-            lambda: tk.ldm_unsorted(minz, span, neighbors=1))
+            lambda: tk.ldm_unsorted(minz, span, 1, lstride,
+                                    flip_out=p.sync))
     row = tk._sort_rows(key[:1].contiguous())
     one_span = minz[:span].contiguous()
     host = {"neighbor_unsort_keys": _host_us(
                 lambda: tk.neighbor_unsort_keys(row, pbits, p.neighbors,
                                                 pos_mask)),
             "ldm_keys": _host_us(lambda: tk.ldm_keys(one_span, span,
-                                                     stride))}
+                                                     lstride))}
     return ops, host
 
 

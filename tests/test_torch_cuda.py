@@ -109,6 +109,73 @@ def test_unsorted_chains_card_vs_cpu(cuda):
                        tk.ldm_unsorted(m.cpu(), 4))
 
 
+
+K1_SHAPES = {"B=8, N=131072": (8, N), "B=37, N=65536": (37, 65536),
+             "B=64, N=4100": (64, 4100), "B=3, N=4098": (3, 4098),
+             "B=2, N=6": (2, 6)}
+
+
+@pytest.mark.parametrize("shape", sorted(K1_SHAPES))
+@pytest.mark.parametrize("stride", [0, 1, 2, 4, 32, 64, 128, 256, 4096])
+def test_hash_keys_winmin_sync_samples_and_plane(cuda, stride, shape):
+    """K1 with the samples and with the plane, flip 0 and the sign flip,
+    on the corpus-like, random, all-same and copied rows, at a row that
+    ends inside a warp's tile (4100), one of n % 4 == 2 (4098) and one of
+    6 bytes."""
+    B, n = K1_SHAPES[shape]
+    x = torch.from_numpy(_blocks(max(B, 8))[:B, :n].copy()).to(cuda)
+    for samples in (True, False):
+        for flip in (0, tk._FLIP):
+            got = tk.hash_keys_winmin_sync(x, 6, WINDOW, stride, flip,
+                                           samples)
+            want = tk.hash_keys_winmin_sync_twin(x, 6, WINDOW, stride, flip,
+                                                 samples)
+            assert torch.equal(got[0], want[0])
+            assert (got[1] is None and want[1] is None) or \
+                torch.equal(got[1], want[1])
+
+
+def test_ldm_keys_on_samples(cuda):
+    """K3 on K1's samples at stride 1 gives the words of K3 on the plane
+    at stride 32."""
+    x = torch.from_numpy(_blocks()).to(cuda)
+    _, m = tk.hash_keys_winmin_sync(x, 6, WINDOW, 32)
+    _, s = tk.hash_keys_winmin_sync(x, 6, WINDOW, 32, samples=True)
+    for flip in (0, tk._FLIP):
+        got = tk.ldm_keys(s, 4, 1, flip=flip)
+        assert torch.equal(got, tk.ldm_keys(m, 4, 32, flip=flip))
+        assert torch.equal(got, tk.ldm_keys_twin(s, 4, 1, flip))
+
+
+@pytest.mark.parametrize("span", [0, 4])
+def test_compact_slots_sync_flip_modes(cuda, span):
+    """K4 with and without the LDM rows, flip 0 (unsigned words) and the
+    sign flip (the signed sorts' words), ragged lengths."""
+    x = torch.from_numpy(_blocks()).to(cuda)
+    lengths = torch.from_numpy(LENGTHS).to(cuda)
+    k, s = tk.hash_keys_winmin_sync(x, 6, WINDOW, 32, samples=True)
+    su = tk._unsorted(k, 15, 1, WINDOW - 1)
+    su_l = tk.ldm_unsorted(s, 4, 1, stride=1) if span else None
+    want = tk.compact_slots_sync_twin(su, WINDOW, lengths, 6, su_l, span)
+    assert torch.equal(tk.compact_slots_sync(su, WINDOW, lengths, 6, su_l,
+                                             span), want)
+    flipped = None if su_l is None else su_l ^ tk._SIGN
+    assert torch.equal(tk.compact_slots_sync(
+        su ^ tk._SIGN, WINDOW, lengths, 6, flipped, span, flip=tk._FLIP),
+        want)
+
+
+def test_compact_slots_sync_odd_slot_count(cuda):
+    """Blocks of 4100 bytes: 1025 slots, the kernel's guarded path."""
+    x = torch.from_numpy(_blocks()[:, :4100].copy()).to(cuda)
+    lengths = torch.from_numpy(np.minimum(LENGTHS, 4100)).to(cuda)
+    k, _ = tk.hash_keys_winmin_sync(x, 6, WINDOW, 0)
+    su = tk._unsorted(k, 13, 1, 4099)
+    for flip, words in ((0, su), (tk._FLIP, su ^ tk._SIGN)):
+        assert torch.equal(
+            tk.compact_slots_sync(words, 4100, lengths, 6, flip=flip),
+            tk.compact_slots_sync_twin(words, 4100, lengths, 6, flip=flip))
+
 LENGTHS = np.array([N, N - 1, N // 2, 100, 0, N, N, 7], np.int32)
 L1_KERNELS = ("hash_keys_winmin_sync", "neighbor_unsort_keys", "ldm_keys",
               "compact_slots_sync")

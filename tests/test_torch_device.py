@@ -88,7 +88,9 @@ def _meta_calls():
         "ldm_keys": lambda: tk.ldm_keys(minz, 4, 32),
         "compact_slots_sync":
             lambda: tk.compact_slots_sync(i32[:4, :16384].contiguous(),
-                                          32768, lengths, 6),
+                                          32768, lengths, 6,
+                                          i32[:1, :8192].contiguous(),
+                                          4, flip=tk._FLIP),
         "hash_keys": lambda: tk.hash_keys(u8, 6, 32768),
         "hash_keys_winmin": lambda: tk.hash_keys_winmin(u8, 6, 32768, 32),
         "finalize_candidates": lambda: tk.finalize_candidates(

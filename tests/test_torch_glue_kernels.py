@@ -155,6 +155,25 @@ def test_hash_keys_winmin_sync_without_minz():
     np.testing.assert_array_equal(u32(key), key_ref)
 
 
+
+@pytest.mark.parametrize("flip", [0, 0x80000000], ids=["flip0", "flip"])
+@pytest.mark.parametrize("stride", [32, 64, 4096])
+@pytest.mark.parametrize("width", [4, 5, 6, 8])
+def test_hash_keys_winmin_sync_samples(width, stride, flip):
+    """K1 with samples=True gives the reference's keys (XORed with the
+    flip word) and its plane's every stride-th word, the LDM samples."""
+    blocks = make_blocks("mixed", B=2, n=WINDOW, seed=width + stride)
+    key_ref, minz_ref = jax_k1(blocks, width=width, stride=stride)
+    key, samples = tk.hash_keys_winmin_sync(torch.from_numpy(blocks), width,
+                                            WINDOW, stride, flip=flip,
+                                            samples=True)
+    assert samples.shape == (2, WINDOW // stride)
+    np.testing.assert_array_equal(u32(key), key_ref ^ np.uint32(flip))
+    np.testing.assert_array_equal(u32(samples), minz_ref[:, ::stride])
+    _, plane = tk.hash_keys_winmin_sync(torch.from_numpy(blocks), width,
+                                        WINDOW, stride, flip=flip)
+    np.testing.assert_array_equal(u32(plane), minz_ref)
+
 # --- K2 neighbor_unsort_keys -----------------------------------------------
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -356,20 +375,68 @@ def test_compact_slots_sync(kind, ldm):
     blocks = make_blocks(kind)
     lengths = ragged_lengths(4)
     su, minz = _pair_su(blocks)
-    su_l = est = off = None
+    su_l = None
     if ldm:
         su_l = gk.ldm_unsorted(jnp.asarray(blocks), 4, 1, interpret=True,
                                minz=jnp.asarray(minz))
-        est, off = tk._ldm_est(i32(np.asarray(su_l)),
-                               torch.from_numpy(lengths), N, 4, 1 << 19)
     want = np.asarray(gk.compact_slots_sync(
         jnp.asarray(su), WINDOW, jnp.asarray(lengths), width=6, su_ldm=su_l,
         span_blocks=ldm, local_cap=24, max_off=1 << 19, interpret=True))
-    got = tk.compact_slots_sync(i32(su), WINDOW, torch.from_numpy(lengths),
-                                6, est, off)
+    got = tk.compact_slots_sync(
+        i32(su), WINDOW, torch.from_numpy(lengths), 6,
+        None if su_l is None else i32(np.asarray(su_l)), ldm, 24, 1 << 19)
     assert got.shape == (4 * N // WINDOW, WINDOW // 4)
     np.testing.assert_array_equal(u32(got), want)
 
+
+
+@pytest.mark.parametrize("flip", [0, 0x80000000], ids=["flip0", "flip"])
+@pytest.mark.parametrize("ldm", [0, 4])
+def test_compact_slots_sync_flip_modes(ldm, flip):
+    """K4 on words XORed with the flip word (the signed sorts' output)
+    gives the reference's compact_slots_sync(su_ldm=...) words, the LDM
+    rows taken from K3 on K1's samples."""
+    blocks = make_blocks("mixed", seed=3)
+    lengths = ragged_lengths(4)
+    su, minz = _pair_su(blocks)
+    su_l = None
+    if ldm:
+        su_l = np.asarray(gk.ldm_unsorted(jnp.asarray(blocks), 4, 1,
+                                          interpret=True,
+                                          minz=jnp.asarray(minz)))
+        _, samples = tk.hash_keys_winmin_sync(torch.from_numpy(blocks), 6,
+                                              WINDOW, 32, samples=True)
+        np.testing.assert_array_equal(
+            u32(tk.ldm_unsorted(samples, 4, 1, stride=1)), su_l)
+    want = np.asarray(gk.compact_slots_sync(
+        jnp.asarray(su), WINDOW, jnp.asarray(lengths), width=6,
+        su_ldm=None if su_l is None else jnp.asarray(su_l), span_blocks=ldm,
+        interpret=True))
+    x = np.uint32(flip)
+    got = tk.compact_slots_sync(
+        i32(su ^ x), WINDOW, torch.from_numpy(lengths), 6,
+        None if su_l is None else i32(su_l ^ x), ldm, flip=flip)
+    np.testing.assert_array_equal(u32(got), want)
+
+
+def test_l1_chain_keeps_the_sign_bit_flipped():
+    """On the level-1 chain K1 writes flipped keys and samples, _unsorted
+    and ldm_unsorted leave their last sorts' words flipped (flip_out), and
+    K4 takes them with the flip word: the words are the reference's with
+    the sign bit XORed, and no XOR pass stands between."""
+    blocks = make_blocks("text")
+    key, samples = tk.hash_keys_winmin_sync(torch.from_numpy(blocks), 6,
+                                            WINDOW, 32, flip=tk._FLIP,
+                                            samples=True)
+    su, minz = _pair_su(blocks)
+    np.testing.assert_array_equal(
+        u32(tk._unsorted(key, 15, 1, WINDOW - 1, flipped=True,
+                         flip_out=True)), su ^ F)
+    su_l = np.asarray(gk.ldm_unsorted(jnp.asarray(blocks), 4, 1,
+                                      interpret=True, minz=jnp.asarray(minz)))
+    np.testing.assert_array_equal(
+        u32(tk.ldm_unsorted(samples, 4, 1, stride=1, flip_out=True)),
+        su_l ^ F)
 
 # --- the composed device half ----------------------------------------------
 
