@@ -4,8 +4,10 @@ and the host runtime, checks each kernel against its plain-torch twin,
 drives levels 1-4 (the hash matcher) and 5, 9 and 12 (the content
 matcher) end to end, levels 1 and 9 with hybrid device entropy (the FSE
 sequence sections encoded on the card) and with full device entropy (the
-Huffman literals sections too), and checks every frame with stock
-libzstd.
+Huffman literals sections too), drives the reference's deployment shape
+(stock libzstd calling the port's sequence producer once a block, one-shot
+and streaming, and the port's StreamCompressor), and checks every frame
+with stock libzstd.
 
     python3 chip_smoke.py [--seed S] [--mb 64]
 
@@ -14,7 +16,8 @@ Run from the repository root on a machine with one CUDA device. Phases
 
   1. card and build: the card's name and power limit, the nvcc build of
      qat_zstd_plugin_tpu_torch/csrc/ and the g++ build of the port's
-     native host runtime;
+     native host runtime, libzstd's version and whether it has
+     ZSTD_registerSequenceProducer;
   2. kernel vs twin: each of the nineteen kernels against its plain-torch
      twin on the card, exactly equal, with median CUDA-event times of
      both and the least time the card could take (the bytes the function
@@ -76,9 +79,11 @@ Run from the repository root on a machine with one CUDA device. Phases
      the kernels on the card against the twins on the CPU, with the ms
      per batch: level 1 at B=128 (LDM on) and B=6 (no whole number of
      LDM spans: LDM off), levels 2, 3 and 4 at B=64 (LDM on), level 4 at
-     B=8 (LDM off), levels 5, 9 and 12 at B=64 (LDM on) and level 5 at
-     B=6 (LDM off); with hybrid device entropy, levels 1 and 9 at B=64
-     (packed sequences, section words and bits, overflow flags and the
+     B=8 (LDM off), levels 5, 9 and 12 at B=64 (LDM on), level 5 at
+     B=6 (LDM off), and the producer's shapes: levels 1, 4 and 9 at B=1
+     (no LDM) on one block of 131072, 70001, 4097 and 64 bytes
+     zero-padded to 128 KiB; with hybrid device entropy, levels 1 and 9
+     at B=64 (packed sequences, section words and bits, overflow flags and the
      table plan); with full device entropy the same and every field of
      the literals dict; then the paths of the kernels no level takes, each
      run once with its launches counted toward phase 4's totals:
@@ -106,7 +111,22 @@ Run from the repository root on a machine with one CUDA device. Phases
      batch 8 on 9 blocks (a padded partial batch), level 5 at batch 8 on
      9 blocks and level 12 at batch 4 on 4 blocks + tail; in hybrid
      and in full mode level 1 at batch 8 on 8 blocks + tail and level 5
-     at batch 4 on 4 blocks + tail.
+     at batch 4 on 4 blocks + tail; sequence_producer's triples at levels
+     1, 4 and 9 on phase 3's four ragged blocks, and
+     compress_via_libzstd(level=1)'s frame on 8 blocks + tail;
+  6. producer and streams: compress_via_libzstd(level=1, device="cuda")
+     on the --mb corpus plus the tail, at levels 4 and 9 on the 32 MiB
+     one, compress_stream_via_libzstd(level=1) on 16 MiB in chunks of
+     100000 bytes with a flush every 2 (ragged blocks), and
+     StreamCompressor(level=1, batch=8) fed the --mb corpus in 1 MiB
+     chunks. The launch counts are reset just before and read just after
+     each; every frame is decoded bit-exactly by stock libzstd; no
+     producer error; every block of 64 bytes or more went through the
+     device half (every full block, for StreamCompressor); each level's
+     kernels launched. Each run prints its ratio and MB/s beside stock
+     libzstd's at the same level on the same bytes, and the producer
+     runs each call's latency (p50, p99, max), timed by a wrapper here
+     around the package's sequence_producer.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -148,6 +168,14 @@ LIT_REF = "qat_zstd_plugin_tpu/ops/literals_kernel.py"
 HYBRID_LEVELS = (1, 9)  # hybrid device entropy: the hash and content paths
 WINMIN_STRIDES = tuple(1 << s for s in range(13))  # B6's and B9's: 1-4096
 MAX_SEQ = 16384  # GpuCodec's max_seq, bench.py's hybrid row
+# The producer's shapes: one block a call (batch 1, no LDM), zero-padded
+# to 128 KiB, at a full length, ragged ones (a flush-forced or the last
+# block) and the device half's least.
+PRODUCER_LEVELS = (1, 4, 9)
+PRODUCER_LENGTHS = (131072, 70001, 4097, 64)
+STREAM_MB = 16  # compress_stream_via_libzstd's input in MiB
+STREAM_CHUNK, STREAM_FLUSH = 100000, 2
+FEED_CHUNK = 1 << 20  # StreamCompressor's chunks
 # Each CUDA kernel: its source and the Pallas kernel it replaces.
 KERNELS = {
     "hash_keys_winmin_sync": (L1_SRC, f"{REF}:192"),
@@ -1103,7 +1131,27 @@ def _worker_init() -> None:
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
 
 
-def cpu_device_half(level: int, blocks_np: np.ndarray, device_entropy=False):
+def _lengths(B: int, length: int | None):
+    """A batch's lengths: every block full, or one block of `length`."""
+    return np.full(B, BLOCK if length is None else length, np.int32)
+
+
+def ragged_bytes(corpus: bytes, n: int) -> bytes:
+    """The n-byte block of the producer checks: from 1000 bytes before the
+    second block, where even the 4097- and 64-byte blocks hold matches."""
+    return corpus[BLOCK - 1000:BLOCK - 1000 + n]
+
+
+def ragged_block(corpus: bytes, n: int) -> np.ndarray:
+    """A (1, 128 KiB) row holding ragged_bytes(corpus, n), zero-padded, as
+    sequence_producer hands a block to the device half."""
+    row = np.zeros((1, BLOCK), np.uint8)
+    row[0, :n] = np.frombuffer(ragged_bytes(corpus, n), np.uint8)
+    return row
+
+
+def cpu_device_half(level: int, blocks_np: np.ndarray, device_entropy=False,
+                    length: int | None = None):
     """The CPU side of a phase 3 check, in the worker process: the level's
     device half from the twins, as numpy arrays."""
     import torch
@@ -1112,7 +1160,21 @@ def cpu_device_half(level: int, blocks_np: np.ndarray, device_entropy=False):
     pipe = qzt.GpuCodec(level=level, batch=B, device="cpu",
                         device_entropy=device_entropy)._pipeline()
     return _numpy(pipe(torch.from_numpy(blocks_np),
-                       torch.full((B,), BLOCK, dtype=torch.int32)))
+                       torch.from_numpy(_lengths(B, length))))
+
+
+def cpu_triples(level: int, blocks: list) -> list:
+    """The CPU side of a phase 5 producer check, in the worker process:
+    sequence_producer's triples of each block on a device="cpu" state."""
+    import qat_zstd_plugin_tpu_torch as qzt
+    state = qzt.create_seqprod_state(level, device="cpu")
+    return [qzt.sequence_producer(state, b) for b in blocks]
+
+
+def cpu_libzstd_frame(level: int, data: bytes) -> bytes:
+    """The CPU side of a phase 5 libzstd-driven check, in the worker."""
+    import qat_zstd_plugin_tpu_torch as qzt
+    return qzt.compress_via_libzstd(data, level=level, device="cpu")
 
 
 def cpu_parsed_slots(blocks_np: np.ndarray, kw: dict) -> np.ndarray:
@@ -1177,27 +1239,29 @@ def hybrid_device_half(torch, qzt, level: int, blocks_np: np.ndarray,
 
 
 def device_half(torch, qzt, level: int, blocks_np: np.ndarray,
-                want: np.ndarray) -> dict:
+                want: np.ndarray, length: int | None = None) -> dict:
     """Phase 3: the composed output of `level`'s device half, kernels on
-    the card vs `want`, the twins' output on the CPU (cpu_device_half).
-    Returns its size and the median time of the kernels' composition on
-    the card, input already on the card."""
+    the card vs `want`, the twins' output on the CPU (cpu_device_half),
+    every block full or one block of `length`. Returns its size and the
+    median time of the kernels' composition on the card, input already on
+    the card."""
     from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
     B = len(blocks_np)
     on_card = qzt.GpuCodec(level=level, batch=B, device="cuda")._pipeline()
     dev = torch.device("cuda")
     blocks = torch.from_numpy(blocks_np).to(dev)
-    lengths = torch.full((B,), BLOCK, dtype=torch.int32, device=dev)
+    lengths = torch.from_numpy(_lengths(B, length)).to(dev)
     got = on_card(blocks, lengths).cpu()
-    exact(torch, got, torch.from_numpy(want), f"device half L{level} B={B}")
+    exact(torch, got, torch.from_numpy(want),
+          f"device half L{level} B={B} length {length or BLOCK}")
     ms = cuda_ms(lambda: on_card(blocks, lengths))
     if level >= 5:  # packed sequences: [nseq, last_literals << 1 | overflow]
         size = {"sequences": int(got[:, 0, 0].sum()),
                 "overflow_blocks": int((got[:, 0, 1] & 1).sum())}
     else:  # slot words
         size = {"claims": int((got != -1).sum())}
-    return {"level": level, "batch": B, **size, "ms": ms,
-            "mbs": B * BLOCK / ms / 1e3}
+    return {"level": level, "batch": B, "length": length or BLOCK, **size,
+            "ms": ms, "mbs": B * (length or BLOCK) / ms / 1e3}
 
 
 def _on_card_counted(torch, tk, fn):
@@ -1340,6 +1404,144 @@ def card_vs_cpu(qzt, level: int, batch: int, data: bytes, device_entropy,
           frame_bytes=len(on_card))
 
 
+def producer_card_vs_cpu(qzt, level: int, blocks: list, want: list
+                         ) -> None:
+    """Phase 5, the producer: sequence_producer's triples of each block on
+    a device="cuda" state equal `want`, the CPU's (cpu_triples), and each
+    block went through the device half."""
+    state = qzt.create_seqprod_state(level, device="cuda")
+    for block, w in zip(blocks, want):
+        if qzt.sequence_producer(state, block) != w:
+            raise AssertionError(f"level {level}: producer triples of a "
+                                 f"{len(block)}-byte block differ between "
+                                 "the card and the CPU")
+    if state.device_blocks != len(blocks) or state.errors:
+        raise AssertionError(f"level {level}: {state.device_blocks} device "
+                             f"blocks, {state.errors} errors")
+    phase("card_vs_cpu", path="sequence_producer", level=level,
+          lengths=[len(b) for b in blocks], equal=True,
+          triples=[len(w) for w in want])
+
+
+# The kernels each producer run must launch (batch 1: no LDM).
+PRODUCER_KERNELS = {1: ("hash_keys_winmin_sync", "neighbor_unsort_keys",
+                        "compact_slots_sync"),
+                    4: ("hash_keys", "finalize_candidates",
+                        "compact_slots_dense"),
+                    9: ("parse_greedy",)}
+
+
+def _ms_stats(seconds: list) -> dict:
+    ms = np.asarray(seconds) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "max_ms": float(ms.max()), "calls": len(ms),
+            "producer_s": float(ms.sum() / 1e3)}
+
+
+def _stock(oracle, data: bytes, level: int) -> dict:
+    """Stock libzstd's one-shot compress at `level` on the same bytes."""
+    t0 = time.perf_counter()
+    frame = oracle.compress(data, level)
+    seconds = time.perf_counter() - t0
+    return {"stock_ratio": len(frame) / len(data),
+            "stock_mbs": len(data) / seconds / 1e6}
+
+
+def producer_run(torch, qzt, tk, oracle, what: str, level: int, data: bytes,
+                 run) -> dict:
+    """Phase 6, one libzstd-driven run: run(data) (compress_via_libzstd or
+    compress_stream_via_libzstd on the card) with the launch counts reset
+    just before and read just after, each producer call timed by a wrapper
+    around the package's sequence_producer (here, not in the package).
+    The frame must decode bit-exactly; no producer error; every block of
+    64 bytes or more through the device half; the level's kernels
+    launched. Returns the launch counts."""
+    run(data[:BLOCK + TAIL])  # warm-up
+    torch.cuda.synchronize()
+    real = qzt.sequence_producer
+    calls, states = [], []
+
+    def timed(state, block, window_size=None):
+        t0 = time.perf_counter()
+        out = real(state, block, window_size)
+        calls.append((len(block), time.perf_counter() - t0))
+        if state not in states:
+            states.append(state)
+        return out
+
+    qzt.sequence_producer = timed
+    try:
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        frame = run(data)
+        seconds = time.perf_counter() - t0
+        launches = dict(tk.launches)
+    finally:
+        qzt.sequence_producer = real
+    stats = oracle.last_producer_stats()
+    if oracle.decompress(frame, len(data)) != data:
+        raise AssertionError(f"{what}: libzstd decode differs from the input")
+    (state,) = states
+    device_calls = sum(n >= qzt.DEVICE_MIN_BLOCK for n, _ in calls)
+    phase("producer", path=what, level=level, input_bytes=len(data),
+          frame_bytes=len(frame), ratio=len(frame) / len(data),
+          seconds=seconds, e2e_mbs=len(data) / seconds / 1e6,
+          **_ms_stats([t for _, t in calls]),
+          **_stock(oracle, data, level), libzstd_stats=stats,
+          device_blocks=state.device_blocks, host_blocks=state.host_blocks,
+          overflow_blocks=state.overflow_blocks, errors=state.errors,
+          short_blocks=len(calls) - device_calls, launches=launches)
+    if stats["errors"] or state.errors:
+        raise AssertionError(f"{what}: producer errors {stats}, "
+                             f"{state.last_error!r}")
+    if state.device_blocks != device_calls:
+        raise AssertionError(f"{what}: {state.device_blocks} device blocks "
+                             f"of {device_calls} calls of 64 bytes or more")
+    missing = [k for k in PRODUCER_KERNELS[level] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels never launched: {missing}")
+    return launches
+
+
+def stream_run(torch, qzt, tk, oracle, data: bytes) -> dict:
+    """Phase 6, StreamCompressor(level=1, batch=8) on the card fed `data`
+    in FEED_CHUNK pieces, then finish(), the launch counts reset just
+    before and read just after: the frame decodes bit-exactly, every full
+    block went through the device half, and level 1's kernels launched
+    (LDM on: 8 blocks a batch). Returns the launch counts."""
+    def feed(x: bytes):
+        sc = qzt.StreamCompressor(level=1, batch=8, device="cuda")
+        out = [sc.compress(x[s:s + FEED_CHUNK])
+               for s in range(0, len(x), FEED_CHUNK)]
+        return sc, b"".join(out) + sc.finish()
+
+    feed(data[:8 * BLOCK + TAIL])  # warm-up
+    torch.cuda.synchronize()
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    sc, frame = feed(data)
+    seconds = time.perf_counter() - t0
+    launches = dict(tk.launches)
+    if oracle.decompress(frame, len(data)) != data:
+        raise AssertionError("StreamCompressor: libzstd decode differs")
+    phase("producer", path="StreamCompressor", level=1, batch=8,
+          chunk_bytes=FEED_CHUNK, input_bytes=len(data),
+          frame_bytes=len(frame), ratio=len(frame) / len(data),
+          seconds=seconds, e2e_mbs=len(data) / seconds / 1e6,
+          **_stock(oracle, data, 1), device_blocks=sc.codec.device_blocks,
+          blocks_emitted=sc.blocks_emitted,
+          fallback_blocks=sc.codec.stats.fallback_blocks, launches=launches)
+    if sc.codec.device_blocks != len(data) // BLOCK:
+        raise AssertionError(f"StreamCompressor: {sc.codec.device_blocks} "
+                             f"device blocks of {len(data) // BLOCK}")
+    missing = [k for k in LEVEL_KERNELS[1] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"StreamCompressor: kernels never launched: "
+                             f"{missing}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1382,6 +1584,8 @@ def main() -> int:
     native.load()
     phase("native", library=os.path.relpath(native.library_path(), root),
           load_s=time.perf_counter() - t0)
+    phase("libzstd", version=oracle.version(),
+          sequence_producer=oracle.has_sequence_producer())
 
     # 2. Kernel vs twin at the main paths' shapes.
     corpus = make_corpus((args.mb << 20) + TAIL, args.seed)
@@ -1390,11 +1594,15 @@ def main() -> int:
         .reshape(BATCH, BLOCK).copy()
     dense_np = np.frombuffer(dense_corpus[:DENSE_BATCH * BLOCK], np.uint8) \
         .reshape(DENSE_BATCH, BLOCK).copy()
-    halves = ((1, blocks_np), (1, blocks_np[:6].copy()),
-              *((lv, dense_np) for lv in DENSE_LEVELS),
-              (4, dense_np[:8].copy()),
-              *((lv, dense_np) for lv in CONTENT_LEVELS),
-              (5, dense_np[:6].copy()))
+    halves = ((1, blocks_np, None), (1, blocks_np[:6].copy(), None),
+              *((lv, dense_np, None) for lv in DENSE_LEVELS),
+              (4, dense_np[:8].copy(), None),
+              *((lv, dense_np, None) for lv in CONTENT_LEVELS),
+              (5, dense_np[:6].copy(), None),
+              *((lv, ragged_block(corpus, n), n) for lv in PRODUCER_LEVELS
+                for n in PRODUCER_LENGTHS))
+    producer_blocks = [ragged_bytes(corpus, n) for n in PRODUCER_LENGTHS]
+    libzstd_frame_data = corpus[:8 * BLOCK + TAIL]
     entropy_halves = [(lv, e) for e in ("hybrid", True)
                       for lv in HYBRID_LEVELS]
     frames = ((1, 8, corpus[:8 * BLOCK + TAIL], False),
@@ -1414,12 +1622,16 @@ def main() -> int:
         2, mp_context=multiprocessing.get_context("spawn"),
         initializer=_worker_init)
     try:
-        want_halves = [pool.submit(cpu_device_half, lv, x) for lv, x in halves]
+        want_halves = [pool.submit(cpu_device_half, lv, x, length=n)
+                       for lv, x, n in halves]
         want_entropy = [pool.submit(cpu_device_half, lv, dense_np, e)
                         for lv, e in entropy_halves]
         want_parsed = [pool.submit(cpu_parsed_slots, dense_np, kw)
                        for kw in PARSED_CASES]
         want_frames = [pool.submit(cpu_frame, *f) for f in frames]
+        want_triples = [pool.submit(cpu_triples, lv, producer_blocks)
+                        for lv in PRODUCER_LEVELS]
+        want_libzstd = pool.submit(cpu_libzstd_frame, 1, libzstd_frame_data)
         kernels = {}
         kernels_vs_twins(torch, tk, blocks_np, args.seed, kernels)
         unsort_kernels_vs_twins(torch, tk, blocks_np, dense_np, args.seed,
@@ -1434,9 +1646,9 @@ def main() -> int:
             phase("kernel_vs_twin", kernel=name, **kernels[name])
 
         # 3. Device half: composed outputs, kernels vs twins.
-        for (level, x), want in zip(halves, want_halves):
+        for (level, x, n), want in zip(halves, want_halves):
             phase("device_half", equal=True,
-                  **device_half(torch, qzt, level, x, want.result()))
+                  **device_half(torch, qzt, level, x, want.result(), n))
         for (level, entropy), want in zip(entropy_halves, want_entropy):
             phase("device_half", equal=True, **hybrid_device_half(
                 torch, qzt, level, dense_np, entropy, want.result()))
@@ -1463,6 +1675,35 @@ def main() -> int:
         # 5. Port on card vs port on CPU.
         for f, want in zip(frames, frames_on_cpu):
             card_vs_cpu(qzt, *f, want)
+        for level, want in zip(PRODUCER_LEVELS, want_triples):
+            producer_card_vs_cpu(qzt, level, producer_blocks, want.result())
+        on_card = qzt.compress_via_libzstd(libzstd_frame_data, level=1,
+                                           device="cuda")
+        if on_card != want_libzstd.result():
+            raise AssertionError("compress_via_libzstd: frames differ "
+                                 "between device='cuda' and device='cpu'")
+        phase("card_vs_cpu", path="compress_via_libzstd", level=1,
+              input_bytes=len(libzstd_frame_data), equal=True,
+              frame_bytes=len(on_card))
+
+        # 6. The producer and the streams on the card, launch counts per
+        # run.
+        via = lambda lv: lambda x: qzt.compress_via_libzstd(  # noqa: E731
+            x, level=lv, device="cuda")
+        stream = lambda x: qzt.compress_stream_via_libzstd(  # noqa: E731
+            x, level=1, device="cuda", chunk_size=STREAM_CHUNK,
+            flush_every=STREAM_FLUSH)
+        runs = [("compress_via_libzstd", 1, corpus, via(1)),
+                *(("compress_via_libzstd", lv, dense_corpus, via(lv))
+                  for lv in PRODUCER_LEVELS[1:]),
+                ("compress_stream_via_libzstd", 1,
+                 corpus[:STREAM_MB << 20], stream)]
+        for what, level, data, run in runs:
+            for k, n in producer_run(torch, qzt, tk, oracle, what, level,
+                                     data, run).items():
+                launches[k] += n
+        for k, n in stream_run(torch, qzt, tk, oracle, corpus).items():
+            launches[k] += n
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 

@@ -1,7 +1,7 @@
 """The port's native host runtime: ctypes over its own build of qz_entropy.cc.
 
 Copy of qat_zstd_plugin_tpu.native, restricted to the entry points the
-port calls (xxh64, block_body, block_body_external_seqsec,
+port calls (xxh64, Xxh64Stream, block_body, block_body_external_seqsec,
 extend_sequences, fill_gaps, find_sequences, find_sequences_hinted).
 `qz_entropy.cc` here is a byte-for-byte copy of the JAX package's
 source; the differences are in the build:
@@ -46,6 +46,10 @@ _P, _S, _I, _U32 = (ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
                     ctypes.c_uint32)
 _SIGNATURES = {  # name: (restype, argtypes)
     "qz_xxh64": (ctypes.c_uint64, (_P, _S, ctypes.c_uint64)),
+    "qz_xxh64_state_size": (_S, ()),
+    "qz_xxh64_init": (None, (_P, ctypes.c_uint64)),
+    "qz_xxh64_update": (None, (_P, _P, _S)),
+    "qz_xxh64_digest": (ctypes.c_uint64, (_P,)),
     "qz_block_body": (_S, (_P, _S, _P, _P, _P, _S, _U32, _I, _I, _I, _P,
                            _S)),
     "qz_block_body_external_seqsec": (_S, (_P, _S, _P, _P, _S, _U32,
@@ -136,6 +140,28 @@ def xxh64(data, seed: int = 0) -> int:
         arr = np.ascontiguousarray(data, np.uint8)
         return int(lib.qz_xxh64(arr.ctypes.data, arr.size, seed))
     return int(lib.qz_xxh64(data, len(data), seed))
+
+
+class Xxh64Stream:
+    """Incremental XXH64 over the native runtime (copy of
+    qat_zstd_plugin_tpu.native.Xxh64Stream): update() in pieces of any
+    size, digest() equals xxh64() of their concatenation."""
+
+    def __init__(self, seed: int = 0):
+        self._lib = load()
+        self._state = ctypes.create_string_buffer(
+            self._lib.qz_xxh64_state_size())
+        self._lib.qz_xxh64_init(self._state, seed)
+
+    def update(self, data) -> None:
+        if isinstance(data, np.ndarray):
+            arr = np.ascontiguousarray(data, np.uint8)
+            self._lib.qz_xxh64_update(self._state, arr.ctypes.data, arr.size)
+        else:
+            self._lib.qz_xxh64_update(self._state, data, len(data))
+
+    def digest(self) -> int:
+        return int(self._lib.qz_xxh64_digest(self._state))
 
 
 def block_body(block: np.ndarray, lit_lens: np.ndarray, offsets: np.ndarray,

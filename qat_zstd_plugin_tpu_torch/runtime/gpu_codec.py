@@ -293,6 +293,16 @@ class GpuCodec:
                 ns, words[i], int(bits[i]), plan, i))))
         return res
 
+    def produce_sequences(self, blocks_np: np.ndarray,
+                          lengths_np: np.ndarray
+                          ) -> list[BlockSequences | None]:
+        """One batch through the device half and back, keeping only the
+        sequences (tpu_codec.TpuCodec.produce_sequences): the claims at
+        levels 1-4, the coalesced sequences at 5-12, None for a block
+        whose device output overflowed."""
+        return [s for s, _ in
+                self.collect_batch(self.submit_batch(blocks_np, lengths_np))]
+
     def compress(self, data: bytes | np.ndarray,
                  checksum: bool = True) -> bytes:
         buf = np.frombuffer(data, dtype=np.uint8) if not isinstance(
@@ -303,15 +313,17 @@ class GpuCodec:
 
     def finish_block_host(self, buf: np.ndarray, i: int,
                           seqs: BlockSequences | None,
-                          section: tuple[bytes | None, bytes] | None = None
-                          ) -> bytes | None:
+                          section: tuple[bytes | None, bytes] | None = None,
+                          frame_start: bool = True) -> bytes | None:
         """Host half of block i of the whole frame buffer `buf`: with the
         device's sections (literals section or None, Sequences_Section),
         the two joined, or the host's literals section before the
         device's Sequences_Section; without them the deep selector's
         chain parse, or extension plus gap fill, of the device sequences;
         or, for seqs None (the tail block, an overflowed block), the host
-        matcher; then the entropy coder. None => raw."""
+        matcher; then the entropy coder. None => raw. Block 0 starts the
+        frame's repeat-offset history unless frame_start is False (a
+        stream's later chunks)."""
         n = len(buf)
         bs = self.block_size
         gp = self.host
@@ -369,10 +381,13 @@ class GpuCodec:
         return native.block_body(
             blk, seqs.lit_lengths, seqs.offsets, seqs.match_lengths,
             seqs.last_literals, self.params.custom_tables
-            and gp.custom_tables, self.params.huffman, first_block=i == 0)
+            and gp.custom_tables, self.params.huffman,
+            first_block=frame_start and i == 0)
 
-    def compress_bodies(self, buf: np.ndarray) -> list[bytes | None]:
-        """Per-block Compressed_Block bodies (None => raw block).
+    def compress_bodies(self, buf: np.ndarray,
+                        frame_start: bool = True) -> list[bytes | None]:
+        """Per-block Compressed_Block bodies (None => raw block); buf's
+        first block starts the frame unless frame_start is False.
 
         The full blocks go to the device in batches, QUEUE_DEPTH batches
         in flight while earlier ones are collected and finished on a host
@@ -386,7 +401,8 @@ class GpuCodec:
 
         def finish_block(i: int, seqs, section=None) -> bytes | None:
             with Timer() as tm:
-                body = self.finish_block_host(buf, i, seqs, section)
+                body = self.finish_block_host(buf, i, seqs, section,
+                                              frame_start)
             self.stats.record(min(n - i * bs, bs),
                               len(body) if body else None, tm.elapsed)
             return body

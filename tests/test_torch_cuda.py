@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+import qat_zstd_plugin_tpu_torch as qzt
 from qat_zstd_plugin_tpu_torch import compress
+from qat_zstd_plugin_tpu_torch.corpus import make_corpus
 from qat_zstd_plugin_tpu_torch.ops import fse_kernel as fk
 from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
 from qat_zstd_plugin_tpu_torch.ops import literals_kernel as lk
@@ -771,3 +773,24 @@ def test_fse_state_machine_scratch(cuda, monkeypatch, geometry, refused):
         lo, nb = fk.run_state_kernel(*args)
         tw_lo, tw_nb = fk.run_state_kernel_twin(*args)
         assert torch.equal(lo, tw_lo) and torch.equal(nb, tw_nb)
+
+
+@pytest.mark.parametrize("n", [131072, 70001, 4097, 64])
+@pytest.mark.parametrize("level", [1, 4, 9])
+def test_producer_triples_card_vs_cpu(cuda, level, n):
+    """The sequence producer at batch 1 on ragged blocks: the kernels give
+    the twins' triples, and the block went through the device half."""
+    block = make_corpus(2 * N, seed=level)[N - 1000:N - 1000 + n]
+    card = qzt.create_seqprod_state(level, device="cuda")
+    got = qzt.sequence_producer(card, block)
+    assert got == qzt.sequence_producer(
+        qzt.create_seqprod_state(level, device="cpu"), block)
+    assert card.device_blocks == 1 and card.errors == 0
+
+
+def test_compress_via_libzstd_card_vs_cpu(cuda):
+    data = make_corpus(3 * N + 5000, seed=1)
+    got = qzt.compress_via_libzstd(data, level=1, device="cuda")
+    assert qzt.oracle.last_producer_stats() == {"blocks": 4, "errors": 0}
+    assert got == qzt.compress_via_libzstd(data, level=1, device="cpu")
+    assert qzt.decompress(got, len(data)) == data

@@ -38,7 +38,8 @@ from qat_zstd_plugin_tpu_torch.ops import (_build, bitconcat, bitpack,
                                           glue_kernels, huffman_tables,
                                           literals_kernel, match_pipeline,
                                           parse_kernel, sort_kernel)
-from qat_zstd_plugin_tpu_torch.runtime import device, gpu_codec, levels, stats
+from qat_zstd_plugin_tpu_torch.runtime import (device, gpu_codec, levels,
+                                               stats, stream)
 from qat_zstd_plugin_tpu_torch import (corpus, format, fse_format,
                                        huffman_format, native, oracle,
                                        profile_l1)
@@ -58,6 +59,23 @@ for level, entropy in ((1, False), (5, False), (1, 'hybrid'), (5, True)):
     frame = codec.compress(data)
     assert qzt.decompress(frame, len(data)) == data
     assert codec.device_blocks == 4
+assert 'jax' not in sys.modules
+assert not any(m.split('.')[0] == 'qat_zstd_plugin_tpu' for m in sys.modules)
+print('ok')
+""",
+    "producer": """
+import numpy as np
+import qat_zstd_plugin_tpu_torch as qzt
+rng = np.random.default_rng(0)
+data = (rng.integers(0, 8, 131072 * 2 + 999, np.uint8)).tobytes()
+for level in (1, 9):
+    frame = qzt.compress_via_libzstd(data, level=level, device='cpu')
+    assert qzt.decompress(frame, len(data)) == data
+frame = qzt.compress_stream_via_libzstd(data, device='cpu', flush_every=1)
+assert qzt.decompress(frame, len(data)) == data
+sc = qzt.StreamCompressor(level=1, batch=2, device='cpu')
+frame = sc.compress(data) + sc.finish()
+assert qzt.decompress(frame, len(data)) == data
 assert 'jax' not in sys.modules
 assert not any(m.split('.')[0] == 'qat_zstd_plugin_tpu' for m in sys.modules)
 print('ok')

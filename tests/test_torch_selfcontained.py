@@ -297,3 +297,36 @@ def test_literals_header_equal(lit_type):
             comp = int(rng.integers(0, limit)) if lit_type == 2 else None
             assert huffman_format.literals_header(lit_type, sf, regen, comp) \
                 == frame._literals_header(lit_type, sf, regen, comp)
+
+
+@pytest.mark.parametrize("level", range(1, 13))
+@pytest.mark.parametrize("checksum", [True, False])
+def test_stream_frame_header_copy(level, checksum):
+    """The stream header and its window per level equal the JAX
+    package's StreamCompressor's."""
+    from qat_zstd_plugin_tpu.runtime import stream as jax_stream
+    from qat_zstd_plugin_tpu_torch.runtime import stream
+    wlog = max(tables.MIN_WINDOW_LOG,
+               golden_codec.level_params(level).window_log)
+    assert stream._stream_frame_header(wlog, checksum) == \
+        jax_stream._stream_frame_header(wlog, checksum)
+    sc = stream.StreamCompressor(level=level, checksum=checksum,
+                                 device="cpu")
+    assert sc._header() == stream._stream_frame_header(wlog, checksum)
+
+
+def test_oracle_producer_abi_copy():
+    """The ZSTD_Sequence layout, the callback's signature and the libzstd
+    parameter numbers equal the JAX package's oracle's."""
+    assert oracle.ZstdSequence._fields_ == jax_oracle.ZstdSequence._fields_
+    assert [t.__name__ for t in oracle.SEQPROD_CFUNC._argtypes_] == \
+        [t.__name__ for t in jax_oracle.SEQPROD_CFUNC._argtypes_]
+    assert oracle.SEQPROD_CFUNC._restype_ == jax_oracle.SEQPROD_CFUNC._restype_
+    for name in ("ZSTD_SEQUENCE_PRODUCER_ERROR", "ZSTD_c_compressionLevel",
+                 "ZSTD_c_enableSeqProducerFallback",
+                 "ZSTD_c_searchForExternalRepcodes", "ZSTD_ps_enable",
+                 "ZSTD_e_continue", "ZSTD_e_flush", "ZSTD_e_end"):
+        assert getattr(oracle, name) == getattr(jax_oracle, name), name
+    assert oracle.version() == jax_oracle.version()
+    data = bytes(range(256)) * 64
+    assert oracle.compress(data, 3) == jax_oracle.compress(data, 3)
