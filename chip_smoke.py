@@ -6,8 +6,10 @@ matcher) end to end, levels 1 and 9 with hybrid device entropy (the FSE
 sequence sections encoded on the card) and with full device entropy (the
 Huffman literals sections too), drives the reference's deployment shape
 (stock libzstd calling the port's sequence producer once a block, one-shot
-and streaming, and the port's StreamCompressor), and checks every frame
-with stock libzstd.
+and streaming, and the port's StreamCompressor), drives the block-parallel
+scale-out (parallel.pipeline.compress_mesh) in an NCCL world of one and
+with two gloo ranks sharing the card, and checks every frame with stock
+libzstd.
 
     python3 chip_smoke.py [--seed S] [--mb 64]
 
@@ -126,7 +128,22 @@ Run from the repository root on a machine with one CUDA device. Phases
      kernels launched. Each run prints its ratio and MB/s beside stock
      libzstd's at the same level on the same bytes, and the producer
      runs each call's latency (p50, p99, max), timed by a wrapper here
-     around the package's sequence_producer.
+     around the package's sequence_producer;
+  7. scale-out: compress_mesh(level=1, device="cuda") on the --mb corpus
+     plus the tail in this process, an NCCL process group of one (made
+     here: parallel.distributed.init joins nothing for a world of one);
+     then two spawned ranks in a gloo group, each driving this one card,
+     run compress_mesh at level 1 on the same bytes and at levels 4 and 9
+     on the 32 MiB corpus plus the tail. The launch counts are reset just
+     before and read just after each run, in each process. Every frame
+     must equal GpuCodec(level=L, batch=B).compress(data) on the card,
+     B being compress_mesh's row count (the full blocks padded to a
+     multiple of lcm(ranks, LDM span)), on every rank; each decodes
+     bit-exactly through stock libzstd; each level's kernels launched on
+     every rank. Each run prints its ratio and MB/s beside phase 4's
+     GpuCodec.compress at its batch. Two ranks on one card measure the
+     orchestration (the split, the context spans, the gather), not
+     scaling: NCCL across cards is not exercised on one card.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -138,10 +155,14 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import math
 import multiprocessing
 import os
+import socket
 import sys
 import time
+import traceback
+from queue import Empty
 
 import numpy as np
 
@@ -176,6 +197,11 @@ PRODUCER_LENGTHS = (131072, 70001, 4097, 64)
 STREAM_MB = 16  # compress_stream_via_libzstd's input in MiB
 STREAM_CHUNK, STREAM_FLUSH = 100000, 2
 FEED_CHUNK = 1 << 20  # StreamCompressor's chunks
+# Phase 7: compress_mesh's levels (the --mb corpus at level 1, the 32 MiB
+# one at 4 and 9) and the gloo ranks sharing the card.
+MESH_LEVELS = (1, 4, 9)
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 600
 # Each CUDA kernel: its source and the Pallas kernel it replaces.
 KERNELS = {
     "hash_keys_winmin_sync": (L1_SRC, f"{REF}:192"),
@@ -1346,7 +1372,7 @@ def main_path(torch, qzt, tk, oracle, level: int, batch: int,
     reset just before; decode; no fallback; the level's kernels ran; in
     hybrid and full mode at least one block carries the card's sequence
     section, in full mode also its literals section. Returns the launch
-    counts of the run."""
+    counts of the run and its e2e MB/s."""
     qzt.compress(data[:BLOCK + TAIL], level=level, batch=batch,
                  device="cuda", device_entropy=device_entropy)  # warm-up
     torch.cuda.synchronize()
@@ -1387,7 +1413,7 @@ def main_path(torch, qzt, tk, oracle, level: int, batch: int,
     if missing:
         raise AssertionError(f"level {level}: kernels never launched on "
                              f"the main path: {missing}")
-    return launches
+    return launches, len(data) / seconds / 1e6
 
 
 def card_vs_cpu(qzt, level: int, batch: int, data: bytes, device_entropy,
@@ -1542,6 +1568,196 @@ def stream_run(torch, qzt, tk, oracle, data: bytes) -> dict:
     return launches
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_batch(nfull: int, world: int, ldm: int) -> int:
+    """compress_mesh's row count B: the full blocks padded to a multiple
+    of lcm(world, LDM span) (the JAX package's parallel/pipeline.py:69-77)."""
+    unit = math.lcm(world, ldm or 1)
+    return max(unit, -(-nfull // unit) * unit)
+
+
+def mesh_run(torch, tk, pipeline, mesh, level: int, data: bytes) -> tuple:
+    """One compress_mesh run on the card after a warm-up on 8 blocks and
+    the tail, the launch counts reset just before and read just after:
+    (frame, seconds, launches)."""
+    pipeline.compress_mesh(data[:8 * BLOCK + TAIL], mesh, level=level,
+                           device="cuda")
+    torch.cuda.synchronize()
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    frame = pipeline.compress_mesh(data, mesh, level=level, device="cuda")
+    seconds = time.perf_counter() - t0
+    return frame, seconds, dict(tk.launches)
+
+
+def mesh_rank(rank: int, world: int, init_method: str, root: str, seed: int,
+              mb: int, queue, go) -> None:
+    """Phase 7, one gloo rank in a spawned process, driving cuda:0: makes
+    the corpora, joins the group, reports ("ready", rank), waits for `go`,
+    then runs compress_mesh at each MESH_LEVELS level and reports
+    ("done", rank, {level: (frame, seconds, launches)}), or ("error", rank,
+    traceback) on a failure."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, root)
+    try:
+        from qat_zstd_plugin_tpu_torch.corpus import make_corpus
+        from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
+        from qat_zstd_plugin_tpu_torch.parallel import (distributed, mesh,
+                                                         pipeline)
+        data = {1: make_corpus((mb << 20) + TAIL, seed)}
+        data[4] = data[9] = make_corpus((DENSE_MB << 20) + TAIL, seed)
+        torch.cuda.set_device(0)
+        distributed.init(init_method, world_size=world, rank=rank,
+                         backend="gloo")
+        m = mesh.make_mesh()
+        queue.put(("ready", rank))
+        if not go.wait(MESH_TIMEOUT_S):
+            raise TimeoutError("no go from the parent")
+        queue.put(("done", rank, {
+            level: mesh_run(torch, tk, pipeline, m, level, data[level])
+            for level in MESH_LEVELS}))
+    except Exception:
+        queue.put(("error", rank, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    # The work is done and reported: leave without the interpreter's
+    # teardown, where torch's gloo threads can abort a finished process,
+    # once the queue has flushed.
+    queue.close()
+    queue.join_thread()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def _mesh_check(oracle, what: str, level: int, frame: bytes, want: bytes,
+                data: bytes, launches: dict) -> None:
+    """A phase 7 frame equals the reference frame, decodes bit-exactly
+    through stock libzstd, and the level's kernels launched."""
+    if frame != want:
+        raise AssertionError(f"{what} level {level}: the frame differs from "
+                             "GpuCodec(batch=B)'s")
+    if oracle.decompress(frame, len(data)) != data:
+        raise AssertionError(f"{what} level {level}: libzstd decode differs")
+    missing = [k for k in LEVEL_KERNELS[level] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what} level {level}: kernels never "
+                             f"launched: {missing}")
+
+
+def mesh_phase(torch, qzt, tk, oracle, root: str, args, corpus: bytes,
+               dense_corpus: bytes, card: str, phase4_mbs: dict) -> dict:
+    """Phase 7: the reference frames, compress_mesh at level 1 in an NCCL
+    world of one here, then at levels 1, 4 and 9 on MESH_RANKS gloo ranks
+    sharing the card (spawned first: their start-up overlaps the
+    reference frames, and they wait for the go until this process's
+    timed run is over). Returns the launch counts of the timed runs, every
+    process's."""
+    import torch.distributed as dist
+    from qat_zstd_plugin_tpu_torch.parallel import mesh, pipeline
+    from qat_zstd_plugin_tpu_torch.runtime.levels import TPU_LEVEL_TABLE
+    data = {1: corpus, 4: dense_corpus, 9: dense_corpus}
+    ctx = multiprocessing.get_context("spawn")
+    queue, go = ctx.Queue(), ctx.Event()
+    init_method = f"tcp://127.0.0.1:{_free_port()}"
+    procs = [ctx.Process(target=mesh_rank, args=(
+        r, MESH_RANKS, init_method, root, args.seed, args.mb, queue, go))
+        for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+
+    def replies(kind: str) -> dict:
+        """Each rank's next message, which must be of `kind`; raises if a
+        rank dies first or none comes within MESH_TIMEOUT_S."""
+        out = {}
+        t0 = time.perf_counter()
+        while len(out) < MESH_RANKS:
+            try:
+                msg = queue.get(timeout=5)
+            except Empty:
+                dead = {r: p.exitcode for r, p in enumerate(procs)
+                        if r not in out and not p.is_alive()}
+                if dead or time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                    raise AssertionError(f"mesh ranks: no {kind!r} "
+                                         f"message; dead ranks {dead}")
+                continue
+            if msg[0] == "error":
+                raise AssertionError(f"mesh rank {msg[1]}:\n{msg[2]}")
+            if msg[0] != kind:
+                raise AssertionError(f"mesh rank message {msg[:2]}")
+            out[msg[1]] = msg[2:]
+        return out
+
+    launches = dict.fromkeys(KERNELS, 0)
+    try:
+        want = {}
+        for level in MESH_LEVELS:
+            nfull = len(data[level]) // BLOCK
+            B = {mesh_batch(nfull, w, TPU_LEVEL_TABLE[level].ldm)
+                 for w in (1, MESH_RANKS)}
+            if len(B) != 1:
+                raise AssertionError(f"level {level}: B differs by world "
+                                     f"size: {B}")
+            (batch,) = B
+            want[level] = qzt.GpuCodec(
+                level=level, batch=batch, max_seq=MAX_SEQ, device="cuda",
+                device_entropy=False).compress(data[level], checksum=True)
+            phase("mesh_reference", level=level, batch=batch,
+                  input_bytes=len(data[level]),
+                  frame_bytes=len(want[level]))
+        replies("ready")
+        # NCCL in a world of one, made here: distributed.init joins no
+        # group for a world of one.
+        dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                                f"{_free_port()}", world_size=1, rank=0)
+        try:
+            runs = [("nccl", 1, 0, 1, *mesh_run(
+                torch, tk, pipeline, mesh.make_mesh(), 1, corpus))]
+        finally:
+            dist.destroy_process_group()
+        go.set()
+        for rank, (res,) in sorted(replies("done").items()):
+            runs += [("gloo", MESH_RANKS, rank, level, *res[level])
+                     for level in MESH_LEVELS]
+        for backend, world, rank, level, frame, seconds, counts in runs:
+            _mesh_check(oracle, f"compress_mesh {backend} world {world} "
+                        f"rank {rank}", level, frame, want[level],
+                        data[level], counts)
+            for k, n in counts.items():
+                launches[k] += n
+            batch, mbs = phase4_mbs[level]
+            phase("mesh", backend=backend, world=world, rank=rank,
+                  level=level, input_bytes=len(data[level]),
+                  frame_bytes=len(frame), ratio=len(frame) / len(data[level]),
+                  seconds=seconds, e2e_mbs=len(data[level]) / seconds / 1e6,
+                  equal_reference=True, decoder="libzstd",
+                  phase4_batch=batch, phase4_e2e_mbs=mbs,
+                  launches={k: n for k, n in counts.items() if n})
+        phase("mesh_note", card=card, note=(
+            f"{MESH_RANKS} ranks share one card: these runs measure the "
+            "orchestration (span split, context spans, ordered gather), "
+            "not scaling; NCCL across cards is not exercised on one card"))
+    finally:
+        go.set()
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"mesh ranks exited with {codes}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1664,10 +1880,14 @@ def main() -> int:
             for lv in DENSE_LEVELS + CONTENT_LEVELS] + [
             (lv, DENSE_BATCH, dense_corpus, entropy)
             for entropy in ("hybrid", True) for lv in HYBRID_LEVELS]
+        phase4_mbs = {}
         for level, batch, data, entropy in runs:
-            for k, n in main_path(torch, qzt, tk, oracle, level, batch, data,
-                                  entropy).items():
+            counts, mbs = main_path(torch, qzt, tk, oracle, level, batch,
+                                    data, entropy)
+            for k, n in counts.items():
                 launches[k] += n
+            if not entropy:
+                phase4_mbs[level] = (batch, mbs)
         missing = [k for k, n in launches.items() if n == 0]
         if missing:
             raise AssertionError(f"kernels never launched: {missing}")
@@ -1706,6 +1926,12 @@ def main() -> int:
             launches[k] += n
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+
+    # 7. Scale-out: compress_mesh in an NCCL world of one and on two gloo
+    # ranks sharing the card.
+    for k, n in mesh_phase(torch, qzt, tk, oracle, root, args, corpus,
+                           dense_corpus, card, phase4_mbs).items():
+        launches[k] += n
 
     ref = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "qat_zstd_plugin_tpu")]

@@ -44,6 +44,16 @@ device half or the host half inside libzstd's callback still returns the
 producer error, but it is also recorded on the state, and the two
 compress_*_via_libzstd functions raise it once libzstd returns instead
 of handing back a frame that libzstd's own matcher made.
+
+Also block-parallel scale-out over torch.distributed ranks, one process a
+card (parallel/), and the reference's QZ_* process defaults
+(utils/config.py, read by GpuCodec for the arguments left at None):
+
+    parallel.distributed.init(init_method, world_size, rank, backend)
+    parallel.pipeline.compress_mesh(data, mesh=None, level=1,
+                                    device="cuda")
+        -> the same frame on every rank, equal byte for byte to
+        qat_zstd_plugin_tpu's compress_mesh frame at every world size
 """
 
 from __future__ import annotations
@@ -79,13 +89,15 @@ def version() -> str:
 def compress(data: bytes | np.ndarray, level: int = 1,
              block_size: int = BLOCK_SIZE_MAX, checksum: bool = True,
              batch: int = 8, device: str | torch.device = "cuda",
-             device_entropy: str | bool = False) -> bytes:
+             device_entropy: str | bool | None = None) -> bytes:
     """Compress to a complete zstd frame on `device`. "cuda" runs the CUDA
     kernels and raises when there is no CUDA device; "cpu" runs their
     plain-torch twins. There is no silent fallback between the two.
     device_entropy="hybrid" encodes the sequence sections on the device,
-    True (or 1, or "full") the Huffman literals sections as well (see
-    GpuCodec)."""
+    True (or 1, or "full") the Huffman literals sections as well, None
+    takes QZ_DEVICE_ENTROPY (see GpuCodec). As in the reference's
+    compress(), only QZ_MAX_SEQ, QZ_DEVICE_ENTROPY and QZ_SECOND_PARSE
+    reach this function from the environment."""
     codec = GpuCodec(level=level, batch=batch, block_size=block_size,
                      device=device, device_entropy=device_entropy)
     return codec.compress(data, checksum=checksum)
@@ -102,6 +114,8 @@ class SeqProdState:
     def __init__(self, level: int = 1, block_size: int = BLOCK_SIZE_MAX,
                  device: str | torch.device = "cuda"):
         self.level = level
+        # Host entropy whatever QZ_DEVICE_ENTROPY says: the producer hands
+        # libzstd sequences, and device entropy's carry no offsets.
         self.codec = GpuCodec(level=level, batch=1, block_size=block_size,
                               device=device, device_entropy=False)
         self.freed = False

@@ -3,10 +3,17 @@ device.
 
 Port of qat_zstd_plugin_tpu.runtime.tpu_codec (`TpuCodec` and the module
 functions its device path reaches), restricted to the branches the port
-takes: the port's native runtime on the host, no golden Python path, no
-second parse, and host, hybrid or full device entropy coding. Full
-blocks go in batches through the device half on an explicit torch device
-(the CUDA kernels on "cuda", their plain-torch twins on "cpu").
+takes: the port's native runtime on the host, no golden Python path,
+and host, hybrid or full device entropy coding. Full blocks go in
+batches through the device half on a torch device (the CUDA kernels on
+"cuda", their plain-torch twins on "cpu").
+
+Defaults the caller leaves at None come from the process config
+(utils/config.py, the QZ_* variables) as in TpuCodec: batch, block_size,
+max_seq, compress()'s checksum, the entropy placement
+(QZ_DEVICE_ENTROPY) and the device (QZ_FORCE_BACKEND: "", "cuda" and the
+reference's "tpu" mean "cuda", which raises without a card; "cpu" runs
+the twins; there is no fallback from the card to the CPU).
 
 Host entropy (device_entropy=False, the default):
 
@@ -15,7 +22,9 @@ Host entropy (device_entropy=False, the default):
     verifies and extends, then gap fill;
   * levels 5-12, the content matcher: ops.match_pipeline.find_matches_packed
     -> packed sequences -> coalesced, then the deep-level selector picks
-    the hinted chain parse or the extension walk plus gap fill per block.
+    the hinted chain parse or the extension walk plus gap fill per block;
+    with QZ_SECOND_PARSE=1 they skip the selector, take the extension
+    walk, and also run the host chain parse, keeping the smaller body.
 
 Hybrid device entropy (device_entropy="hybrid"): the device emits each
 block's final FSE Sequences_Section and the host adds the literals
@@ -51,14 +60,21 @@ import numpy as np
 import torch
 
 from .. import fse_format, native
-from ..format import BLOCK_SIZE_MAX, BlockSequences, assemble_frame
+from ..format import BlockSequences, assemble_frame
 from ..ops import match_pipeline
 from ..ops.bitpack import backward_stream_bytes
 from ..ops.literals_kernel import device_literals_section
+from ..utils import config
 from .levels import TPU_LEVEL_TABLE, level_params
 from .stats import BlockStats, Timer
 
 QUEUE_DEPTH = 3  # device batches in flight
+# QZ_DEVICE_ENTROPY's values (tpu_codec.TpuCodec.__init__'s map).
+ENTROPY_ENV = {"": False, "0": False, "off": False, "1": True,
+               "full": True, "hybrid": "hybrid"}
+# QZ_FORCE_BACKEND's values: the reference's "" (the device when present)
+# and "tpu" (require the device) both require the card here.
+BACKEND_ENV = {"": "cuda", "cuda": "cuda", "tpu": "cuda", "cpu": "cpu"}
 
 
 def coalesce_sequences(lit: np.ndarray, off: np.ndarray, ml: np.ndarray
@@ -137,10 +153,10 @@ def device_sequence_section(nseq: int, words: np.ndarray, bits: int,
 
 
 def entropy_mode(device_entropy) -> str | bool:
-    """The reference's check of device_entropy (TpuCodec.__init__) without
-    its environment default: False (or 0) is host entropy, "hybrid"
-    hybrid, True (or 1, or "full") full device entropy; any other value
-    raises ValueError."""
+    """The reference's check of an explicit device_entropy
+    (TpuCodec.__init__): False (or 0) is host entropy, "hybrid" hybrid,
+    True (or 1, or "full") full device entropy; any other value raises
+    ValueError."""
     if isinstance(device_entropy, int) and device_entropy in (0, 1):
         return bool(device_entropy)
     if device_entropy in ("hybrid", "full"):
@@ -153,19 +169,35 @@ class GpuCodec:
     """Batched block compressor on one torch device."""
 
     def __init__(self, level: int = 1, batch: int | None = None,
-                 block_size: int | None = None, max_seq: int = 16384,
-                 device: str | torch.device = "cuda",
-                 device_entropy: str | bool = False):
+                 block_size: int | None = None, max_seq: int | None = None,
+                 device: str | torch.device | None = None,
+                 device_entropy: str | bool | None = None):
         if level not in TPU_LEVEL_TABLE:
             raise ValueError(f"unsupported level {level}: supported range "
                              "1..12")
+        cfg = config.get()  # process defaults (QZ_* env); arguments win
+        if device_entropy is None:
+            if cfg.device_entropy not in ENTROPY_ENV:
+                raise ValueError(
+                    f"QZ_DEVICE_ENTROPY={cfg.device_entropy!r} (the default "
+                    f"of device_entropy): expected one of "
+                    f"{sorted(ENTROPY_ENV)}")
+            device_entropy = ENTROPY_ENV[cfg.device_entropy]
+        if device is None:
+            if cfg.force_backend not in BACKEND_ENV:
+                raise ValueError(
+                    f"QZ_FORCE_BACKEND={cfg.force_backend!r}: expected "
+                    f"one of {sorted(BACKEND_ENV)}")
+            device = BACKEND_ENV[cfg.force_backend]
         self.device_entropy = entropy_mode(device_entropy)
         self.level = level
         self.params = TPU_LEVEL_TABLE[level]
         self.host = level_params(level)
-        self.batch = 8 if batch is None else batch
-        self.block_size = BLOCK_SIZE_MAX if block_size is None else block_size
-        self.max_seq = max_seq
+        self.batch = cfg.batch if batch is None else batch
+        self.block_size = cfg.block_size if block_size is None \
+            else block_size
+        self.max_seq = cfg.max_seq if max_seq is None else max_seq
+        self.checksum_default = cfg.checksum
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
@@ -182,37 +214,44 @@ class GpuCodec:
 
     def _pipeline(self):
         if self._fn is None:
-            p = self.params
-            wlog = self.host.window_log
-            # Full mode adds the device literals (tpu_codec._pipeline).
-            lits = p.huffman and self.device_entropy is True
-            if self.device_entropy and p.matcher == "hash":
-                def run(blocks, lengths):
-                    return match_pipeline.find_matches_with_seqsec_hash(
-                        blocks, lengths, neighbors=2, max_seq=self.max_seq,
-                        lazy=p.lazy, window=p.window,
-                        custom_tables=p.custom_tables, device_literals=lits)
-            elif self.device_entropy:
-                def run(blocks, lengths):
-                    return match_pipeline.find_matches_with_seqsec(
-                        blocks, lengths, neighbors=p.neighbors,
-                        max_seq=self.max_seq, lazy=p.lazy, stride=p.stride,
-                        window=p.window, custom_tables=p.custom_tables,
-                        device_literals=lits)
-            elif p.matcher == "hash":
-                def run(blocks, lengths):
-                    return match_pipeline.find_matches_positions(
-                        blocks, lengths, widths=p.widths,
-                        neighbors=p.neighbors, window=p.window, ldm=p.ldm,
-                        ldm_max_off=1 << wlog, dense=p.dense, sync=p.sync)
-            else:
-                def run(blocks, lengths):
-                    return match_pipeline.find_matches_packed(
-                        blocks, lengths, neighbors=p.neighbors,
-                        max_seq=self.max_seq, lazy=p.lazy, stride=p.stride,
-                        window=p.window, ldm=p.ldm, ldm_max_off=1 << wlog)
-            self._fn = run
+            self._fn = self.device_half(self.params.window)
         return self._fn
+
+    def device_half(self, window: int):
+        """The level's device half, (blocks, lengths) -> the device's
+        output, at match window `window`: the level's in compress_bodies,
+        min(the level's, block size) in parallel.pipeline.compress_mesh
+        (as the reference's mesh path)."""
+        p = self.params
+        wlog = self.host.window_log
+        # Full mode adds the device literals (tpu_codec._pipeline).
+        lits = p.huffman and self.device_entropy is True
+        if self.device_entropy and p.matcher == "hash":
+            def run(blocks, lengths):
+                return match_pipeline.find_matches_with_seqsec_hash(
+                    blocks, lengths, neighbors=2, max_seq=self.max_seq,
+                    lazy=p.lazy, window=window,
+                    custom_tables=p.custom_tables, device_literals=lits)
+        elif self.device_entropy:
+            def run(blocks, lengths):
+                return match_pipeline.find_matches_with_seqsec(
+                    blocks, lengths, neighbors=p.neighbors,
+                    max_seq=self.max_seq, lazy=p.lazy, stride=p.stride,
+                    window=window, custom_tables=p.custom_tables,
+                    device_literals=lits)
+        elif p.matcher == "hash":
+            def run(blocks, lengths):
+                return match_pipeline.find_matches_positions(
+                    blocks, lengths, widths=p.widths,
+                    neighbors=p.neighbors, window=window, ldm=p.ldm,
+                    ldm_max_off=1 << wlog, dense=p.dense, sync=p.sync)
+        else:
+            def run(blocks, lengths):
+                return match_pipeline.find_matches_packed(
+                    blocks, lengths, neighbors=p.neighbors,
+                    max_seq=self.max_seq, lazy=p.lazy, stride=p.stride,
+                    window=window, ldm=p.ldm, ldm_max_off=1 << wlog)
+        return run
 
     def submit_batch(self, blocks_np: np.ndarray, lengths_np: np.ndarray):
         """Copy one batch (b <= self.batch, zero-padded to self.batch as in
@@ -243,16 +282,24 @@ class GpuCodec:
         self.device_blocks += b
         if self.device_entropy:
             return self._collect_sections(b, lengths, result)
-        if self.params.matcher == "hash":
-            words = result.cpu().numpy().view(np.uint32)
-            per_block = match_pipeline.unpack_segments(words, self.batch,
-                                                       self.params.window)
-            return [(device_positions_to_claims(p, o, lengths[i]), None)
-                    for i, (p, o) in enumerate(per_block[:b])]
-        out = match_pipeline.unpack_outputs(result.cpu().numpy())
-        seqs = [device_outputs_to_sequences(out, i) for i in range(b)]
+        seqs = self.host_sequences(result, lengths)[:b]
         self.overflow_blocks += sum(s is None for s in seqs)
         return [(s, None) for s in seqs]
+
+    def host_sequences(self, result, lengths: np.ndarray
+                       ) -> list[BlockSequences | None]:
+        """Each row of a host-entropy device output (rows of `lengths`
+        bytes) as sequences: claims at levels 1-4, coalesced sequences at
+        5-12, None for a row whose device output overflowed."""
+        if self.params.matcher == "hash":
+            words = result.cpu().numpy().view(np.uint32)
+            per_block = match_pipeline.unpack_segments(
+                words, len(lengths), self.params.window)
+            return [device_positions_to_claims(p, o, lengths[i])
+                    for i, (p, o) in enumerate(per_block)]
+        out = match_pipeline.unpack_outputs(result.cpu().numpy())
+        return [device_outputs_to_sequences(out, i)
+                for i in range(len(lengths))]
 
     def _collect_sections(self, b: int, lengths: np.ndarray, result):
         packed, words, bits, sec_over, plan, lits = result
@@ -304,7 +351,9 @@ class GpuCodec:
                 self.collect_batch(self.submit_batch(blocks_np, lengths_np))]
 
     def compress(self, data: bytes | np.ndarray,
-                 checksum: bool = True) -> bytes:
+                 checksum: bool | None = None) -> bytes:
+        if checksum is None:
+            checksum = self.checksum_default
         buf = np.frombuffer(data, dtype=np.uint8) if not isinstance(
             data, np.ndarray) else np.ascontiguousarray(data, np.uint8)
         bodies = self.compress_bodies(buf)
@@ -323,7 +372,9 @@ class GpuCodec:
         or, for seqs None (the tail block, an overflowed block), the host
         matcher; then the entropy coder. None => raw. Block 0 starts the
         frame's repeat-offset history unless frame_start is False (a
-        stream's later chunks)."""
+        stream's later chunks). With the config's second_parse, a deep
+        level skips the selector and keeps the smaller of that body and
+        the host chain parse's."""
         n = len(buf)
         bs = self.block_size
         gp = self.host
@@ -346,8 +397,10 @@ class GpuCodec:
             return native.block_body_external_seqsec(
                 blk, seqs.lit_lengths, seqs.match_lengths,
                 seqs.last_literals, seq_sec, self.params.huffman)
+        second = self.level >= 5 and config.get().second_parse
         deep_hinted = False
-        if seqs is not None and seqs.nseq and self.level >= 5:
+        if seqs is not None and seqs.nseq and self.level >= 5 \
+                and not second:
             share = float(seqs.lit_lengths.sum()
                           + seqs.last_literals) / len(blk)
             deep_hinted = deep_parse_pick(self.level, share, ctx_find, bs)
@@ -371,18 +424,36 @@ class GpuCodec:
                 ctx_len=ctx_find,
                 chain_depth=max(gp.chain_depth, 8 if fast else 16),
                 mml=gp.mml, min_gap=4, relaxed=fast))
+
+        def host_parse() -> BlockSequences:
+            return BlockSequences(*native.find_sequences(
+                cblk[ctx - ctx_find:], gp.chain_depth, gp.lazy,
+                ctx_len=ctx_find, mml=gp.mml))
+
+        def body_of(s: BlockSequences) -> bytes | None:
+            return native.block_body(
+                blk, s.lit_lengths, s.offsets, s.match_lengths,
+                s.last_literals, self.params.custom_tables
+                and gp.custom_tables, self.params.huffman,
+                first_block=frame_start and i == 0)
+
         if seqs is None:
             try:
-                seqs = BlockSequences(*native.find_sequences(
-                    cblk[ctx - ctx_find:], gp.chain_depth, gp.lazy,
-                    ctx_len=ctx_find, mml=gp.mml))
+                return body_of(host_parse())
             except OverflowError:
                 return None
-        return native.block_body(
-            blk, seqs.lit_lengths, seqs.offsets, seqs.match_lengths,
-            seqs.last_literals, self.params.custom_tables
-            and gp.custom_tables, self.params.huffman,
-            first_block=frame_start and i == 0)
+        body = body_of(seqs)
+        if second:
+            # The best-of-two (QZ_SECOND_PARSE=1, tpu_codec's opt-in): the
+            # host chain parse as well, the smaller body kept; its
+            # overflow keeps the first.
+            try:
+                alt = body_of(host_parse())
+            except OverflowError:
+                return body
+            if alt is not None and (body is None or len(alt) < len(body)):
+                return alt
+        return body
 
     def compress_bodies(self, buf: np.ndarray,
                         frame_start: bool = True) -> list[bytes | None]:

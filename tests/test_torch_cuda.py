@@ -208,6 +208,29 @@ def test_frames_card_vs_cpu(cuda):
         compress(data, batch=4, device="cpu")
 
 
+@pytest.mark.parametrize("level", [1, 4, 9])
+def test_compress_mesh_card_vs_cpu(cuda, level):
+    """compress_mesh in a world of one: the card's frame equals the CPU's,
+    cut into one-span device calls too, and the level's kernels ran."""
+    from qat_zstd_plugin_tpu_torch.parallel import pipeline
+    data = _blocks(B=8, seed=2).tobytes() + b"tail" * 1000
+    want = pipeline.compress_mesh(data, level=level, device="cpu")
+    tk.reset_launches()
+    assert pipeline.compress_mesh(data, level=level, device="cuda") == want
+    assert tk.launches["neighbor_unsort_keys"] > 0
+    assert pipeline._compress_mesh(data, None, level, True, 16384, N,
+                                   "cuda", 1) == want
+
+
+def test_sharded_positions_step_card_vs_cpu(cuda):
+    from qat_zstd_plugin_tpu_torch.parallel import mesh
+    blocks = _blocks()
+    m = mesh.make_mesh()
+    got = mesh.sharded_positions_step(m)(blocks, LENGTHS).cpu()
+    want = mesh.sharded_positions_step(m, device="cpu")(blocks, LENGTHS)
+    assert torch.equal(got, want)
+
+
 def test_hash_keys_and_winmin(cuda):
     x = torch.from_numpy(_blocks()).to(cuda)
     for width in (4, 5, 6, 8):

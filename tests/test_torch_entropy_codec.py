@@ -23,6 +23,7 @@ from qat_zstd_plugin_tpu import oracle
 from qat_zstd_plugin_tpu.runtime.tpu_codec import TpuCodec
 from qat_zstd_plugin_tpu_torch import GpuCodec, compress
 from qat_zstd_plugin_tpu_torch.corpus import make_corpus
+from qat_zstd_plugin_tpu_torch.utils import config
 
 torch.set_num_threads(2)  # six test workers share a few cores
 
@@ -74,9 +75,15 @@ def test_compress_entry_point_hybrid():
 
 
 @pytest.mark.parametrize("value", ["bogus", 2, "Hybrid", None])
-def test_bad_device_entropy_raises(value):
-    with pytest.raises(ValueError, match="device_entropy"):
-        GpuCodec(level=1, device="cpu", device_entropy=value)
+def test_bad_device_entropy_raises(value, monkeypatch):
+    """None takes QZ_DEVICE_ENTROPY's value, here a bad one too."""
+    monkeypatch.setenv("QZ_DEVICE_ENTROPY", "bogus")
+    config.set(None)
+    try:
+        with pytest.raises(ValueError, match="device_entropy"):
+            GpuCodec(level=1, device="cpu", device_entropy=value)
+    finally:
+        config.set(None)
 
 
 @pytest.mark.parametrize("value", [False, 0, "hybrid"])

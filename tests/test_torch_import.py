@@ -43,6 +43,8 @@ from qat_zstd_plugin_tpu_torch.runtime import (device, gpu_codec, levels,
 from qat_zstd_plugin_tpu_torch import (corpus, format, fse_format,
                                        huffman_format, native, oracle,
                                        profile_l1)
+from qat_zstd_plugin_tpu_torch.parallel import distributed, mesh, pipeline
+from qat_zstd_plugin_tpu_torch.utils import config
 assert qzt.GpuCodec is gpu_codec.GpuCodec
 assert 'jax' not in sys.modules
 assert 'qat_zstd_plugin_tpu' not in sys.modules
@@ -76,6 +78,23 @@ assert qzt.decompress(frame, len(data)) == data
 sc = qzt.StreamCompressor(level=1, batch=2, device='cpu')
 frame = sc.compress(data) + sc.finish()
 assert qzt.decompress(frame, len(data)) == data
+assert 'jax' not in sys.modules
+assert not any(m.split('.')[0] == 'qat_zstd_plugin_tpu' for m in sys.modules)
+print('ok')
+""",
+    "mesh": """
+import numpy as np
+import qat_zstd_plugin_tpu_torch as qzt
+from qat_zstd_plugin_tpu_torch.parallel import mesh, pipeline
+rng = np.random.default_rng(0)
+data = (rng.integers(0, 8, 16384 * 5 + 999, np.uint8)).tobytes()
+for level in (1, 9):
+    frame = pipeline.compress_mesh(data, level=level, block_size=16384,
+                                   device='cpu')
+    assert qzt.decompress(frame, len(data)) == data
+fn = mesh.sharded_positions_step(mesh.make_mesh(), window=16384,
+                                 device='cpu')
+assert fn(np.zeros((4, 16384), np.uint8), np.zeros(4, np.int32)).shape[0] == 4
 assert 'jax' not in sys.modules
 assert not any(m.split('.')[0] == 'qat_zstd_plugin_tpu' for m in sys.modules)
 print('ok')

@@ -6,9 +6,9 @@ the C++ runtime's source, both level tables field by field, the version,
 frame assembly, the content checksum, the FSE pieces the hybrid
 sequence sections need (the code tables, the encode tables, the table
 descriptions, the nbSeq header and the closing of the backward stream),
-and the Huffman pieces the full-mode literals sections need (the tree
+the Huffman pieces the full-mode literals sections need (the tree
 description, the weights' FSE compression and normalization, the literals
-header).
+header), and the process defaults (utils/config.py).
 """
 
 import dataclasses
@@ -27,6 +27,7 @@ from qat_zstd_plugin_tpu.format import (bitstream, frame, fse, huffman,
 from qat_zstd_plugin_tpu.golden import codec as golden_codec
 from qat_zstd_plugin_tpu.ops import bitpack as jax_bitpack
 from qat_zstd_plugin_tpu.runtime import tpu_codec
+from qat_zstd_plugin_tpu.utils import config as jax_config
 from qat_zstd_plugin_tpu.utils import profiling
 import qat_zstd_plugin_tpu_torch as qzt
 from qat_zstd_plugin_tpu_torch import format as tformat
@@ -34,6 +35,7 @@ from qat_zstd_plugin_tpu_torch import (fse_format, huffman_format, native,
                                        oracle)
 from qat_zstd_plugin_tpu_torch.ops import bitpack
 from qat_zstd_plugin_tpu_torch.runtime import gpu_codec, levels, stats
+from qat_zstd_plugin_tpu_torch.utils import config
 
 torch.set_num_threads(2)  # six test workers share a few cores
 
@@ -330,3 +332,20 @@ def test_oracle_producer_abi_copy():
     assert oracle.version() == jax_oracle.version()
     data = bytes(range(256)) * 64
     assert oracle.compress(data, 3) == jax_oracle.compress(data, 3)
+
+
+def test_config_defaults_equal_field_by_field(monkeypatch):
+    """utils/config.py's Config: every field, in order, with its default,
+    and from_env's parse rules (a bad integer keeps the default)."""
+    mine = dataclasses.fields(config.Config)
+    ref = dataclasses.fields(jax_config.Config)
+    assert [(f.name, f.type, f.default) for f in mine] == \
+        [(f.name, f.type, f.default) for f in ref]
+    for name in ("QZ_BATCH", "QZ_BLOCK_SIZE", "QZ_MAX_SEQ", "QZ_CHECKSUM",
+                 "QZ_DEBUG_LEVEL", "QZ_SECOND_PARSE"):
+        for value in ("7", "0", "-1", "x", ""):
+            monkeypatch.setenv(name, value)
+            assert config._env_int(name, 5) == jax_config._env_int(name, 5)
+        monkeypatch.delenv(name)
+    assert dataclasses.asdict(config.Config.from_env()) == \
+        dataclasses.asdict(jax_config.Config.from_env())
