@@ -8,8 +8,9 @@ Huffman literals sections too), drives the reference's deployment shape
 (stock libzstd calling the port's sequence producer once a block, one-shot
 and streaming, and the port's StreamCompressor), drives the block-parallel
 scale-out (parallel.pipeline.compress_mesh) in an NCCL world of one and
-with two gloo ranks sharing the card, and checks every frame with stock
-libzstd.
+with two gloo ranks sharing the card, runs the tools (the benchmark in
+its four modes, with threads and processes, the CLI and the profiler
+trace) on the card, and checks every frame with stock libzstd.
 
     python3 chip_smoke.py [--seed S] [--mb 64]
 
@@ -143,7 +144,36 @@ Run from the repository root on a machine with one CUDA device. Phases
      every rank. Each run prints its ratio and MB/s beside phase 4's
      GpuCodec.compress at its batch. Two ranks on one card measure the
      orchestration (the split, the context spans, the gather), not
-     scaling: NCCL across cards is not exercised on one card.
+     scaling: NCCL across cards is not exercised on one card;
+  8. tools on the card: the 32 MiB corpus plus the tail written to a
+     temporary file, the tools run in this process (tools.benchmark.run,
+     tools.cli.run), the launch counts reset just before and read just
+     after each run: the benchmark (reference test/benchmark.c) in mode
+     1 at level 1 with 1 MiB chunks and batch 8 on one thread and on two
+     (two GpuCodecs from two host threads on the card), at level 4 with
+     2 MiB chunks and batch 16 (one whole LDM span), at level 1 with
+     the tool's default 128 KiB chunks (one block a chunk), in modes 0
+     (SoftwareCodec) and 2 (stock libzstd) at level 1, where no kernel
+     may launch, and in mode 3 (libzstd with the port's producer) at
+     level 1 on the first 8 MiB in 1 MiB chunks and on the whole file in
+     128 KiB chunks; then -P 2 in mode 1 at level 1 on the first 16 MiB
+     (two child processes sharing the card, their launches their own);
+     each run must return 0 with every thread and process PASS, and
+     prints its aggregate MB/s, ratio, avg and P50/P99 chunk latency (a
+     percentile in the histogram's top bucket, 16469 us, is named as
+     such, not printed: a 1 MiB device chunk outlasts it) and decompress
+     MB/s. The CLI's roundtrip at level 9 (B9, B10) and at
+     level 1 with full device entropy (B11-B16), and its compress at
+     level 1, whose file must equal GpuCodec(level=1).compress(data);
+     each run's kernels must have launched. Last, utils.profiling.trace
+     around compress(8 MiB, level=1, batch=64, device="cuda"), around
+     compress_via_libzstd(8 MiB, level=1, device="cuda") and around
+     phase 4's L1 cell, compress(--mb corpus, level=1, batch=128), each
+     after a warm-up of the same call: the traces must name K1-K4's CUDA
+     functions (K1, K2 and K4 for the producer, batch 1: no LDM), and the
+     kernels' count, summed time, the traced window and the union of
+     their intervals as a share of it (the card's busy share of the
+     call) are printed.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -154,6 +184,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import io
 import json
 import math
 import multiprocessing
@@ -202,6 +234,20 @@ FEED_CHUNK = 1 << 20  # StreamCompressor's chunks
 MESH_LEVELS = (1, 4, 9)
 MESH_RANKS = 2
 MESH_TIMEOUT_S = 600
+# Phase 8: the tools on the DENSE_MB corpus: 1 MiB chunks (8 blocks, one
+# batch of 8); level 4 at 2 MiB chunks and batch 16, one whole LDM span
+# (at batch 8 level 4 runs without LDM, so without B6 and K3); modes 1
+# and 3 again at the tool's default 128 KiB chunks (one block, as the
+# producer route times it), whose latency fits the histogram (a 1 MiB
+# device chunk outlasts its top bucket); -m 3 on the first TOOLS_MB3
+# MiB, -P on the first TOOLS_MBP; the traces around one compress of
+# TRACE_MB MiB at batch TRACE_BATCH and around phase 4's L1 cell.
+TOOLS_CHUNK_KB, TOOLS_BATCH, TOOLS_BLOCK_KB = 1024, 8, 128
+TOOLS_MB3, TOOLS_MBP, TOOLS_PROCESSES = 8, 16, 2
+TRACE_MB, TRACE_BATCH = 8, 64
+# The CUDA functions of K1-K4 (csrc/l1_kernels.cu), as a trace names them.
+L1_FUNCTIONS = ("hash_keys_winmin_sync_kernel", "neighbor_unsort_keys_kernel",
+                "ldm_keys_kernel", "compact_slots_sync_kernel")
 # Each CUDA kernel: its source and the Pallas kernel it replaces.
 KERNELS = {
     "hash_keys_winmin_sync": (L1_SRC, f"{REF}:192"),
@@ -1758,6 +1804,250 @@ def mesh_phase(torch, qzt, tk, oracle, root: str, args, corpus: bytes,
     return launches
 
 
+def _tool_run(tk, tool, argv: list, launches: dict, wants=(),
+              none=False) -> tuple[str, float, dict]:
+    """Phase 8, one in-process tool run (tool.run(argv)) with the launch
+    counts reset just before and read just after, added to `launches`;
+    its standard output captured. Raises unless it returns 0 and each of
+    `wants` launched (no kernel at all with `none`). Returns (output,
+    seconds, the run's launch counts)."""
+    out = io.StringIO()
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = tool.run(argv)
+    seconds = time.perf_counter() - t0
+    counts = dict(tk.launches)
+    text = out.getvalue()
+    what = " ".join([tool.__name__.split(".")[-1]] + argv[1:])
+    if rc != 0:
+        raise AssertionError(f"{what}: returned {rc}:\n{text}")
+    missing = [k for k in wants if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels never launched: {missing}")
+    if none and any(counts.values()):
+        raise AssertionError(f"{what}: launched kernels {counts}")
+    for k, n in counts.items():
+        launches[k] += n
+    return text, seconds, counts
+
+
+def _bench_line(text: str, what: str) -> dict:
+    """A benchmark run's --json line, checked: ok, every thread PASS."""
+    threads = [ln for ln in text.splitlines() if ln.startswith("thread ")]
+    got = json.loads([ln for ln in text.splitlines()
+                      if ln.startswith("{")][-1])
+    if not got["ok"] or not threads or not all(
+            ln.rstrip().endswith("PASS") for ln in threads):
+        raise AssertionError(f"{what}: not every thread passed:\n{text}")
+    return got
+
+
+def _chunk_latency(got: dict, top: float) -> dict:
+    """A benchmark line's chunk latency: avg, and P50 and P99 where they
+    lie below the histogram's top bucket (`top` us); a percentile in
+    the top bucket only says "at least `top`", so it is named in
+    at_top_bucket instead of printed."""
+    lat = got["latency_us"]
+    fields = {"avg_us": lat["avg"], "top_bucket_us": top,
+              "at_top_bucket": [k for k in ("P50", "P99")
+                                if lat[k] >= top]}
+    for k in ("P50", "P99"):
+        fields[f"{k.lower()}_us"] = lat[k] if lat[k] < top else None
+    return fields
+
+
+def _busy(intervals: list) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def _spans(events: list) -> list:
+    return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            for e in events]
+
+
+def trace_run(torch, tk, oracle, trace_dir: str, what: str, run,
+              data: bytes, wants: tuple, functions: tuple,
+              launches: dict) -> None:
+    """Phase 8, utils.profiling.trace around one run(data) on the card
+    after a warm-up of the same call, the launch counts reset just before
+    and read just after (added to `launches`): each of `wants` must have
+    launched and the trace must name each of `functions` (CUDA function
+    names); prints the kernels' count, their summed duration, the traced
+    window (first event's start to last event's end) and the union of
+    the kernels' intervals (and of the kernels' and copies') as a share
+    of it: the card's busy share of the call."""
+    from qat_zstd_plugin_tpu_torch.utils import profiling
+    run(data)
+    torch.cuda.synchronize()
+    tk.reset_launches()
+    with profiling.trace(trace_dir, device="cuda") as path:
+        t0 = time.perf_counter()
+        frame = run(data)
+        seconds = time.perf_counter() - t0
+    counts = dict(tk.launches)
+    for k, n in counts.items():
+        launches[k] += n
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copies = [e for e in events if e.get("cat") in ("gpu_memcpy",
+                                                    "gpu_memset")]
+    spans = _spans(events)
+    window = max(e for _, e in spans) - min(s for s, _ in spans)
+    missing = [k for k in functions
+               if not any(k in e["name"] for e in kernels)]
+    if missing or any(counts[k] == 0 for k in wants):
+        raise AssertionError(f"trace {what}: {missing} missing from the "
+                             f"trace, or not launched ({counts})")
+    if oracle.decompress(frame, len(data)) != data:
+        raise AssertionError(f"trace {what}: libzstd decode differs")
+    phase("tool", tool="profiling.trace", path=what, input_bytes=len(data),
+          frame_bytes=len(frame), ratio=len(frame) / len(data),
+          seconds=seconds, e2e_mbs=len(data) / seconds / 1e6,
+          trace_bytes=os.path.getsize(path), kernels=len(kernels),
+          kernel_us=sum(float(e["dur"]) for e in kernels),
+          window_us=window,
+          kernel_busy_share=_busy(_spans(kernels)) / window,
+          busy_share=_busy(_spans(kernels + copies)) / window,
+          functions={k: sum(k in e["name"] for e in kernels)
+                     for k in functions},
+          launches={k: n for k, n in counts.items() if n})
+
+
+def tools_phase(torch, qzt, tk, oracle, data: bytes, cell: bytes,
+                card: str) -> dict:
+    """Phase 8: the port's tools on the card, on `data` (the DENSE_MB
+    corpus plus the tail) written to a temporary file, in this process
+    but for -P: the benchmark in modes 1 (levels 1 and 4, one and two
+    threads, 1 MiB chunks; level 1 at 128 KiB chunks), 0, 2 and 3 (1 MiB
+    and 128 KiB chunks), -P 2 in mode 1, the CLI's roundtrip at level 9
+    and at level 1 with full device entropy and its compress at level 1
+    (the file equal to GpuCodec(level=1)'s), then the trace around a
+    level-1 compress of TRACE_MB MiB, around compress_via_libzstd and
+    around phase 4's L1 cell (`cell`, at batch BATCH). Every run
+    must return 0 with every thread and process PASS; each run's kernels
+    must have launched (none in modes 0 and 2). Returns the launch counts
+    of the in-process runs."""
+    import tempfile
+    from qat_zstd_plugin_tpu_torch.tools import benchmark, cli
+    launches = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for mb, part in ((None, data), (TOOLS_MB3, data[:TOOLS_MB3 << 20]),
+                         (TOOLS_MBP, data[:TOOLS_MBP << 20])):
+            paths[mb] = os.path.join(tmp, f"corpus.{mb}.bin")
+            with open(paths[mb], "wb") as f:
+                f.write(part)
+        chunk = ["-c", str(TOOLS_CHUNK_KB), "--batch", str(TOOLS_BATCH)]
+        block = ["-c", str(TOOLS_BLOCK_KB), "--batch", str(TOOLS_BATCH)]
+        top = benchmark.Histogram().edges[-1]
+        bench_runs = (  # mode, level, threads, input, flags, kernels
+            (1, 1, 1, None, chunk, LEVEL_KERNELS[1]),
+            (1, 1, 2, None, chunk, LEVEL_KERNELS[1]),
+            (1, 4, 1, None, ["-c", str(2 * TOOLS_CHUNK_KB), "--batch",
+                             str(2 * TOOLS_BATCH)], LEVEL_KERNELS[4]),
+            (1, 1, 1, None, block, PRODUCER_KERNELS[1]),
+            (0, 1, 1, None, chunk, ()),
+            (2, 1, 1, None, chunk, ()),
+            (3, 1, 1, TOOLS_MB3, chunk, PRODUCER_KERNELS[1]),
+            (3, 1, 1, None, block, PRODUCER_KERNELS[1]))
+        for mode, level, threads, mb, flags, wants in bench_runs:
+            argv = [paths[mb], "-m", str(mode), "-l", str(level), "-t",
+                    str(threads), *flags, "--json"]
+            text, seconds, counts = _tool_run(tk, benchmark, argv, launches,
+                                              wants, none=not wants)
+            got = _bench_line(text, " ".join(argv[1:]))
+            phase("tool", tool="benchmark", argv=argv[1:],
+                  input_bytes=os.path.getsize(paths[mb]), seconds=seconds,
+                  aggregate_mbs=got["aggregate_mbs"], ratio=got["ratio"],
+                  **_chunk_latency(got, top), decomp_mbs=got["decomp_mbs"], threads=got["threads"],
+                  block_stats=got["block_stats"],
+                  launches={k: n for k, n in counts.items() if n})
+        # -P: each child process drives the card and counts its own
+        # launches; the parent sums the children's MB/s.
+        argv = [paths[TOOLS_MBP], "-P", str(TOOLS_PROCESSES), "-m", "1",
+                "-l", "1", *chunk]
+        text, seconds, _ = _tool_run(tk, benchmark, argv, launches,
+                                     none=True)
+        procs = [ln for ln in text.splitlines() if ln.startswith("process ")]
+        if len(procs) != TOOLS_PROCESSES or not all(
+                ln.endswith("PASS") for ln in procs):
+            raise AssertionError(f"benchmark -P: not every process "
+                                 f"passed:\n{text}")
+        agg = [ln for ln in text.splitlines()
+               if ln.startswith("aggregate compress:")][-1]
+        phase("tool", tool="benchmark", argv=argv[1:],
+              input_bytes=os.path.getsize(paths[TOOLS_MBP]),
+              seconds=seconds, aggregate_mbs=float(agg.split()[2]),
+              processes=[float(ln.split()[2]) for ln in procs],
+              note="ratio and latency stay in the children (the tool "
+                   "prints their MB/s only); launches in the children")
+        cli_runs = (  # argv, kernels
+            (["roundtrip", paths[None], "-l", "9"], LEVEL_KERNELS[9]),
+            (["roundtrip", paths[None], "-l", "1", "--device-entropy",
+              "full"], FULL_KERNELS[1]),
+            (["compress", paths[None], "-l", "1", "-o",
+              os.path.join(tmp, "cli.zst")], LEVEL_KERNELS[1]))
+        for argv, wants in cli_runs:
+            text, seconds, counts = _tool_run(tk, cli, argv, launches,
+                                              wants)
+            fields = {}
+            if argv[0] == "roundtrip":
+                if "round-trip: PASS" not in text:
+                    raise AssertionError(f"cli {argv}: {text}")
+                frame_bytes = int([ln for ln in text.splitlines() if
+                                   ln.startswith("compressed size:")][0]
+                                  .split()[2])
+            else:
+                with open(argv[-1], "rb") as f:
+                    frame = f.read()
+                want = qzt.GpuCodec(level=1, device="cuda").compress(data)
+                if frame != want:
+                    raise AssertionError("cli compress: the file differs "
+                                         "from GpuCodec(level=1)'s frame")
+                if oracle.decompress(frame, len(data)) != data:
+                    raise AssertionError("cli compress: libzstd decode "
+                                         "differs")
+                frame_bytes = len(frame)
+                fields["equal_gpu_codec"] = True
+            phase("tool", tool="cli", argv=argv[:1] + argv[2:],
+                  input_bytes=len(data), frame_bytes=frame_bytes,
+                  ratio=frame_bytes / len(data), seconds=seconds,
+                  call_mbs=len(data) / seconds / 1e6, **fields,
+                  launches={k: n for k, n in counts.items() if n})
+        traced = (  # what, run, input, kernels, their CUDA functions
+            (f"compress(level=1, batch={TRACE_BATCH})",
+             lambda x: qzt.compress(x, level=1, batch=TRACE_BATCH,
+                                    device="cuda"),
+             data[:TRACE_MB << 20], LEVEL_KERNELS[1], L1_FUNCTIONS),
+            ("compress_via_libzstd(level=1)",
+             lambda x: qzt.compress_via_libzstd(x, level=1, device="cuda"),
+             data[:TRACE_MB << 20], PRODUCER_KERNELS[1],
+             L1_FUNCTIONS[:2] + L1_FUNCTIONS[3:]),
+            (f"compress(level=1, batch={BATCH}), phase 4's L1 cell",
+             lambda x: qzt.compress(x, level=1, batch=BATCH, device="cuda"),
+             cell, LEVEL_KERNELS[1], L1_FUNCTIONS))
+        for what, run, x, wants, functions in traced:
+            trace_run(torch, tk, oracle, os.path.join(tmp, "trace"), what,
+                      run, x, wants, functions, launches)
+    phase("tools_note", card=card, note=(
+        "in-process tool runs; benchmark MB/s by the tool's own host clock "
+        f"(its timed loop); a chunk latency percentile in the top bucket "
+        f"(the reference's 200 x1.05 buckets end at {top:.2f} us) says "
+        "only that the chunk took at least that long: it is named in "
+        "at_top_bucket and printed as null, avg_us is exact; cli call_mbs "
+        "over the whole call (read, compress, decode or write)"))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1931,6 +2221,11 @@ def main() -> int:
     # ranks sharing the card.
     for k, n in mesh_phase(torch, qzt, tk, oracle, root, args, corpus,
                            dense_corpus, card, phase4_mbs).items():
+        launches[k] += n
+
+    # 8. The tools on the card.
+    for k, n in tools_phase(torch, qzt, tk, oracle, dense_corpus, corpus,
+                            card).items():
         launches[k] += n
 
     ref = [m for m in sys.modules

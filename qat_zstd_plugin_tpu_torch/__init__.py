@@ -22,7 +22,7 @@ qat_zstd_plugin_tpu.
         TpuCodec frame at the same level, batch size and device_entropy
         (False, "hybrid" or True/"full"), except where the reference's
         own faults corrupt its frame (ROADMAP.md §C)
-    decompress(frame)                       -> bytes (stock libzstd)
+    decompress(frame_bytes, expected_size=None)   -> bytes (stock libzstd)
 
 and the reference's deployment shape, a sequence producer that stock
 libzstd (>= 1.5.4) calls once a block, with the device half at batch 1:
@@ -63,10 +63,10 @@ import torch
 
 from . import native, oracle
 from .format import BLOCK_SIZE_MAX, BlockSequences
-from .oracle import decompress
 from .runtime.device import Status, start_device, status, stop_device
 from .runtime.gpu_codec import GpuCodec
 from .runtime.stream import StreamCompressor
+from .utils import logging
 
 __version__ = "0.5.0"
 
@@ -101,6 +101,15 @@ def compress(data: bytes | np.ndarray, level: int = 1,
     codec = GpuCodec(level=level, batch=batch, block_size=block_size,
                      device=device, device_entropy=device_entropy)
     return codec.compress(data, checksum=checksum)
+
+
+def decompress(frame_bytes: bytes, expected_size: int | None = None
+               ) -> bytes:
+    """Decode a zstd frame with stock libzstd (the reference's
+    decompress(), keyword names included). The port has no golden decoder
+    (by design), so without libzstd this raises oracle.ZstdOracleError
+    where the reference falls back to its Python decoder."""
+    return oracle.decompress(frame_bytes, expected_size)
 
 
 class SeqProdState:
@@ -179,6 +188,8 @@ def sequence_producer(state: SeqProdState, block: bytes | np.ndarray,
     except Exception as e:  # libzstd's C caller cannot take an exception
         state.errors += 1
         state.last_error = e
+        logging.error("sequence producer failed (%s: %s) on a %d-byte "
+                      "block", type(e).__name__, e, n)
         return SEQUENCE_PRODUCER_ERROR
     out = list(zip(seqs.offsets.tolist(), seqs.lit_lengths.tolist(),
                    seqs.match_lengths.tolist()))

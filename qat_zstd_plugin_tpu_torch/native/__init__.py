@@ -2,7 +2,8 @@
 
 Copy of qat_zstd_plugin_tpu.native, restricted to the entry points the
 port calls (xxh64, Xxh64Stream, block_body, block_body_external_seqsec,
-extend_sequences, fill_gaps, find_sequences, find_sequences_hinted).
+extend_sequences, fill_gaps, find_sequences, find_sequences_hinted, and
+compress_blocks_mt for the software codec of tools/).
 `qz_entropy.cc` here is a byte-for-byte copy of the JAX package's
 source; the differences are in the build:
 
@@ -62,6 +63,8 @@ _SIGNATURES = {  # name: (restype, argtypes)
     "qz_extend_sequences": (_S, (_P, _S, _S, _P, _P, _P, _S, _P, _S)),
     "qz_fill_gaps": (_S, (_P, _S, _S, _P, _P, _P, _S, _P, _S, _I, _I, _I,
                           _I)),
+    "qz_compress_blocks_mt": (None, (_P, _S, _S, _I, _I, _I, _I, _I, _I, _I,
+                                     _I, _P, _P)),
 }
 _FAIL = ctypes.c_size_t(-1).value
 
@@ -314,3 +317,29 @@ def find_sequences(block: np.ndarray, chain_depth: int, lazy: bool,
         raise OverflowError("sequence capacity exceeded")
     return (ll[:got].astype(np.int64), of[:got].astype(np.int64),
             ml[:got].astype(np.int64), int(lastlit.value))
+
+
+def compress_blocks_mt(buf: np.ndarray, block_size: int, chain_depth: int,
+                       lazy: bool, allow_custom: bool = True,
+                       try_huffman: bool = True, window_log: int = 0,
+                       mml: int = 4, nthreads: int = 0,
+                       frame_start: bool = True) -> list[bytes | None]:
+    """Match + extend + entropy for every block of `buf` in one native
+    call with an internal thread pool (the software codec). None entries
+    => emit raw. window_log > 0 enables cross-block window context
+    (offsets reach back up to 1 << window_log into earlier blocks' raw
+    bytes). The bodies do not depend on nthreads (0: one a CPU)."""
+    lib = load()
+    buf = np.ascontiguousarray(buf, np.uint8)
+    n = len(buf)
+    nblocks = max(1, -(-n // block_size))
+    if nthreads <= 0:
+        nthreads = os.cpu_count() or 1
+    arena = np.empty(nblocks * block_size, np.uint8)
+    sizes = np.zeros(nblocks, np.uint32)
+    lib.qz_compress_blocks_mt(
+        buf.ctypes.data, n, block_size, chain_depth, int(lazy), mml,
+        int(allow_custom), int(try_huffman), window_log, nthreads,
+        int(frame_start), arena.ctypes.data, sizes.ctypes.data)
+    return [arena[i * block_size:i * block_size + int(sz)].tobytes()
+            if sz else None for i, sz in enumerate(sizes)]

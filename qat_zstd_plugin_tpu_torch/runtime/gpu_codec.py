@@ -64,7 +64,7 @@ from ..format import BlockSequences, assemble_frame
 from ..ops import match_pipeline
 from ..ops.bitpack import backward_stream_bytes
 from ..ops.literals_kernel import device_literals_section
-from ..utils import config
+from ..utils import config, logging
 from .levels import TPU_LEVEL_TABLE, level_params
 from .stats import BlockStats, Timer
 
@@ -150,6 +150,11 @@ def device_sequence_section(nseq: int, words: np.ndarray, bits: int,
                     [int(x) for x in plan[f"norm_{kind}"][i]], al)
     return (fse_format.nbseq_header(nseq) + bytes([mode]) + desc
             + backward_stream_bytes(words, bits))
+
+
+def _batch_failed(e: Exception, where: str, nblocks: int) -> None:
+    logging.error("device batch failed (%s) at %s; %d blocks, no CPU "
+                  "re-match: raising", type(e).__name__, where, nblocks)
 
 
 def entropy_mode(device_entropy) -> str | bool:
@@ -462,8 +467,9 @@ class GpuCodec:
 
         The full blocks go to the device in batches, QUEUE_DEPTH batches
         in flight while earlier ones are collected and finished on a host
-        thread pool, and a device error is raised where it happens. The
-        short tail block is matched on the host."""
+        thread pool, and a device error is logged (utils/logging, level
+        1, where TpuCodec logs its CPU fallback) and raised where it
+        happens. The short tail block is matched on the host."""
         buf = np.ascontiguousarray(buf, np.uint8)
         n = len(buf)
         bs = self.block_size
@@ -484,7 +490,12 @@ class GpuCodec:
 
             def collect_one() -> None:
                 ids, handle = inflight.pop(0)
-                for i, (sq, sec) in zip(ids, self.collect_batch(handle)):
+                try:
+                    got = self.collect_batch(handle)
+                except Exception as e:
+                    _batch_failed(e, "collect", len(ids))
+                    raise
+                for i, (sq, sec) in zip(ids, got):
                     futures[i] = pool.submit(finish_block, i, sq, sec)
 
             for s in range(0, nfull, self.batch):
@@ -492,8 +503,12 @@ class GpuCodec:
                 blocks_np = buf[s * bs:ids.stop * bs] \
                     .reshape(len(ids), bs).copy()
                 lengths_np = np.full(len(ids), bs, np.int32)
-                inflight.append((ids, self.submit_batch(blocks_np,
-                                                        lengths_np)))
+                try:
+                    handle = self.submit_batch(blocks_np, lengths_np)
+                except Exception as e:
+                    _batch_failed(e, "submit", len(ids))
+                    raise
+                inflight.append((ids, handle))
                 if len(inflight) >= QUEUE_DEPTH:
                     collect_one()
             for i in range(nfull, nblocks):  # the short tail block

@@ -6,6 +6,8 @@ Marked `cuda`: on a machine without a CUDA device every test here skips
 these checks at the main path's full shapes.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -817,3 +819,43 @@ def test_compress_via_libzstd_card_vs_cpu(cuda):
     assert qzt.oracle.last_producer_stats() == {"blocks": 4, "errors": 0}
     assert got == qzt.compress_via_libzstd(data, level=1, device="cpu")
     assert qzt.decompress(got, len(data)) == data
+
+
+def test_benchmark_two_threads_on_the_card(cuda, tmp_path, capsys):
+    """Two GpuCodecs from two host threads on the one card (benchmark -t 2
+    -m 1): every thread PASS, K1-K4 launched, and the ratio of the card's
+    frames equals the CPU twins' (-t 1 --device cpu)."""
+    from qat_zstd_plugin_tpu_torch.tools import benchmark
+    path = tmp_path / "in.bin"
+    path.write_bytes(make_corpus(16 * N + 777, 3))
+    argv = [str(path), "-m", "1", "-c", "1024", "--batch", "8", "--json"]
+    tk.reset_launches()
+    assert benchmark.run(argv + ["-t", "2"]) == 0
+    launches = dict(tk.launches)
+    out = capsys.readouterr().out.splitlines()
+    threads = [ln for ln in out if ln.startswith("thread ")]
+    assert len(threads) == 2 and all(ln.endswith("PASS") for ln in threads)
+    for k in ("hash_keys_winmin_sync", "neighbor_unsort_keys", "ldm_keys",
+              "compact_slots_sync"):
+        assert launches[k] > 0, k
+    got = json.loads([ln for ln in out if ln.startswith("{")][-1])
+    assert benchmark.run(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    want = json.loads([ln for ln in out if ln.startswith("{")][-1])
+    assert got["ok"] and got["ratio"] == want["ratio"]
+
+
+def test_trace_names_the_l1_kernels(cuda, tmp_path):
+    """utils.profiling.trace on the card records the kernels launched
+    through ctypes: the trace names K1-K4's CUDA functions."""
+    from qat_zstd_plugin_tpu_torch.utils import profiling
+    data = make_corpus(8 * N + 777, 5)
+    with profiling.trace(str(tmp_path)) as path:
+        frame = compress(data, level=1, batch=8, device="cuda")
+    assert qzt.decompress(frame, len(data)) == data
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    for k in ("hash_keys_winmin_sync_kernel", "neighbor_unsort_keys_kernel",
+              "ldm_keys_kernel", "compact_slots_sync_kernel"):
+        assert any(k in n for n in names), k

@@ -44,7 +44,10 @@ from qat_zstd_plugin_tpu_torch import (corpus, format, fse_format,
                                        huffman_format, native, oracle,
                                        profile_l1)
 from qat_zstd_plugin_tpu_torch.parallel import distributed, mesh, pipeline
-from qat_zstd_plugin_tpu_torch.utils import config
+from qat_zstd_plugin_tpu_torch.runtime import soft_codec
+from qat_zstd_plugin_tpu_torch.tools import benchmark, cli
+from qat_zstd_plugin_tpu_torch.utils import (config, corpora, logging,
+                                             profiling)
 assert qzt.GpuCodec is gpu_codec.GpuCodec
 assert 'jax' not in sys.modules
 assert 'qat_zstd_plugin_tpu' not in sys.modules
@@ -95,6 +98,27 @@ for level in (1, 9):
 fn = mesh.sharded_positions_step(mesh.make_mesh(), window=16384,
                                  device='cpu')
 assert fn(np.zeros((4, 16384), np.uint8), np.zeros(4, np.int32)).shape[0] == 4
+assert 'jax' not in sys.modules
+assert not any(m.split('.')[0] == 'qat_zstd_plugin_tpu' for m in sys.modules)
+print('ok')
+""",
+    "tools": """
+import os, tempfile
+from qat_zstd_plugin_tpu_torch.corpus import make_corpus
+from qat_zstd_plugin_tpu_torch.tools import benchmark, cli
+data = make_corpus(131072 * 2 + 999, 0)
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, 'in.bin')
+    with open(path, 'wb') as f:
+        f.write(data)
+    assert benchmark.run([path, '-m', '2', '--json']) == 0
+    assert benchmark.run([path, '-m', '1', '--device', 'cpu', '--batch',
+                          '2', '--json']) == 0
+    assert cli.run(['roundtrip', path, '--device', 'cpu']) == 0
+    assert cli.run(['compress', path, '--cpu']) == 0
+    assert cli.run(['decompress', path + '.zst', '-o', path + '.out']) == 0
+    with open(path + '.out', 'rb') as f:
+        assert f.read() == data
 assert 'jax' not in sys.modules
 assert not any(m.split('.')[0] == 'qat_zstd_plugin_tpu' for m in sys.modules)
 print('ok')
