@@ -10,7 +10,10 @@ and streaming, and the port's StreamCompressor), drives the block-parallel
 scale-out (parallel.pipeline.compress_mesh) in an NCCL world of one and
 with two gloo ranks sharing the card, runs the tools (the benchmark in
 its four modes, with threads and processes, the CLI and the profiler
-trace) on the card, and checks every frame with stock libzstd.
+trace) on the card, holds the port to its robustness surface there
+(adversarial inputs at every level against the CPU twins, wrong device
+claims, validate, one codec shared by threads, a first build by two
+processes), and checks every frame with stock libzstd.
 
     python3 chip_smoke.py [--seed S] [--mb 64]
 
@@ -173,7 +176,30 @@ Run from the repository root on a machine with one CUDA device. Phases
      functions (K1, K2 and K4 for the producer, batch 1: no LDM), and the
      kernels' count, summed time, the traced window and the union of
      their intervals as a share of it (the card's busy share of the
-     call) are printed.
+     call) are printed;
+  9. robustness on the card: tests/test_fuzz.py's eight adversarial
+     shapes (utils.corpora.adversarial) at 0, 1, 63, 64, 65, 16383,
+     16384, 131071, 131072, 131073 and 1 MiB + 5 bytes through
+     GpuCodec(device="cuda") at levels 1-12 with host entropy and at
+     levels 1, 4 and 9 with hybrid and full device entropy, at blocks of
+     16384 (batch 2) and 131072 (batch 8): every frame equals the same
+     codec's on device="cpu" (computed in spawned workers meanwhile),
+     decodes bit-exactly through stock libzstd, and no block falls back
+     to the CPU; wrong device claims (a third of the offsets replaced,
+     another third's lengths plus 7) at levels 1 and 9 still decode
+     exactly and compress(validate=True) refuses them, and on clean
+     input compress(validate=True) equals compress(); two processes
+     build csrc/ at once into an empty build root and exactly one runs
+     nvcc; one GpuCodec(level=1, batch=8) from 8 threads x 3 rounds on
+     the current stream and again with a torch.cuda.Stream a thread:
+     every frame equals the one-thread frame, stats.input_bytes and
+     device_blocks balance and each kernel's launches are exactly 24
+     times one call's, with the 8 threads' aggregate MB/s beside one
+     thread's; distinct codecs at levels 1, 2, 3, 5 and 9 from 8
+     threads and compress_via_libzstd from 4, each frame equal to its
+     one-thread frame; runtime/device.py's start and stop hammered from
+     8 threads. Every kernel a level reaches (all but B17-B19) must
+     launch in this phase.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -192,6 +218,7 @@ import multiprocessing
 import os
 import socket
 import sys
+import threading
 import time
 import traceback
 from queue import Empty
@@ -245,6 +272,22 @@ MESH_TIMEOUT_S = 600
 TOOLS_CHUNK_KB, TOOLS_BATCH, TOOLS_BLOCK_KB = 1024, 8, 128
 TOOLS_MB3, TOOLS_MBP, TOOLS_PROCESSES = 8, 16, 2
 TRACE_MB, TRACE_BATCH = 8, 64
+# Phase 9: tests/test_fuzz.py's eight shapes (utils.corpora.adversarial)
+# at these sizes through every level with host entropy and levels 1, 4
+# and 9 with hybrid and full device entropy, at blocks of 16384 (batch 2)
+# and 131072 (batch 8); wrong claims and validate at levels 1 and 9;
+# threads on one card (THREAD_MB MiB + TAIL a thread, the producer's and
+# the distinct codecs' threads 1 MiB + TAIL).
+FUZZ_SMALL = (0, 1, 63, 64, 65, 16383, 16384)
+FUZZ_LARGE = (131071, 131072, 131073, (1 << 20) + 5)
+FUZZ_CODECS = tuple((lv, False) for lv in range(1, 13)) + tuple(
+    (lv, e) for e in ("hybrid", True) for lv in (1, 4, 9))
+FUZZ_BLOCKS = ((16384, 2), (BLOCK, 8))
+FUZZ_WORKERS = 3
+VALIDATE_LEVELS = (1, 9)
+THREADS, ROUNDS, THREAD_MB = 8, 3, 2
+DISTINCT_LEVELS = (1, 2, 3, 5, 9)
+PRODUCER_THREADS = 4
 # The CUDA functions of K1-K4 (csrc/l1_kernels.cu), as a trace names them.
 L1_FUNCTIONS = ("hash_keys_winmin_sync_kernel", "neighbor_unsort_keys_kernel",
                 "ldm_keys_kernel", "compact_slots_sync_kernel")
@@ -292,6 +335,9 @@ HYBRID_KERNELS = {
 # With full device entropy: the hybrid kernels and the literals' two.
 FULL_KERNELS = {level: kernels + ("literal_keys", "byte_hist")
                 for level, kernels in HYBRID_KERNELS.items()}
+# Phase 9's: every kernel a level reaches; B17-B19 stay on phase 3's paths.
+ROBUST_KERNELS = tuple(k for k in KERNELS if k not in (
+    "compact_slots", "compact_operands", "bitonic_sort"))
 
 
 _T0 = time.perf_counter()
@@ -2048,6 +2094,396 @@ def tools_phase(torch, qzt, tk, oracle, data: bytes, cell: bytes,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: robustness on the card
+# ---------------------------------------------------------------------------
+
+def _fuzz_worker_init() -> None:
+    """Each phase 9 CPU worker takes two of the host's cores."""
+    import torch
+    torch.set_num_threads(2)
+
+
+def fuzz_cases(seed: int) -> list:
+    """Phase 9's fuzz inputs: (level, device_entropy, block, batch, kind,
+    data). Each FUZZ_CODECS codec at each FUZZ_BLOCKS block size takes a
+    short input (FUZZ_SMALL, no full block at 131072) and two long ones
+    (FUZZ_LARGE; at 131072 ones with a full block), the eight shapes of
+    utils.corpora.adversarial in turn."""
+    from qat_zstd_plugin_tpu_torch.utils.corpora import adversarial
+    cases = []
+    c = 0
+    for block, batch in FUZZ_BLOCKS:
+        large = FUZZ_LARGE[:3] if block < BLOCK else FUZZ_LARGE[1:]
+        for level, entropy in FUZZ_CODECS:
+            for j, n in enumerate((FUZZ_SMALL[c % len(FUZZ_SMALL)],
+                                   large[c % len(large)],
+                                   large[(c + 1) % len(large)])):
+                kind = (3 * c + j + c // 4) % 8
+                rng = np.random.default_rng((seed, c, j))
+                cases.append((level, entropy, block, batch, kind,
+                              adversarial(rng, (n,), kind)))
+            c += 1
+    return cases
+
+
+def cpu_fuzz_frame(level: int, entropy, block: int, batch: int,
+                   data: bytes) -> bytes:
+    """The CPU side of a phase 9 fuzz case, in a worker process."""
+    import qat_zstd_plugin_tpu_torch as qzt
+    return qzt.GpuCodec(level=level, batch=batch, block_size=block,
+                        device="cpu", device_entropy=entropy).compress(data)
+
+
+def fuzz_on_card(torch, qzt, tk, oracle, cases: list, launches: dict
+                 ) -> list:
+    """Phase 9 (a), the card's side: each case's frame from
+    GpuCodec(device="cuda"), one codec per configuration, the launch
+    counts reset just before and read just after each call (added to
+    `launches`). Every frame decodes bit-exactly through stock libzstd,
+    every full block went through the device half, and none fell back to
+    the CPU. Returns the frames."""
+    from qat_zstd_plugin_tpu_torch.utils.corpora import FUZZ_KINDS
+    codecs, frames = {}, []
+    for level, entropy, block, batch, kind, data in cases:
+        key = (level, entropy, block, batch)
+        if key not in codecs:
+            codecs[key] = qzt.GpuCodec(level=level, batch=batch,
+                                       block_size=block, device="cuda",
+                                       device_entropy=entropy)
+        codec = codecs[key]
+        before = codec.device_blocks
+        tk.reset_launches()
+        frame = codec.compress(data)
+        for k, n in tk.launches.items():
+            launches[k] += n
+        what = (f"fuzz L{level} {entropy} block {block} "
+                f"{FUZZ_KINDS[kind]} {len(data)} bytes")
+        if oracle.decompress(frame, len(data)) != data:
+            raise AssertionError(f"{what}: libzstd decode differs")
+        if codec.device_blocks - before != len(data) // block:
+            raise AssertionError(f"{what}: {codec.device_blocks - before} "
+                                 "device blocks")
+        if codec.stats.fallback_blocks:
+            raise AssertionError(f"{what}: a block fell back to the CPU")
+        frames.append(frame)
+    return frames
+
+
+def corrupting(collect):
+    """collect_batch with wrong device claims, as tests/test_verify_mode.py
+    makes them: a third of each block's offsets replaced, another third's
+    lengths plus 7."""
+    from qat_zstd_plugin_tpu_torch.format import BlockSequences
+
+    def run(handle):
+        rng = np.random.default_rng(0)
+        out = []
+        for seqs, sec in collect(handle):
+            if seqs is None or seqs.nseq == 0:
+                out.append((seqs, sec))
+                continue
+            off = seqs.offsets.copy()
+            ml = seqs.match_lengths.copy()
+            k = len(off)
+            idx = rng.permutation(k)
+            off[idx[:k // 3]] = rng.integers(1, 30000, k // 3) \
+                .astype(off.dtype)
+            ml[idx[k // 3:2 * k // 3]] += 7
+            out.append((BlockSequences(seqs.lit_lengths, off, ml,
+                                       seqs.last_literals), sec))
+        return out
+    return run
+
+
+def wrong_claims(torch, qzt, tk, oracle, data: bytes, launches: dict
+                 ) -> None:
+    """Phase 9 (b): wrong device claims at levels 1 and 9 on the card must
+    still give frames that decode exactly, and compress(validate=True)
+    must refuse them (lengths plus 7 overrun the block, which the
+    extension pass leaves to the entropy coder's raw fallback); then
+    compress(validate=True) on the card equals compress() and decodes.
+    Launch counts added to `launches`."""
+    for level in VALIDATE_LEVELS:
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        codec = qzt.GpuCodec(level=level, batch=2, device="cuda")
+        codec.collect_batch = corrupting(codec.collect_batch)
+        frame = codec.compress(data)
+        if oracle.decompress(frame, len(data)) != data:
+            raise AssertionError(f"wrong claims L{level}: libzstd decode "
+                                 "differs")
+        try:
+            codec.compress(data, validate=True)
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError(f"wrong claims L{level}: validate=True "
+                                 "passed them")
+        clean = qzt.GpuCodec(level=level, batch=8, device="cuda")
+        checked = clean.compress(data, validate=True)
+        if checked != clean.compress(data):
+            raise AssertionError(f"L{level}: compress(validate=True) "
+                                 "differs from compress()")
+        if oracle.decompress(checked, len(data)) != data:
+            raise AssertionError(f"L{level} validate: libzstd decode "
+                                 "differs")
+        for k, n in tk.launches.items():
+            launches[k] += n
+        phase("robust", case="wrong device claims and validate",
+              level=level, input_bytes=len(data), decoded=True,
+              validate_refused_wrong_claims=True, validate_equal=True,
+              seconds=time.perf_counter() - t0)
+
+
+def build_race(repo: str, build_root: str, go, queue) -> None:
+    """Phase 9 (d), one of two spawned processes: _build.build() against
+    the empty `build_root`, started with the other at `go`; reports (the
+    library's path, this process's nvcc seconds or None)."""
+    sys.path.insert(0, repo)
+    from qat_zstd_plugin_tpu_torch.ops import _build
+    _build.BUILD_ROOT = build_root
+    go.wait(60)
+    path = _build.build()
+    queue.put((path, _build.build_seconds))
+
+
+def first_build_by_two(root: str) -> None:
+    """Phase 9 (d): two processes build csrc/ at once into a new build
+    root under build/: exactly one runs nvcc, and both get the same
+    library."""
+    import shutil
+    ctx = multiprocessing.get_context("spawn")
+    race = os.path.join(root, "build", f"phase9_build.{os.getpid()}")
+    shutil.rmtree(race, ignore_errors=True)
+    go, queue = ctx.Barrier(2), ctx.Queue()
+    procs = [ctx.Process(target=build_race, args=(root, race, go, queue))
+             for _ in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = []
+    try:
+        deadline = time.monotonic() + 300
+        while len(got) < len(procs) and time.monotonic() < deadline:
+            try:
+                got.append(queue.get(timeout=1))
+            except Empty:
+                if not all(p.is_alive() for p in procs) and queue.empty():
+                    break
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    shutil.rmtree(race, ignore_errors=True)
+    built = [s for _, s in got if s is not None]
+    same = len(got) == 2 and got[0][0] == got[1][0]
+    phase("robust", case="first build by two processes",
+          nvcc_runs=len(built), nvcc_s=built, same_library=same,
+          seconds=time.perf_counter() - t0)
+    if len(built) != 1 or not same or any(p.exitcode for p in procs):
+        raise AssertionError(f"first build by two processes: {got}, exit "
+                             f"codes {[p.exitcode for p in procs]}")
+
+
+def run_threads(fn, nthreads: int) -> float:
+    """fn(tid) in nthreads threads started at a barrier; re-raises the
+    first error; returns the wall seconds from the barrier to the last
+    join."""
+    barrier = threading.Barrier(nthreads + 1)
+    errors = []
+
+    def wrap(tid):
+        try:
+            barrier.wait(60)
+            fn(tid)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=wrap, args=(t,))
+               for t in range(nthreads)]
+    for t in threads:
+        t.start()
+    barrier.wait(60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(600)
+        if t.is_alive():
+            raise AssertionError("a thread did not finish")
+    if errors:
+        raise errors[0]
+    return time.perf_counter() - t0
+
+
+def shared_codec_threads(torch, qzt, tk, oracle, datas: list, card: str,
+                         launches: dict) -> None:
+    """Phase 9 (c): one GpuCodec(level=1, batch=8) on the card from
+    THREADS threads x ROUNDS rounds, each thread on datas[tid], without
+    and with a torch.cuda.Stream of its own: every frame equals the
+    one-thread frame, stats.input_bytes and device_blocks balance, and
+    each kernel's launch total is THREADS x ROUNDS times one call's (the
+    counts reset just before and read just after, added to `launches`).
+    Prints the aggregate MB/s of the threads beside one thread's."""
+    codec = qzt.GpuCodec(level=1, batch=8, device="cuda")
+    codec.compress(datas[0])  # warm-up
+    torch.cuda.synchronize()
+    tk.reset_launches()
+    codec.compress(datas[0])
+    one_call = dict(tk.launches)
+    t0 = time.perf_counter()
+    want = [codec.compress(d) for d in datas]
+    one_thread_mbs = sum(map(len, datas)) / (time.perf_counter() - t0) / 1e6
+    for f, d in zip(want, datas):
+        if oracle.decompress(f, len(d)) != d:
+            raise AssertionError("shared codec: libzstd decode differs")
+    for streams in (False, True):
+        got = [[None] * ROUNDS for _ in datas]
+        in0, dev0 = codec.stats.input_bytes, codec.device_blocks
+
+        def work(tid):
+            ctx = torch.cuda.stream(torch.cuda.Stream()) if streams \
+                else contextlib.nullcontext()
+            with ctx:
+                for r in range(ROUNDS):
+                    got[tid][r] = codec.compress(datas[tid])
+                torch.cuda.current_stream().synchronize()
+
+        tk.reset_launches()
+        seconds = run_threads(work, THREADS)
+        counts = dict(tk.launches)
+        for k, n in counts.items():
+            launches[k] += n
+        what = "per-thread streams" if streams else "the current stream"
+        if any(f != want[t] for t in range(THREADS) for f in got[t]):
+            raise AssertionError(f"shared codec, {what}: a frame differs "
+                                 "from the one-thread frame")
+        calls = THREADS * ROUNDS
+        nbytes = ROUNDS * sum(map(len, datas))
+        nblocks = ROUNDS * sum(len(d) // BLOCK for d in datas)
+        wrong = {k: (counts[k], calls * n) for k, n in one_call.items()
+                 if counts[k] != calls * n}
+        phase("robust", case=f"one GpuCodec(level=1, batch=8), {THREADS} "
+              f"threads x {ROUNDS} rounds, {what}", input_bytes=nbytes,
+              seconds=seconds, aggregate_mbs=nbytes / seconds / 1e6,
+              one_thread_mbs=one_thread_mbs, card=card,
+              stats_input_bytes=codec.stats.input_bytes - in0,
+              device_blocks=codec.device_blocks - dev0,
+              launches={k: n for k, n in counts.items() if n},
+              one_call_launches={k: n for k, n in one_call.items() if n})
+        if codec.stats.input_bytes - in0 != nbytes \
+                or codec.device_blocks - dev0 != nblocks:
+            raise AssertionError(f"shared codec, {what}: counters lost "
+                                 "updates")
+        if wrong or not one_call["compact_slots_sync"]:
+            raise AssertionError(f"shared codec, {what}: launch totals "
+                                 f"(got, want) {wrong}")
+
+
+def other_threads(torch, qzt, tk, oracle, datas: list, launches: dict
+                  ) -> None:
+    """Phase 9 (c), the rest: distinct codecs at DISTINCT_LEVELS from
+    THREADS threads, compress_via_libzstd(device="cuda") from
+    PRODUCER_THREADS threads, each frame equal to its one-thread frame
+    and decoded; then runtime/device.py's start and stop hammered from
+    THREADS threads (tests/test_concurrency.py's case), after which the
+    card is up and a compress decodes."""
+    from qat_zstd_plugin_tpu_torch.runtime import device
+    level_of = [DISTINCT_LEVELS[t % len(DISTINCT_LEVELS)]
+                for t in range(THREADS)]
+    runs = (("distinct codecs", THREADS, lambda t: qzt.GpuCodec(
+                level=level_of[t], batch=8, device="cuda").compress(
+                datas[t])),
+            ("compress_via_libzstd", PRODUCER_THREADS,
+             lambda t: qzt.compress_via_libzstd(datas[t], level=1,
+                                                device="cuda")))
+    for what, nthreads, call in runs:
+        want = [call(t) for t in range(nthreads)]
+        got = [None] * nthreads
+        tk.reset_launches()
+        seconds = run_threads(lambda t: got.__setitem__(t, call(t)),
+                              nthreads)
+        for k, n in tk.launches.items():
+            launches[k] += n
+        for t in range(nthreads):
+            if got[t] != want[t] or oracle.decompress(
+                    got[t], len(datas[t])) != datas[t]:
+                raise AssertionError(f"{what}, thread {t}: the frame "
+                                     "differs or does not decode")
+        phase("robust", case=f"{what} from {nthreads} threads",
+              levels=level_of[:nthreads] if what == "distinct codecs"
+              else [1], seconds=seconds, equal=True)
+
+    stop_barrier = threading.Barrier(THREADS)
+
+    def lifecycle(tid):
+        for _ in range(5):
+            device.start_device()
+        stop_barrier.wait(60)
+        if tid == 0:
+            device.stop_device()
+        device.start_device()
+
+    run_threads(lifecycle, THREADS)
+    status = device.start_device()
+    frame = qzt.GpuCodec(level=1, device="cuda").compress(datas[0])
+    if status != device.Status.OK or oracle.decompress(
+            frame, len(datas[0])) != datas[0]:
+        raise AssertionError(f"device lifecycle under threads: {status}")
+    phase("robust", case=f"device start and stop from {THREADS} threads",
+          status=status.name, devices=len(device.devices()))
+
+
+def robustness_phase(torch, qzt, tk, oracle, root: str, args,
+                     dense_corpus: bytes, card: str) -> dict:
+    """Phase 9: the fuzz inputs through every level on the card against
+    the same codecs on the CPU (computed in FUZZ_WORKERS spawned workers
+    while the card runs (a), (b) and (d)), wrong device claims and
+    validate, a first build by two processes, then threads on one card.
+    Every kernel a level reaches (all but B17-B19) must launch. Returns
+    the launch counts."""
+    from qat_zstd_plugin_tpu_torch.utils.corpora import FUZZ_KINDS
+    launches = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    cases = fuzz_cases(args.seed)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        FUZZ_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_fuzz_worker_init)
+    try:
+        want = [pool.submit(cpu_fuzz_frame, *c[:4], c[5]) for c in cases]
+        frames = fuzz_on_card(torch, qzt, tk, oracle, cases, launches)
+        card_s = time.perf_counter() - t0
+        wrong_claims(torch, qzt, tk, oracle,
+                     dense_corpus[:8 * BLOCK + TAIL], launches)
+        first_build_by_two(root)
+        for c, frame, w in zip(cases, frames, want):
+            if frame != w.result():
+                raise AssertionError(
+                    f"fuzz L{c[0]} {c[1]} block {c[2]} {FUZZ_KINDS[c[4]]} "
+                    f"{len(c[5])} bytes: the card's frame differs from "
+                    "device='cpu''s")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    phase("robust", case="fuzz, card vs cpu", frames=len(cases),
+          equal=True, decoded=True,
+          input_bytes=sum(len(c[5]) for c in cases),
+          card_s=card_s, seconds=time.perf_counter() - t0,
+          sizes=sorted({len(c[5]) for c in cases}),
+          kinds=sorted({FUZZ_KINDS[c[4]] for c in cases}),
+          codecs=len({c[:4] for c in cases}))
+    datas = [dense_corpus[t * (THREAD_MB << 20):(t + 1) * (THREAD_MB << 20)
+                          + TAIL] for t in range(THREADS)]
+    shared_codec_threads(torch, qzt, tk, oracle, datas, card, launches)
+    other_threads(torch, qzt, tk, oracle,
+                  [d[:(1 << 20) + TAIL] for d in datas], launches)
+    missing = [k for k in ROBUST_KERNELS if launches[k] == 0]
+    phase("robust", case="phase 9", seconds=time.perf_counter() - t0,
+          launches={k: n for k, n in launches.items() if n})
+    if missing:
+        raise AssertionError(f"phase 9: kernels never launched: {missing}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2226,6 +2662,11 @@ def main() -> int:
     # 8. The tools on the card.
     for k, n in tools_phase(torch, qzt, tk, oracle, dense_corpus, corpus,
                             card).items():
+        launches[k] += n
+
+    # 9. Robustness on the card.
+    for k, n in robustness_phase(torch, qzt, tk, oracle, root, args,
+                                 dense_corpus, card).items():
         launches[k] += n
 
     ref = [m for m in sys.modules

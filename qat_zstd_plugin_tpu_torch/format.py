@@ -5,7 +5,8 @@ sequence record `BlockSequences` and `block_header`, `emit_block`,
 `frame_header`, `assemble_frame` from format/frame.py, and the constants
 BLOCK_SIZE_MAX, MIN_WINDOW_LOG and MAX_WINDOW_LOG from format/tables.py.
 The content checksum (the low 32 bits of XXH64(content, 0)) comes from
-the port's own native runtime.
+the port's own native runtime. `validate_sequences` and MIN_MATCH are
+copies of golden/matcher.py's, the byte check done by numpy.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ MIN_WINDOW_LOG = 10
 MAX_WINDOW_LOG = 31
 
 MAGIC = 0xFD2FB528
+MIN_MATCH = 3  # the format's shortest match
 
 BLOCK_RAW = 0
 BLOCK_RLE = 1
@@ -42,6 +44,53 @@ class BlockSequences:
     def total_span(self) -> int:
         return int(self.lit_lengths.sum() + self.match_lengths.sum()
                    + self.last_literals)
+
+
+def validate_sequences(block: np.ndarray, seqs: BlockSequences,
+                       ctx_len: int = 0) -> None:
+    """Raise AssertionError unless `seqs` is frame-legal and byte-faithful
+    for `block` (copy of qat_zstd_plugin_tpu.golden.matcher's, with its
+    verdicts): every literal run >= 0 and match >= MIN_MATCH, every
+    offset in 1..pos, every matched byte equal to the byte `offset` back,
+    and the sequences and last literals spanning the block. `block` may
+    carry ctx_len bytes of window context at the front, where offsets
+    may reach; the sequences cover only the rest. Sequences are judged in
+    order and the first fault is named, as the golden loop does; the byte
+    check compares data[p] with data[p - off] for every matched p, so an
+    overlapping match (off < ml) needs no special case."""
+    data = np.asarray(block, np.uint8)
+    ll = np.asarray(seqs.lit_lengths, np.int64)
+    off = np.asarray(seqs.offsets, np.int64)
+    ml = np.asarray(seqs.match_lengths, np.int64)
+    bad_len = (ll < 0) | (ml < MIN_MATCH)
+    k = int(np.argmax(bad_len)) if bad_len.any() else len(ll)
+    pos = ctx_len + np.cumsum(ll[:k] + ml[:k]) - ml[:k]  # each match start
+    bad_off = (off[:k] < 1) | (off[:k] > pos)
+    j = int(np.argmax(bad_off)) if bad_off.any() else k
+    # Matches [0, e) end inside the data; match e, if any before j, runs
+    # past its end, which the golden loop's index also refuses.
+    past = pos[:j] + ml[:j] > len(data)
+    e = int(np.argmax(past)) if past.any() else j
+    m = ml[:e]
+    first = np.cumsum(m) - m
+    within = np.arange(int(m.sum())) - np.repeat(first, m)
+    p = np.repeat(pos[:e], m) + within
+    miss = data[p] != data[p - np.repeat(off[:e], m)]
+    if miss.any():
+        q = int(np.argmax(miss))
+        i = int(np.searchsorted(first, q, "right")) - 1
+        raise AssertionError(f"seq {i}: mismatch at +{int(within[q])}")
+    if e < j:
+        raise AssertionError(f"seq {e}: match of {int(ml[e])} at pos "
+                             f"{int(pos[e])} runs past {len(data)}")
+    if j < k:
+        raise AssertionError(f"seq {j}: offset {int(off[j])} at pos "
+                             f"{int(pos[j])}")
+    if k < len(ll):
+        raise AssertionError((k, int(ll[k]), int(ml[k])))
+    end = ctx_len + int((ll + ml).sum())
+    if end + int(seqs.last_literals) != len(data):
+        raise AssertionError("span mismatch")
 
 
 def content_checksum(data) -> int:

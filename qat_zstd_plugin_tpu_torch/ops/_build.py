@@ -13,6 +13,7 @@ a machine without nvcc.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -99,13 +100,24 @@ def _run(cmds: list[list[str]]) -> None:
 
 def build() -> str:
     """Compile csrc/ unless the library for these sources exists; returns
-    its path. The library is renamed into place, so a killed build never
-    leaves a half-written one behind."""
-    global build_seconds
+    its path. Processes that need it at once (benchmark -P children,
+    torch.distributed ranks) take a file lock beside it, so one of them
+    builds and the others wait and load its library (build_seconds stays
+    None in those). The library is renamed into place, so a killed build
+    never leaves a half-written one behind."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path + ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not os.path.exists(path):
+            _compile(path)
+    return path
+
+
+def _compile(path: str) -> None:
+    global build_seconds
     tag = f"tmp.{os.getpid()}"
     nvcc = _nvcc()
     objs = [os.path.join(os.path.dirname(path),
@@ -120,7 +132,6 @@ def build() -> str:
     os.replace(tmp, path)
     for obj in objs:
         os.remove(obj)
-    return path
 
 
 def load() -> ctypes.CDLL:

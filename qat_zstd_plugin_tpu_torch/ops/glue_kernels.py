@@ -63,6 +63,8 @@ shifts the hash bits out of the word).
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import _build
@@ -76,7 +78,9 @@ _C2 = 2246822519
 _C3 = 3266489917
 
 # Kernel launches since the last reset_launches(), by kernel name. A
-# wrapper counts where it launches its kernel and nowhere else.
+# wrapper counts where it launches its kernel and nowhere else, under
+# _launches_lock, so that the totals of threads sharing a card are exact.
+_launches_lock = threading.Lock()
 launches = {"hash_keys_winmin_sync": 0, "neighbor_unsort_keys": 0,
             "ldm_keys": 0, "compact_slots_sync": 0, "hash_keys": 0,
             "hash_keys_winmin": 0, "finalize_candidates": 0,
@@ -90,8 +94,28 @@ MIN_MATCH = 4  # qat_zstd_plugin_tpu.ops.match_pipeline.MIN_MATCH
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launches_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def segment_rule(n: int, window: int, multiple: int,
+                 pow2: bool = False) -> str | None:
+    """The rule the hash matchers' kernels hold a block length n to:
+    segments of w = min(window, n) bytes tile the row, and w is a multiple
+    of `multiple` (K1 pairs bytes: 2; B5-B8 and B11 read 4-byte words,
+    K4 pairs K1's pairs: 4) and, with pow2, a power of two (the
+    byte-verified matcher's positions are i & (w - 1): its kernels run at
+    any width, but only there are its claims true). Returns the broken
+    rule as text, or None when n tiles."""
+    w = min(window, n)
+    if n >= 1 and not n % w and not w % multiple \
+            and not (pow2 and w & (w - 1)):
+        return None
+    want = f"a multiple of {multiple}" + (" and a power of two" if pow2
+                                           else "")
+    return (f"block length {n} must be a whole number of segments of "
+            f"min(window {window}, {n}) = {w} bytes, {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +151,8 @@ def _shl(a: torch.Tensor, s: int, fill: int) -> torch.Tensor:
 def _shr(a: torch.Tensor, s: int, fill: int) -> torch.Tensor:
     """Element i <- a[:, i-s] along the whole row; the first s get fill."""
     out = torch.full_like(a, fill)
-    out[:, s:] = a[:, :a.shape[1] - s]
+    if s < a.shape[1]:
+        out[:, s:] = a[:, :a.shape[1] - s]
     return out
 
 
@@ -225,7 +250,8 @@ def _launch(name: str, *args) -> None:
     if rc != 0:
         err = _build.load().qz_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({err})")
-    launches[name] += 1
+    with _launches_lock:
+        launches[name] += 1
 
 
 def _sort_signed(x: torch.Tensor) -> torch.Tensor:
@@ -247,10 +273,10 @@ def _sort_rows(x: torch.Tensor) -> torch.Tensor:
 
 def _k1_geometry(blocks: torch.Tensor, window: int):
     B, N = blocks.shape
+    broken = segment_rule(N, window, 2)
+    if broken:
+        raise ValueError(broken)
     w = min(window, N)
-    if N % w or w % 2:
-        raise ValueError(f"block length {N} must be a multiple of an even "
-                         f"segment width (got {w})")
     return B, N, w, (w - 1).bit_length()
 
 
@@ -326,10 +352,10 @@ def hash_keys_winmin_sync(blocks: torch.Tensor, width: int, window: int,
 
 def _dense_geometry(blocks: torch.Tensor, window: int):
     B, N = blocks.shape
+    broken = segment_rule(N, window, 4)
+    if broken:
+        raise ValueError(broken)
     w = min(window, N)
-    if N % w or N % 4:
-        raise ValueError(f"block length {N} must be a multiple of 4 and of "
-                         f"the segment width {w}")
     return B, N, w, (w - 1).bit_length()
 
 
@@ -465,8 +491,11 @@ def gram_pos_planes(blocks: torch.Tensor, window: int):
     grams, (B*nseg, w) int32 positions i & (w - 1)), position i of a block
     at row i // w, column i % w of its segments. A gram reads along the
     whole block row, zero past its end (the last three grams of a segment
-    read the next segment's bytes). Port of the Pallas kernel of the same
-    name."""
+    read the next segment's bytes). i & (w - 1) is the column only for a
+    power-of-two w: at other widths the matcher claims false matches, as
+    the reference's does, so the codec refuses such blocks where it runs
+    (runtime/gpu_codec.check_block_size). Port of the Pallas kernel of
+    the same name."""
     _check(blocks, "gram_pos_planes", torch.uint8, 2)
     B, N, w, _ = _dense_geometry(blocks, window)
     if _use_twin(blocks, "gram_pos_planes"):

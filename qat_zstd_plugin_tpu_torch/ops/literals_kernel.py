@@ -146,6 +146,16 @@ def byte_hist(keys: torch.Tensor) -> torch.Tensor:
 # The device half of the literals section
 # ---------------------------------------------------------------------------
 
+def streams_rule(n: int) -> str | None:
+    """Full device entropy's rule for a block length n: the four literal
+    streams take n / 4 slots each. Returns it as text when n breaks it,
+    else None."""
+    if n % 4:
+        return (f"block length {n} is not a multiple of 4 (four literal "
+                "streams of n / 4 slots)")
+    return None
+
+
 def encode_literals_device(blocks: torch.Tensor, lengths: torch.Tensor,
                            chosen: torch.Tensor, mlen: torch.Tensor,
                            max_words: int | None = None) -> dict:
@@ -166,9 +176,9 @@ def encode_literals_device(blocks: torch.Tensor, lengths: torch.Tensor,
     table entry by byte, and a scatter into zeros at the destination,
     which gives the same items."""
     B, N = blocks.shape
-    if N % 4:
-        raise ValueError(f"encode_literals_device: block length {N} is not "
-                         "a multiple of 4 (four streams)")
+    broken = streams_rule(N)
+    if broken:
+        raise ValueError(f"encode_literals_device: {broken}")
     cap = N // 4
     if max_words is None:
         max_words = (cap * 12) // 32 + 8  # 11-bit codes + slack

@@ -54,16 +54,19 @@ re-matched on the CPU.
 
 from __future__ import annotations
 
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from .. import fse_format, native
-from ..format import BlockSequences, assemble_frame
+from ..format import (BLOCK_SIZE_MAX, BlockSequences, assemble_frame,
+                      validate_sequences)
 from ..ops import match_pipeline
 from ..ops.bitpack import backward_stream_bytes
-from ..ops.literals_kernel import device_literals_section
+from ..ops.glue_kernels import segment_rule
+from ..ops.literals_kernel import device_literals_section, streams_rule
 from ..utils import config, logging
 from .levels import TPU_LEVEL_TABLE, level_params
 from .stats import BlockStats, Timer
@@ -170,8 +173,44 @@ def entropy_mode(device_entropy) -> str | bool:
                      f"'hybrid', got {device_entropy!r}")
 
 
+def check_block_size(level: int, block_size: int,
+                     device_entropy: str | bool | None,
+                     name: str = "block_size") -> None:
+    """Raise ValueError, naming the rule and `name` (where the size came
+    from), for a block size that `level` cannot take: outside
+    1..BLOCK_SIZE_MAX (RFC 8878's Block_Maximum_Size, every codec), or
+    one that the level's device route cannot tile (device_entropy None:
+    no device route, as SoftwareCodec's). The hash
+    levels (1-4) take the rule of their kernels' geometry
+    (glue_kernels.segment_rule): segments of min(window, block) bytes, a
+    multiple of 4, and a power of two with device entropy, where the
+    byte-verified matcher runs; full device entropy at any level needs a
+    multiple of 4 (literals_kernel.streams_rule). The content levels'
+    route takes any other size."""
+    if not 1 <= block_size <= BLOCK_SIZE_MAX:
+        raise ValueError(f"{name}={block_size} is outside 1.."
+                         f"{BLOCK_SIZE_MAX}: a zstd block holds at most "
+                         "128 KiB (RFC 8878, Block_Maximum_Size)")
+    if device_entropy is None:
+        return
+    p = TPU_LEVEL_TABLE[level]
+    broken = None
+    if p.matcher == "hash":
+        broken = segment_rule(block_size, p.window, 4,
+                              pow2=bool(device_entropy))
+    if broken is None and device_entropy is True:
+        broken = streams_rule(block_size)
+    if broken:
+        route = {False: "host entropy", "hybrid": "hybrid device entropy",
+                 True: "full device entropy"}[device_entropy]
+        raise ValueError(f"{name}={block_size}: level {level} with "
+                         f"{route} cannot take it: {broken}")
+
+
 class GpuCodec:
-    """Batched block compressor on one torch device."""
+    """Batched block compressor on one torch device. One codec may be
+    shared by threads: its counters take a lock, and each thread's
+    batches go to that thread's current stream."""
 
     def __init__(self, level: int = 1, batch: int | None = None,
                  block_size: int | None = None, max_seq: int | None = None,
@@ -201,6 +240,9 @@ class GpuCodec:
         self.batch = cfg.batch if batch is None else batch
         self.block_size = cfg.block_size if block_size is None \
             else block_size
+        check_block_size(level, self.block_size, self.device_entropy,
+                         "QZ_BLOCK_SIZE" if block_size is None
+                         else "block_size")
         self.max_seq = cfg.max_seq if max_seq is None else max_seq
         self.checksum_default = cfg.checksum
         self.device = torch.device(device)
@@ -215,7 +257,15 @@ class GpuCodec:
         self.overflow_blocks = 0  # of those, re-matched on the host
         self.section_blocks = 0   # of those, with the device's section
         self.literal_blocks = 0   # of those, with its literals section too
+        self._count_lock = threading.Lock()
         self._fn = None
+
+    def _count(self, **deltas: int) -> None:
+        """Add to the block counters under the codec's lock, so that the
+        totals of threads sharing the codec are exact."""
+        with self._count_lock:
+            for name, n in deltas.items():
+                setattr(self, name, getattr(self, name) + n)
 
     def _pipeline(self):
         if self._fn is None:
@@ -284,11 +334,11 @@ class GpuCodec:
         block (tpu_codec.finish_block_host's check), else None. (None,
         None) for a block whose device output overflowed."""
         b, lengths, result = handle
-        self.device_blocks += b
+        self._count(device_blocks=b)
         if self.device_entropy:
             return self._collect_sections(b, lengths, result)
         seqs = self.host_sequences(result, lengths)[:b]
-        self.overflow_blocks += sum(s is None for s in seqs)
+        self._count(overflow_blocks=sum(s is None for s in seqs))
         return [(s, None) for s in seqs]
 
     def host_sequences(self, result, lengths: np.ndarray
@@ -318,9 +368,11 @@ class GpuCodec:
             lits["words"] = lits["words"].reshape(len(words), 4, -1)
             lits["bits"] = lits["bits"].reshape(len(words), 4)
         res = []
+        counts = {"overflow_blocks": 0, "section_blocks": 0,
+                  "literal_blocks": 0}
         for i in range(b):
             if out["overflow"][i] or sec_over[i]:
-                self.overflow_blocks += 1
+                counts["overflow_blocks"] += 1
                 res.append((None, None))
                 continue
             ns = int(out["nseq"][i])
@@ -331,7 +383,7 @@ class GpuCodec:
             if ns == 0:
                 res.append((seqs, None))
                 continue
-            self.section_blocks += 1
+            counts["section_blocks"] += 1
             lit_sec = None
             if lits is not None and lits["ok"][i] \
                     and seqs.total_span() == lengths[i]:
@@ -340,9 +392,10 @@ class GpuCodec:
                     lits["max_bits"][i], lits["last_symbol"][i],
                     int(lits["n_lit"][i]), lits["words"][i],
                     lits["bits"][i])
-                self.literal_blocks += lit_sec is not None
+                counts["literal_blocks"] += lit_sec is not None
             res.append((seqs, (lit_sec, device_sequence_section(
                 ns, words[i], int(bits[i]), plan, i))))
+        self._count(**counts)
         return res
 
     def produce_sequences(self, blocks_np: np.ndarray,
@@ -356,19 +409,28 @@ class GpuCodec:
                 self.collect_batch(self.submit_batch(blocks_np, lengths_np))]
 
     def compress(self, data: bytes | np.ndarray,
-                 checksum: bool | None = None) -> bytes:
+                 checksum: bool | None = None,
+                 validate: bool = False) -> bytes:
+        """One zstd frame of `data`. validate=True checks each block's
+        final sequences with format.validate_sequences before the entropy
+        coder (the reference's compressAndVerify): every host-entropy
+        block after its extension pass, and the host-matched tail and
+        overflow blocks; a block whose sections the device encoded is
+        final and not checked, as in the reference. A failed check raises
+        AssertionError."""
         if checksum is None:
             checksum = self.checksum_default
         buf = np.frombuffer(data, dtype=np.uint8) if not isinstance(
             data, np.ndarray) else np.ascontiguousarray(data, np.uint8)
-        bodies = self.compress_bodies(buf)
+        bodies = self.compress_bodies(buf, validate=validate)
         return assemble_frame(buf, bodies, self.block_size, checksum,
                               window_log=self.host.window_log)
 
     def finish_block_host(self, buf: np.ndarray, i: int,
                           seqs: BlockSequences | None,
                           section: tuple[bytes | None, bytes] | None = None,
-                          frame_start: bool = True) -> bytes | None:
+                          frame_start: bool = True, *,
+                          validate: bool = False) -> bytes | None:
         """Host half of block i of the whole frame buffer `buf`: with the
         device's sections (literals section or None, Sequences_Section),
         the two joined, or the host's literals section before the
@@ -379,7 +441,8 @@ class GpuCodec:
         frame's repeat-offset history unless frame_start is False (a
         stream's later chunks). With the config's second_parse, a deep
         level skips the selector and keeps the smaller of that body and
-        the host chain parse's."""
+        the host chain parse's. validate checks the sequences that reach
+        the entropy coder first (see compress)."""
         n = len(buf)
         bs = self.block_size
         gp = self.host
@@ -436,6 +499,8 @@ class GpuCodec:
                 ctx_len=ctx_find, mml=gp.mml))
 
         def body_of(s: BlockSequences) -> bytes | None:
+            if validate:
+                validate_sequences(cblk, s, ctx_len=ctx)
             return native.block_body(
                 blk, s.lit_lengths, s.offsets, s.match_lengths,
                 s.last_literals, self.params.custom_tables
@@ -460,10 +525,11 @@ class GpuCodec:
                 return alt
         return body
 
-    def compress_bodies(self, buf: np.ndarray,
-                        frame_start: bool = True) -> list[bytes | None]:
+    def compress_bodies(self, buf: np.ndarray, frame_start: bool = True,
+                        *, validate: bool = False) -> list[bytes | None]:
         """Per-block Compressed_Block bodies (None => raw block); buf's
-        first block starts the frame unless frame_start is False.
+        first block starts the frame unless frame_start is False;
+        validate as in compress.
 
         The full blocks go to the device in batches, QUEUE_DEPTH batches
         in flight while earlier ones are collected and finished on a host
@@ -479,7 +545,7 @@ class GpuCodec:
         def finish_block(i: int, seqs, section=None) -> bytes | None:
             with Timer() as tm:
                 body = self.finish_block_host(buf, i, seqs, section,
-                                              frame_start)
+                                              frame_start, validate=validate)
             self.stats.record(min(n - i * bs, bs),
                               len(body) if body else None, tm.elapsed)
             return body

@@ -18,6 +18,7 @@ import numpy as np
 from .. import native
 from ..format import assemble_frame
 from ..utils import config
+from .gpu_codec import check_block_size
 from .levels import TPU_LEVEL_TABLE, level_params
 from .stats import BlockStats, Timer
 
@@ -35,6 +36,9 @@ class SoftwareCodec:
         self.host = level_params(level)
         self.block_size = cfg.block_size if block_size is None \
             else block_size
+        check_block_size(level, self.block_size, None,
+                         "QZ_BLOCK_SIZE" if block_size is None
+                         else "block_size")
         self.checksum_default = cfg.checksum
         native.load()  # raises if the host runtime cannot be built
         self.stats = BlockStats()

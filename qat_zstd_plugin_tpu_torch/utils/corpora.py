@@ -13,6 +13,10 @@ package's for the same size and seed.
              loads bench.make_corpus and so reads /bin/ls and
              /etc/services: this one reads no file and is the same on
              every machine.
+
+`adversarial` is a copy of tests/test_fuzz.py's `_gen`, the seeded
+counterpart of the reference's fuzzing shim: with its defaults it draws
+the same bytes for the same generator state.
 """
 
 from __future__ import annotations
@@ -75,3 +79,55 @@ CORPORA = {
     "redundant": corpus_redundant,
     "mixed": corpus_mixed,
 }
+
+# tests/test_fuzz.py's sizes: format edges (Raw_Literals header forms,
+# Huffman 1-stream vs 4-stream, the 128 KiB block boundary).
+FUZZ_SIZES = (0, 1, 2, 3, 4, 5, 31, 32, 33, 255, 256, 1023, 1024, 4095,
+              4096, 65535, 65536, 131071, 131072, 131073, 200000)
+FUZZ_KINDS = ("random", "single byte", "short period", "long period",
+              "text-like", "runs and noise", "low entropy", "sparse")
+
+
+def adversarial(rng: np.random.Generator, sizes=FUZZ_SIZES,
+                kind: int | None = None) -> bytes:
+    """One adversarial buffer, of FUZZ_KINDS[kind] (drawn from rng when
+    None) at a size drawn from `sizes`."""
+    if kind is None:
+        kind = int(rng.integers(0, 8))
+    n = int(rng.choice(sizes))
+    if kind == 0:  # pure random
+        return rng.integers(0, 256, n, np.uint8).tobytes()
+    if kind == 1:  # single byte
+        return bytes([int(rng.integers(0, 256))]) * n
+    if kind == 2:  # short period
+        p = rng.integers(0, 256, int(rng.integers(1, 9)), np.uint8).tobytes()
+        return (p * (n // max(len(p), 1) + 1))[:n]
+    if kind == 3:  # long period
+        p = rng.integers(0, 256, int(rng.integers(100, 5000)),
+                         np.uint8).tobytes()
+        return (p * (n // max(len(p), 1) + 1))[:n]
+    if kind == 4:  # text-like
+        words = [b"a", b"the ", b"of ", b"zstd", b" compression", b"\n"]
+        out, size = [], 0  # _gen's draws, joined once
+        while size < n:
+            out.append(words[int(rng.integers(0, len(words)))])
+            size += len(out[-1])
+        return b"".join(out)[:n]
+    if kind == 5:  # runs + noise
+        parts, size = [], 0
+        while size < n:
+            if rng.integers(0, 2):
+                parts.append(bytes([int(rng.integers(0, 4))])
+                             * int(rng.integers(1, 300)))
+            else:
+                parts.append(rng.integers(0, 256, 50, np.uint8).tobytes())
+            size += len(parts[-1])
+        return b"".join(parts)[:n]
+    if kind == 6:  # low-entropy bytes
+        return rng.integers(0, 3, n, np.uint8).tobytes()
+    # sparse: zeros with random islands
+    buf = np.zeros(n, np.uint8)
+    for _ in range(max(n // 500, 1)):
+        i = int(rng.integers(0, max(n, 1)))
+        buf[i:i + 20] = rng.integers(0, 256, len(buf[i:i + 20]), np.uint8)
+    return buf.tobytes()

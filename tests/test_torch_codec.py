@@ -116,11 +116,11 @@ def _no_cpu_rematch(codec, monkeypatch):
     finished = []
     host = codec.finish_block_host
 
-    def finish(buf, i, seqs, section=None, frame_start=True):
+    def finish(buf, i, seqs, section=None, frame_start=True, **kw):
         if seqs is None and (i + 1) * BLOCK <= len(buf):
             raise AssertionError(f"full block {i} re-matched on the CPU")
         finished.append(i)
-        return host(buf, i, seqs, section, frame_start)
+        return host(buf, i, seqs, section, frame_start, **kw)
 
     monkeypatch.setattr(codec, "finish_block_host", finish)
     return finished

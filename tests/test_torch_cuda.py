@@ -6,7 +6,9 @@ Marked `cuda`: on a machine without a CUDA device every test here skips
 these checks at the main path's full shapes.
 """
 
+import contextlib
 import json
+import threading
 
 import numpy as np
 import pytest
@@ -859,3 +861,101 @@ def test_trace_names_the_l1_kernels(cuda, tmp_path):
     for k in ("hash_keys_winmin_sync_kernel", "neighbor_unsort_keys_kernel",
               "ldm_keys_kernel", "compact_slots_sync_kernel"):
         assert any(k in n for n in names), k
+
+
+def _thread_inputs(n=8, size=2 * N + 777):
+    return [make_corpus(size, seed=40 + t) for t in range(n)]
+
+
+def _in_threads(fn, n):
+    """fn(tid) in n threads started at a barrier; re-raises the first
+    error."""
+    barrier = threading.Barrier(n)
+    errors = []
+
+    def wrap(tid):
+        try:
+            barrier.wait(60)
+            fn(tid)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=wrap, args=(t,)) for t in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+        assert not t.is_alive()
+    if errors:
+        raise errors[0]
+
+
+@pytest.mark.parametrize("streams", [False, True],
+                         ids=["current_stream", "stream_a_thread"])
+def test_shared_codec_threads_on_the_card(cuda, streams):
+    """One GpuCodec(level=1, batch=2) on the card from 8 threads x 3
+    rounds, each on the current stream or inside a torch.cuda.Stream of
+    its own: the frames equal the one-thread frames and the CPU twins',
+    the counters balance, and each kernel's launches are exactly 24
+    times one call's."""
+    datas = _thread_inputs()
+    codec = qzt.GpuCodec(level=1, batch=2, device="cuda")
+    want = [codec.compress(d) for d in datas]
+    assert want[0] == qzt.GpuCodec(level=1, batch=2,
+                                   device="cpu").compress(datas[0])
+    tk.reset_launches()
+    codec.compress(datas[0])
+    one = dict(tk.launches)
+    in0, dev0 = codec.stats.input_bytes, codec.device_blocks
+    rounds = 3
+    got = [[None] * rounds for _ in datas]
+
+    def work(tid):
+        with torch.cuda.stream(torch.cuda.Stream()) if streams \
+                else contextlib.nullcontext():
+            for r in range(rounds):
+                got[tid][r] = codec.compress(datas[tid])
+            torch.cuda.current_stream().synchronize()
+
+    tk.reset_launches()
+    _in_threads(work, len(datas))
+    counts = dict(tk.launches)
+    assert all(g == [w] * rounds for g, w in zip(got, want))
+    assert codec.stats.input_bytes - in0 == rounds * sum(map(len, datas))
+    assert codec.device_blocks - dev0 == rounds * sum(
+        len(d) // N for d in datas)
+    calls = rounds * len(datas)
+    assert one["compact_slots_sync"] > 0
+    assert {k: counts[k] for k in one} == {k: calls * n
+                                            for k, n in one.items()}
+
+
+def test_producer_threads_on_the_card(cuda):
+    """compress_via_libzstd on the card from 4 threads: each frame equals
+    its one-thread frame and the CPU twins', and decodes."""
+    datas = _thread_inputs(4, N + 5000)
+    want = [qzt.compress_via_libzstd(d, level=1, device="cpu")
+            for d in datas]
+    got = [None] * 4
+
+    def work(tid):
+        got[tid] = qzt.compress_via_libzstd(datas[tid], level=1,
+                                            device="cuda")
+
+    _in_threads(work, 4)
+    assert got == want
+    for f, d in zip(got, datas):
+        assert qzt.decompress(f, len(d)) == d
+
+
+@pytest.mark.parametrize("level", [1, 9])
+def test_validate_on_the_card(cuda, level):
+    """compress(validate=True) on the card equals compress() and the CPU
+    twins' frame, and decodes."""
+    data = make_corpus(4 * N + 5000, seed=level)
+    codec = qzt.GpuCodec(level=level, batch=2, device="cuda")
+    got = codec.compress(data, validate=True)
+    assert got == codec.compress(data)
+    assert got == qzt.GpuCodec(level=level, batch=2,
+                               device="cpu").compress(data, validate=True)
+    assert qzt.decompress(got, len(data)) == data
