@@ -13,7 +13,9 @@ its four modes, with threads and processes, the CLI and the profiler
 trace) on the card, holds the port to its robustness surface there
 (adversarial inputs at every level against the CPU twins, wrong device
 claims, validate, one codec shared by threads, a first build by two
-processes), and checks every frame with stock libzstd.
+processes), checks every frame with stock libzstd, and reads the card's
+frames of every kind with the port's own decoder (decoder.py), mutated
+ones against libzstd, and the producer's triples as LZ4s.
 
     python3 chip_smoke.py [--seed S] [--mb 64]
 
@@ -199,7 +201,32 @@ Run from the repository root on a machine with one CUDA device. Phases
      threads and compress_via_libzstd from 4, each frame equal to its
      one-thread frame; runtime/device.py's start and stop hammered from
      8 threads. Every kernel a level reaches (all but B17-B19) must
-     launch in this phase.
+     launch in this phase;
+ 10. the format contract on the card: (a) on 1 MiB + 5000 bytes of the
+     corpus the card writes compress(level=L, batch=8, device="cuda") at
+     L = 1, 2, 3, 4, 5, 9, 12 with host entropy and at L = 1, 4, 9 with
+     hybrid and full device entropy, compress_via_libzstd at L = 1, 4, 9,
+     compress_stream_via_libzstd(level=1) (100000-byte chunks, a flush
+     every 2) and StreamCompressor(level=1, batch=8), and phase 9's eight
+     adversarial shapes at 131073 bytes at L1 and at L9 full; each frame
+     decodes to its input through stock libzstd and through the port's
+     decoder (decoder.py), which runs in four spawned workers while the
+     card writes the next frames; one line a kind with the frame bytes
+     and the decoder's seconds and MB/s, the host's, beside the card's
+     name and power limit; (b) each device-entropy kind again on one
+     64 KiB block + 5 bytes, written without a checksum so that a
+     mutation that still decodes reaches the byte comparison, 64 seeded
+     mutations of its frame (tools.fuzz_decoder.mutate), on each of which
+     the port's decoder and libzstd agree: the same bytes, or both
+     reject, or the port rejects for one of the ways it is stricter
+     (STRICTER_REJECTS); at least one mutation a kind decodes in both;
+     (c) LZ4s with the card
+     as the engine: SeqProdState(L, block_size=65536, device="cuda") at
+     L = 1, 4, 9 on 16 slices of 64 KiB, each slice's triples written as
+     LZ4s (lz4s_format.encode) read back exactly by lz4s_format.decode and
+     native.dec_lz4s and valid for the slice (format.validate_sequences).
+     The launch counts are reset just before and read just after each
+     card call; every kernel a level reaches must launch in this phase.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -288,6 +315,32 @@ VALIDATE_LEVELS = (1, 9)
 THREADS, ROUNDS, THREAD_MB = 8, 3, 2
 DISTINCT_LEVELS = (1, 2, 3, 5, 9)
 PRODUCER_THREADS = 4
+# Phase 10: the frames the card writes on ragged_bytes(corpus,
+# FORMAT_BYTES), decoded by the port's own decoder in FORMAT_WORKERS
+# spawned workers while the card writes the next; the device-entropy
+# kinds again on DIFF_BYTES (one 64 KiB block, device="cuda") with
+# DIFF_MUTATIONS seeded mutations each; LZ4S_SLICES slices of LZ4S_BLOCK
+# bytes through the producer at LZ4S_LEVELS, written as LZ4s.
+FORMAT_BYTES = (1 << 20) + 5000
+FORMAT_LEVELS = (1, 2, 3, 4, 5, 9, 12)
+FORMAT_ENTROPY_LEVELS = (1, 4, 9)
+FORMAT_FUZZ_BYTES = 131073
+FORMAT_WORKERS = 4
+DIFF_BLOCK = 65536
+DIFF_BYTES = DIFF_BLOCK + 5
+DIFF_MUTATIONS = 64
+# The port's decoder (a copy of the JAX package's golden/decoder.py) is
+# stricter than stock libzstd 1.5.x in these ways, and phase 10 (b)
+# tolerates a port reject of what stock decodes only for them: it holds
+# each Huffman stream to exact consumption (stock's fast 4-stream loop
+# checks only the output length) and every offset to the declared window
+# (stock checks only its buffer).
+STRICTER_REJECTS = ("huffman stream underflow",
+                    "huffman stream not fully consumed",
+                    "offset exceeds declared window")
+LZ4S_BLOCK = 65536  # LZ4s offsets are 16 bits, as on the QAT engine
+LZ4S_SLICES = 16
+LZ4S_LEVELS = (1, 4, 9)
 # The CUDA functions of K1-K4 (csrc/l1_kernels.cu), as a trace names them.
 L1_FUNCTIONS = ("hash_keys_winmin_sync_kernel", "neighbor_unsort_keys_kernel",
                 "ldm_keys_kernel", "compact_slots_sync_kernel")
@@ -2484,6 +2537,279 @@ def robustness_phase(torch, qzt, tk, oracle, root: str, args,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the format contract on the card
+# ---------------------------------------------------------------------------
+
+def _format_worker_init() -> None:
+    """Each phase 10 worker takes one core and imports the decoder."""
+    import torch
+    torch.set_num_threads(1)
+    from qat_zstd_plugin_tpu_torch import decoder  # noqa: F401
+
+
+def port_decode_frame(frame: bytes, data: bytes) -> tuple:
+    """Phase 10 (a) in a worker: the port's decoder (decoder.py, not
+    libzstd) on `frame`. Returns (equal to `data`, the host's seconds)."""
+    from qat_zstd_plugin_tpu_torch import decoder
+    t0 = time.perf_counter()
+    out = decoder.decompress(frame)
+    return out == data, time.perf_counter() - t0
+
+
+def differential_frame(frame: bytes, seed: int, n: int) -> dict:
+    """Phase 10 (b) in a worker: `n` seeded mutations of `frame`
+    (tools.fuzz_decoder.mutate), each decoded by the port's decoder and by
+    stock libzstd. Returns the verdict counts, the port's rejects of what
+    stock decoded by reason (each one of STRICTER_REJECTS), and the first
+    disagreement (None if there was none): bytes that differ, a port
+    decode of what stock rejects, a reject other than DecodeError, or a
+    one-sided reject for another reason."""
+    import random
+    from qat_zstd_plugin_tpu_torch import decoder
+    from qat_zstd_plugin_tpu_torch.tools import fuzz_decoder as fz
+    rnd = random.Random(seed)
+    out = {"both_decoded": 0, "both_rejected": 0, "stricter": {},
+           "finding": None}
+    for i in range(n):
+        m = fz.mutate(rnd, frame)
+        stock = fz.stock_decode(m)
+        try:
+            port, reason = decoder.decompress(m, max_output=fz.MAX_OUT), None
+        except decoder.DecodeError as exc:
+            port, reason = None, str(exc)
+        except Exception as exc:  # noqa: BLE001 - an unclean reject
+            port, reason = exc, None
+        if port is None and stock is None:
+            out["both_rejected"] += 1
+        elif port is not None and port == stock:
+            out["both_decoded"] += 1
+        elif port is None and reason in STRICTER_REJECTS:
+            out["stricter"][reason] = out["stricter"].get(reason, 0) + 1
+        else:
+            out["finding"] = dict(
+                mutation=i, frame=m.hex(), stock="rejected" if stock is None
+                else f"{len(stock)} bytes",
+                port=repr(port) if isinstance(port, Exception)
+                else f"rejected: {reason}" if port is None
+                else f"{len(port)} bytes")
+            return out
+    return out
+
+
+def producer_lz4s(lz4s_format, block: bytes, triples: list) -> tuple:
+    """The producer's triples of `block` as LZ4s: (stream, the literal
+    bytes it carries)."""
+    buf = memoryview(block)
+    pos, lits = 0, bytearray()
+    for _, ll, ml in triples:
+        lits += buf[pos:pos + ll]
+        pos += ll + ml
+    if pos != len(block):
+        raise AssertionError(f"triples span {pos} of {len(block)} bytes")
+    seqs = [lz4s_format.Sequence(*t) for t in triples]
+    return lz4s_format.encode(seqs, bytes(lits)), bytes(lits)
+
+
+def lz4s_on_card(torch, qzt, tk, corpus: bytes, launches: dict) -> None:
+    """Phase 10 (c): the card as the LZ4s engine. At each LZ4S_LEVELS
+    level a SeqProdState(block_size=LZ4S_BLOCK, device="cuda") produces
+    the triples of LZ4S_SLICES slices of the corpus, the final
+    (0, last_literals, 0) included; each slice's triples written as LZ4s
+    with the block's literal bytes come back exactly through
+    lz4s_format.decode and native.dec_lz4s, and pass
+    format.validate_sequences against the slice. LZ4s offsets are 16 bits,
+    as on the QAT engine, so only a block of at most 65536 bytes
+    guarantees that every offset fits: the copied encode keeps an
+    offset's low 16 bits (offset & 0xFFFF), as the JAX package's does."""
+    from qat_zstd_plugin_tpu_torch import format as tformat
+    from qat_zstd_plugin_tpu_torch import lz4s_format, native
+    for level in LZ4S_LEVELS:
+        state = qzt.SeqProdState(level, block_size=LZ4S_BLOCK, device="cuda")
+        tokens = stream_bytes = 0
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        blocks = [corpus[i * LZ4S_BLOCK:(i + 1) * LZ4S_BLOCK]
+                  for i in range(LZ4S_SLICES)]
+        produced = [qzt.sequence_producer(state, b) for b in blocks]
+        card_s = time.perf_counter() - t0
+        for k, n in tk.launches.items():
+            launches[k] += n
+        for i, (block, triples) in enumerate(zip(blocks, produced)):
+            what = f"LZ4s L{level} slice {i}"
+            if triples is qzt.SEQUENCE_PRODUCER_ERROR:
+                raise AssertionError(f"{what}: producer error "
+                                     f"{state.last_error!r}")
+            stream, _ = producer_lz4s(lz4s_format, block, triples)
+            got = [(s.offset, s.lit_length, s.match_length)
+                   for s in lz4s_format.decode(stream)]
+            if got != triples:
+                raise AssertionError(f"{what}: lz4s_format.decode differs")
+            ll, of, ml = native.dec_lz4s(stream)
+            if list(zip(of.tolist(), ll.tolist(), ml.tolist())) != triples:
+                raise AssertionError(f"{what}: native.dec_lz4s differs")
+            tformat.validate_sequences(
+                np.frombuffer(block, np.uint8),
+                tformat.BlockSequences(ll[:-1], of[:-1], ml[:-1],
+                                       int(ll[-1])))
+            tokens += len(triples)
+            stream_bytes += len(stream)
+        if state.device_blocks != LZ4S_SLICES or state.errors:
+            raise AssertionError(f"LZ4s L{level}: {state.device_blocks} "
+                                 f"device blocks, {state.errors} errors")
+        phase("format", case="lz4s", level=level, streams=LZ4S_SLICES,
+              tokens=tokens, stream_bytes=stream_bytes,
+              input_bytes=LZ4S_SLICES * LZ4S_BLOCK, card_s=card_s,
+              exact=True, validated=True, decoders=["lz4s_format.decode",
+                                                    "native.dec_lz4s"])
+
+
+def format_phase(torch, qzt, tk, oracle, args, corpus: bytes,
+                 card: str) -> dict:
+    """Phase 10: the frames the card writes, read by the port's own
+    decoder. (a) Each kind's frame on ragged_bytes(corpus, FORMAT_BYTES)
+    and phase 9's eight shapes at FORMAT_FUZZ_BYTES, written on the card
+    (launch counts reset just before and read just after each), decoded
+    by stock libzstd here and by decoder.py in FORMAT_WORKERS spawned
+    workers while the card writes the next; both must return the input.
+    (b) Each device-entropy kind again on DIFF_BYTES without a checksum,
+    DIFF_MUTATIONS seeded mutations of its frame, on each of which the
+    port's decoder and libzstd agree (differential_frame, in the workers);
+    some must decode in both. (c) LZ4s with the card as the engine.
+    The decoder's times are the host's. Every kernel a level reaches must
+    launch. Returns the launch counts."""
+    from qat_zstd_plugin_tpu_torch.utils.corpora import FUZZ_KINDS, \
+        adversarial
+    launches = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    data = ragged_bytes(corpus, FORMAT_BYTES)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        FORMAT_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_format_worker_init)
+    try:
+        def counted(run):
+            tk.reset_launches()
+            frame = run()
+            for k, n in tk.launches.items():
+                launches[k] += n
+            return frame
+
+        def codec_frame(level, entropy, x, block=BLOCK, sections=True,
+                        checksum=None):
+            codec = qzt.GpuCodec(level=level, batch=8, block_size=block,
+                                 device="cuda", device_entropy=entropy)
+            frame = codec.compress(x, checksum=checksum)
+            what = f"L{level} {entropy} {len(x)} bytes"
+            if codec.stats.fallback_blocks or \
+                    codec.device_blocks != len(x) // block:
+                raise AssertionError(f"{what}: {codec.device_blocks} device "
+                                     "blocks, a block fell back")
+            if sections and entropy and not codec.section_blocks:
+                raise AssertionError(f"{what}: no card sequence section")
+            if sections and entropy is True and not codec.literal_blocks:
+                raise AssertionError(f"{what}: no card literals section")
+            return frame
+
+        def stream_feed():
+            sc = qzt.StreamCompressor(level=1, batch=8, device="cuda")
+            return b"".join(sc.compress(data[i:i + FEED_CHUNK]) for i in
+                            range(0, len(data), FEED_CHUNK)) + sc.finish()
+
+        kinds = [(f"compress L{lv}", lambda lv=lv: codec_frame(lv, False,
+                                                                data))
+                 for lv in FORMAT_LEVELS]
+        kinds += [(f"compress L{lv} {e}", lambda lv=lv, e=e: codec_frame(
+                   lv, e, data)) for e in ("hybrid", True)
+                  for lv in FORMAT_ENTROPY_LEVELS]
+        kinds += [(f"compress_via_libzstd L{lv}",
+                   lambda lv=lv: qzt.compress_via_libzstd(data, level=lv,
+                                                          device="cuda"))
+                  for lv in FORMAT_ENTROPY_LEVELS]
+        kinds += [("compress_stream_via_libzstd L1",
+                   lambda: qzt.compress_stream_via_libzstd(
+                       data, level=1, device="cuda", chunk_size=STREAM_CHUNK,
+                       flush_every=STREAM_FLUSH)),
+                  ("StreamCompressor L1", stream_feed)]
+        jobs = []
+        for name, run in kinds:
+            frame = counted(run)
+            if oracle.decompress(frame, len(data)) != data:
+                raise AssertionError(f"{name}: libzstd decode differs")
+            jobs.append((name, len(data), len(frame),
+                         pool.submit(port_decode_frame, frame, data)))
+        rng_seed = (args.seed, 10)
+        for level, entropy in ((1, False), (9, True)):
+            frames = []
+            for kind in range(len(FUZZ_KINDS)):
+                x = adversarial(np.random.default_rng((*rng_seed, kind)),
+                                (FORMAT_FUZZ_BYTES,), kind)
+                frame = counted(lambda: codec_frame(level, entropy, x,
+                                                    sections=False))
+                if oracle.decompress(frame, len(x)) != x:
+                    raise AssertionError(f"fuzz L{level} {entropy} "
+                                         f"{FUZZ_KINDS[kind]}: libzstd "
+                                         "decode differs")
+                frames.append((frame, x))
+            jobs.append((f"fuzz shapes L{level} {entropy}",
+                         len(frames) * FORMAT_FUZZ_BYTES,
+                         sum(len(f) for f, _ in frames),
+                         [pool.submit(port_decode_frame, f, x)
+                          for f, x in frames]))
+        diffs = []
+        x = data[:DIFF_BYTES]
+        for e in ("hybrid", True):
+            for lv in FORMAT_ENTROPY_LEVELS:
+                frame = counted(lambda: codec_frame(
+                    lv, e, x, block=DIFF_BLOCK, checksum=False))
+                if oracle.decompress(frame, len(x)) != x:
+                    raise AssertionError(f"L{lv} {e} {len(x)} bytes: "
+                                         "libzstd decode differs")
+                diffs.append((f"L{lv} {e}", len(frame), pool.submit(
+                    differential_frame, frame, args.seed * 1000 + lv,
+                    DIFF_MUTATIONS)))
+        card_s = time.perf_counter() - t0
+        lz4s_on_card(torch, qzt, tk, corpus, launches)
+
+        decode_s = 0.0
+        for name, nin, nframe, fut in jobs:
+            got = [f.result() for f in fut] if isinstance(fut, list) \
+                else [fut.result()]
+            if not all(ok for ok, _ in got):
+                raise AssertionError(f"{name}: the port's decoder did not "
+                                     "return the input")
+            sec = sum(t for _, t in got)
+            decode_s += sec
+            phase("format", case="decode", kind=name, input_bytes=nin,
+                  frame_bytes=nframe, frames=len(got), libzstd_equal=True,
+                  decoder_equal=True, host_decoder_s=sec,
+                  host_decoder_mbs=nin / sec / 1e6, card=card)
+        for name, nframe, fut in diffs:
+            r = fut.result()
+            if r["finding"] is not None:
+                raise AssertionError(f"differential {name}: the port's "
+                                     f"decoder and libzstd disagree: "
+                                     f"{r['finding']}")
+            if not r["both_decoded"]:
+                raise AssertionError(f"differential {name}: no mutation "
+                                     "decoded in both: nothing compared")
+            phase("format", case="differential", kind=name,
+                  input_bytes=DIFF_BYTES, frame_bytes=nframe,
+                  checksum=False, mutations=DIFF_MUTATIONS,
+                  both_decoded=r["both_decoded"],
+                  both_rejected=r["both_rejected"],
+                  stock_only_decoded=r["stricter"], agree=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    missing = [k for k in ROBUST_KERNELS if launches[k] == 0]
+    phase("format", case="phase 10", seconds=time.perf_counter() - t0,
+          card_s=card_s, frames=len(kinds) + 2 * len(FUZZ_KINDS),
+          host_decoder_s=decode_s, workers=FORMAT_WORKERS, card=card,
+          launches={k: n for k, n in launches.items() if n})
+    if missing:
+        raise AssertionError(f"phase 10: kernels never launched: {missing}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2667,6 +2993,12 @@ def main() -> int:
     # 9. Robustness on the card.
     for k, n in robustness_phase(torch, qzt, tk, oracle, root, args,
                                  dense_corpus, card).items():
+        launches[k] += n
+
+    # 10. The format contract: the card's frames read by the port's own
+    # decoder, the differential check, LZ4s with the card as the engine.
+    for k, n in format_phase(torch, qzt, tk, oracle, args, corpus,
+                             card).items():
         launches[k] += n
 
     ref = [m for m in sys.modules

@@ -22,7 +22,8 @@ qat_zstd_plugin_tpu.
         TpuCodec frame at the same level, batch size and device_entropy
         (False, "hybrid" or True/"full"), except where the reference's
         own faults corrupt its frame (ROADMAP.md §C)
-    decompress(frame_bytes, expected_size=None)   -> bytes (stock libzstd)
+    decompress(frame_bytes, expected_size=None)   -> bytes (stock libzstd,
+        else the port's own decoder, decoder.py)
 
 and the reference's deployment shape, a sequence producer that stock
 libzstd (>= 1.5.4) calls once a block, with the device half at batch 1:
@@ -105,11 +106,14 @@ def compress(data: bytes | np.ndarray, level: int = 1,
 
 def decompress(frame_bytes: bytes, expected_size: int | None = None
                ) -> bytes:
-    """Decode a zstd frame with stock libzstd (the reference's
-    decompress(), keyword names included). The port has no golden decoder
-    (by design), so without libzstd this raises oracle.ZstdOracleError
-    where the reference falls back to its Python decoder."""
-    return oracle.decompress(frame_bytes, expected_size)
+    """Decode a zstd frame (the reference's decompress(), keyword names
+    included). Stock libzstd when it is there; else the port's own
+    pure-Python/NumPy decoder (decoder.py), with expected_size as its
+    output cap, so the package decodes without libzstd too."""
+    if oracle.available():
+        return oracle.decompress(frame_bytes, expected_size)
+    from . import decoder
+    return decoder.decompress(frame_bytes, max_output=expected_size)
 
 
 class SeqProdState:

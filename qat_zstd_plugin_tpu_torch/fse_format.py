@@ -6,14 +6,19 @@ package's format layer:
 
   * from qat_zstd_plugin_tpu.format.tables: the LL/ML code baselines and
     extra-bit counts, the three predefined distributions and their
-    accuracy logs;
+    accuracy logs, and the format's maximum accuracy logs;
   * from qat_zstd_plugin_tpu.format.fse: `spread_symbols`,
-    `EncodeTable`, `build_encode_table` and `write_ncount`;
-  * from qat_zstd_plugin_tpu.format.bitstream: `ForwardBitWriter`;
+    `EncodeTable`, `build_encode_table` and `write_ncount`, and for the
+    decoder (decoder.py) `DecodeTable`, `build_decode_table` (fse.py:49-72)
+    and `read_ncount` (fse.py:202-247);
+  * from qat_zstd_plugin_tpu.format.bitstream: `ForwardBitWriter` and
+    `ForwardBitReader`;
   * from qat_zstd_plugin_tpu.format.sequences: `nbseq_header`.
 
-The section bytes equal the JAX package's only while these do;
-tests/test_torch_selfcontained.py holds them against it.
+The section bytes equal the JAX package's only while these do, and the
+decoder's verdicts only while the decode pieces do;
+tests/test_torch_selfcontained.py and tests/test_torch_decoder.py hold
+them against it.
 """
 
 from __future__ import annotations
@@ -68,6 +73,11 @@ OF_DEFAULT_DIST = [
 ]
 OF_DEFAULT_ACCURACY = 5
 
+# Maximum accuracy logs allowed by the format for each table kind.
+LL_MAX_ACCURACY = 9
+ML_MAX_ACCURACY = 9
+OF_MAX_ACCURACY = 8
+
 
 def nbseq_header(n: int) -> bytes:
     """Number_of_Sequences varint (RFC 8878 §3.1.1.3.2)."""
@@ -108,6 +118,35 @@ class ForwardBitWriter:
         return bytes(self._out)
 
 
+class ForwardBitReader:
+    __slots__ = ("_data", "_pos")
+
+    def __init__(self, data: bytes) -> None:
+        self._data = data
+        self._pos = 0
+
+    def read(self, nbits: int) -> int:
+        if nbits == 0:
+            return 0
+        byte0 = self._pos >> 3
+        nbytes = (self._pos % 8 + nbits + 7) // 8
+        chunk = int.from_bytes(self._data[byte0:byte0 + nbytes], "little")
+        val = (chunk >> (self._pos % 8)) & ((1 << nbits) - 1)
+        self._pos += nbits
+        return val
+
+    def peek(self, nbits: int) -> int:
+        save = self._pos
+        val = self.read(nbits)
+        self._pos = save
+        return val
+
+    @property
+    def byte_pos(self) -> int:
+        """Bytes consumed, rounded up."""
+        return (self._pos + 7) // 8
+
+
 def spread_symbols(norm: list[int], accuracy_log: int) -> np.ndarray:
     """The canonical symbol-spread over the state table (RFC 8878 §4.1.1)."""
     size = 1 << accuracy_log
@@ -129,6 +168,31 @@ def spread_symbols(norm: list[int], accuracy_log: int) -> np.ndarray:
     if pos != 0:
         raise ValueError("corrupted normalized counts (spread did not close)")
     return table
+
+
+@dataclass
+class DecodeTable:
+    """FSE decode table (decoder.py's sequence and weight tables)."""
+    accuracy_log: int
+    symbol: np.ndarray      # (size,) int32
+    nb_bits: np.ndarray     # (size,) int32
+    next_state: np.ndarray  # (size,) int32 (baseline; add read bits)
+
+
+def build_decode_table(norm: list[int], accuracy_log: int) -> DecodeTable:
+    size = 1 << accuracy_log
+    table = spread_symbols(norm, accuracy_log)
+    symbol_next = np.array([1 if c == -1 else c for c in norm], dtype=np.int64)
+    nb_bits = np.zeros(size, dtype=np.int32)
+    next_state = np.zeros(size, dtype=np.int32)
+    for u in range(size):
+        s = table[u]
+        x = int(symbol_next[s])
+        symbol_next[s] += 1
+        nb = accuracy_log - (x.bit_length() - 1)
+        nb_bits[u] = nb
+        next_state[u] = (x << nb) - size
+    return DecodeTable(accuracy_log, table.astype(np.int32), nb_bits, next_state)
 
 
 @dataclass
@@ -227,3 +291,44 @@ def write_ncount(norm: list[int], accuracy_log: int) -> bytes:
     if remaining != 1:
         raise ValueError("normalized counts do not sum to table size")
     return w.close()
+
+
+def read_ncount(data: bytes, max_symbol: int
+                ) -> tuple[list[int], int, int]:
+    """NCount reader (the decoder's FSE table descriptions).
+
+    Returns (norm_counts, accuracy_log, bytes_consumed).
+    """
+    r = ForwardBitReader(data)
+    accuracy_log = r.read(4) + 5
+    size = 1 << accuracy_log
+    remaining = size + 1
+    threshold = size
+    nb_bits = accuracy_log + 1
+    norm: list[int] = []
+    previous_is_0 = False
+    while remaining > 1:
+        if previous_is_0:
+            while True:
+                rep = r.read(2)
+                norm.extend([0] * rep)
+                if rep != 3:
+                    break
+        vmax = (2 * threshold - 1) - remaining
+        small = r.peek(nb_bits - 1)
+        if small < vmax:
+            r.read(nb_bits - 1)
+            count = small
+        else:
+            full = r.read(nb_bits)
+            count = full - vmax if full >= threshold else full
+        count -= 1
+        remaining -= -count if count < 0 else count
+        norm.append(count)
+        previous_is_0 = count == 0
+        while remaining < threshold and remaining > 1:
+            nb_bits -= 1
+            threshold >>= 1
+        if len(norm) > max_symbol + 1:
+            raise ValueError("too many symbols in NCount")
+    return norm, accuracy_log, r.byte_pos

@@ -9,7 +9,8 @@ format layer, beside fse_format.py (which holds `build_encode_table` and
     description, direct or FSE-compressed weights);
   * from qat_zstd_plugin_tpu.format.fse: `normalize_counts` and
     `FseEncoder`;
-  * from qat_zstd_plugin_tpu.format.bitstream: `BackwardBitWriter`;
+  * from qat_zstd_plugin_tpu.format.bitstream: `BackwardBitWriter`, and
+    for the decoder (decoder.py) `BackwardBitReader` (bitstream.py:64-100);
   * from qat_zstd_plugin_tpu.format.frame: `LIT_COMPRESSED` and
     `_literals_header` (here `literals_header`).
 
@@ -68,6 +69,44 @@ class BackwardBitWriter:
         out = bytes(self._out)
         self._out = bytearray()
         return out
+
+
+class BackwardBitReader:
+    """Read a backward stream: the decoder's Huffman and FSE streams."""
+
+    __slots__ = ("_data", "_bitpos")
+
+    def __init__(self, data: bytes) -> None:
+        if not data:
+            raise ValueError("empty backward bitstream")
+        last = data[-1]
+        if last == 0:
+            raise ValueError("corrupted stream: zero padding byte")
+        sentinel = last.bit_length() - 1  # position of highest set bit
+        self._data = data
+        self._bitpos = (len(data) - 1) * 8 + sentinel  # bits available
+
+    def read(self, nbits: int) -> int:
+        """Read `nbits`, the field added last coming out first."""
+        if nbits == 0:
+            return 0
+        if nbits > self._bitpos:
+            raise ValueError("bitstream underflow")
+        self._bitpos -= nbits
+        start = self._bitpos
+        # Extract bits [start, start+nbits) of the LSB-first stream.
+        byte0 = start >> 3
+        nbytes = (start % 8 + nbits + 7) // 8
+        chunk = int.from_bytes(self._data[byte0:byte0 + nbytes], "little")
+        return (chunk >> (start % 8)) & ((1 << nbits) - 1)
+
+    @property
+    def bits_remaining(self) -> int:
+        return self._bitpos
+
+    @property
+    def exhausted(self) -> bool:
+        return self._bitpos == 0
 
 
 class FseEncoder:

@@ -2,8 +2,9 @@
 
 Copy of qat_zstd_plugin_tpu.native, restricted to the entry points the
 port calls (xxh64, Xxh64Stream, block_body, block_body_external_seqsec,
-extend_sequences, fill_gaps, find_sequences, find_sequences_hinted, and
-compress_blocks_mt for the software codec of tools/).
+extend_sequences, fill_gaps, find_sequences, find_sequences_hinted,
+compress_blocks_mt for the software codec of tools/, and dec_lz4s, the
+reference's LZ4s decoder).
 `qz_entropy.cc` here is a byte-for-byte copy of the JAX package's
 source; the differences are in the build:
 
@@ -65,6 +66,7 @@ _SIGNATURES = {  # name: (restype, argtypes)
                           _I)),
     "qz_compress_blocks_mt": (None, (_P, _S, _S, _I, _I, _I, _I, _I, _I, _I,
                                      _I, _P, _P)),
+    "qz_dec_lz4s": (_S, (_P, _S, _P, _P, _P, _S)),
 }
 _FAIL = ctypes.c_size_t(-1).value
 
@@ -292,6 +294,29 @@ def fill_gaps(block: np.ndarray, lit: np.ndarray, off: np.ndarray,
                 last_literals)  # overflow: keep the original parse
     return (ll[:new_n].astype(np.int64), of[:new_n].astype(np.int64),
             mm[:new_n].astype(np.int64), int(lastlit.value))
+
+
+def dec_lz4s(stream: bytes | np.ndarray, capacity: int | None = None):
+    """Decode an LZ4s token stream into (lit, off, ml) arrays: qz_dec_lz4s,
+    the native counterpart of the reference's QZSTD_decLz4s
+    (src/qatseqprod.c:1013-1091), whose contract lz4s_format.py pins.
+    Raises ValueError on a malformed stream or more than `capacity`
+    sequences (default: the stream's length + 16)."""
+    lib = load()
+    arr = (np.ascontiguousarray(stream, np.uint8)
+           if isinstance(stream, np.ndarray)
+           else np.frombuffer(stream, np.uint8))
+    n = len(arr)
+    cap = capacity if capacity is not None else n + 16
+    ll = np.empty(cap, np.uint32)
+    of = np.empty(cap, np.uint32)
+    ml = np.empty(cap, np.uint32)
+    got = lib.qz_dec_lz4s(arr.ctypes.data, n, ll.ctypes.data,
+                          of.ctypes.data, ml.ctypes.data, cap)
+    if got == _FAIL:
+        raise ValueError("malformed LZ4s stream or capacity exceeded")
+    return (ll[:got].astype(np.int64), of[:got].astype(np.int64),
+            ml[:got].astype(np.int64))
 
 
 def find_sequences(block: np.ndarray, chain_depth: int, lazy: bool,

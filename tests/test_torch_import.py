@@ -40,12 +40,12 @@ from qat_zstd_plugin_tpu_torch.ops import (_build, bitconcat, bitpack,
                                           parse_kernel, sort_kernel)
 from qat_zstd_plugin_tpu_torch.runtime import (device, gpu_codec, levels,
                                                stats, stream)
-from qat_zstd_plugin_tpu_torch import (corpus, format, fse_format,
-                                       huffman_format, native, oracle,
-                                       profile_l1)
+from qat_zstd_plugin_tpu_torch import (corpus, decoder, format, fse_format,
+                                       huffman_format, lz4s_format, native,
+                                       oracle, profile_l1, xxhash)
 from qat_zstd_plugin_tpu_torch.parallel import distributed, mesh, pipeline
 from qat_zstd_plugin_tpu_torch.runtime import soft_codec
-from qat_zstd_plugin_tpu_torch.tools import benchmark, cli
+from qat_zstd_plugin_tpu_torch.tools import benchmark, cli, fuzz_decoder
 from qat_zstd_plugin_tpu_torch.utils import (config, corpora, logging,
                                              profiling)
 assert qzt.GpuCodec is gpu_codec.GpuCodec
@@ -81,6 +81,25 @@ assert qzt.decompress(frame, len(data)) == data
 sc = qzt.StreamCompressor(level=1, batch=2, device='cpu')
 frame = sc.compress(data) + sc.finish()
 assert qzt.decompress(frame, len(data)) == data
+assert 'jax' not in sys.modules
+assert not any(m.split('.')[0] == 'qat_zstd_plugin_tpu' for m in sys.modules)
+print('ok')
+""",
+    "decoder": """
+import numpy as np
+import qat_zstd_plugin_tpu_torch as qzt
+from qat_zstd_plugin_tpu_torch import decoder, lz4s_format, native, oracle
+rng = np.random.default_rng(0)
+data = (rng.integers(0, 8, 131072 + 999, np.uint8)).tobytes()
+frame = qzt.compress(data, level=1, batch=2, device='cpu')
+assert decoder.decompress(frame) == data
+oracle.available = lambda: False
+assert qzt.decompress(frame, len(data)) == data
+seqs = [lz4s_format.Sequence(3, 2, 5), lz4s_format.Sequence(0, 1, 0)]
+stream = lz4s_format.encode(seqs, b'abc')
+assert lz4s_format.decode(stream) == seqs
+assert [a.tolist() for a in native.dec_lz4s(stream)] == [[2, 1], [3, 0],
+                                                         [5, 0]]
 assert 'jax' not in sys.modules
 assert not any(m.split('.')[0] == 'qat_zstd_plugin_tpu' for m in sys.modules)
 print('ok')

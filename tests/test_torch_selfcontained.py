@@ -8,7 +8,9 @@ sequence sections need (the code tables, the encode tables, the table
 descriptions, the nbSeq header and the closing of the backward stream),
 the Huffman pieces the full-mode literals sections need (the tree
 description, the weights' FSE compression and normalization, the literals
-header), and the process defaults (utils/config.py).
+header), the decoder's pieces (the FSE decode table, the table
+description reader, the backward bit reader, the NumPy XXH64), and the
+process defaults (utils/config.py).
 """
 
 import dataclasses
@@ -33,6 +35,7 @@ import qat_zstd_plugin_tpu_torch as qzt
 from qat_zstd_plugin_tpu_torch import format as tformat
 from qat_zstd_plugin_tpu_torch import (fse_format, huffman_format, native,
                                        oracle)
+from qat_zstd_plugin_tpu_torch import xxhash as port_xxhash
 from qat_zstd_plugin_tpu_torch.ops import bitpack
 from qat_zstd_plugin_tpu_torch.runtime import gpu_codec, levels, stats
 from qat_zstd_plugin_tpu_torch.utils import config
@@ -144,7 +147,8 @@ def test_fse_format_constants_equal():
     for name in ("LL_BASELINES", "LL_BITS", "ML_BASELINES", "ML_BITS",
                  "LL_DEFAULT_DIST", "ML_DEFAULT_DIST", "OF_DEFAULT_DIST",
                  "LL_DEFAULT_ACCURACY", "ML_DEFAULT_ACCURACY",
-                 "OF_DEFAULT_ACCURACY"):
+                 "OF_DEFAULT_ACCURACY", "LL_MAX_ACCURACY",
+                 "ML_MAX_ACCURACY", "OF_MAX_ACCURACY"):
         assert getattr(fse_format, name) == getattr(tables, name), name
 
 
@@ -176,6 +180,82 @@ def test_fse_tables_and_descriptions_equal(i):
     for f in ("state_table", "delta_nb_bits", "delta_find_state"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     assert fse_format.write_ncount(norm, al) == fse.write_ncount(norm, al)
+
+
+def _outcome(fn, *args):
+    """fn(*args), or the class name of what it raised."""
+    try:
+        return fn(*args)
+    except Exception as e:  # the verdicts are compared, whatever they are
+        return type(e).__name__
+
+
+@pytest.mark.parametrize("i", range(8))
+def test_fse_decode_pieces_equal(i):
+    """The decoder's copies: build_decode_table field by field, and
+    read_ncount on the table description, on it cut short, with a byte
+    changed and with tails, with the JAX package's result or exception."""
+    norm, al = _norms()[i]
+    norm = [int(c) for c in norm]
+    got = fse_format.build_decode_table(norm, al)
+    want = fse.build_decode_table(norm, al)
+    assert got.accuracy_log == want.accuracy_log
+    for f in ("symbol", "nb_bits", "next_state"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        assert getattr(got, f).dtype == getattr(want, f).dtype
+    desc = fse.write_ncount(norm, al)
+    rng = np.random.default_rng(i)
+    cases = [desc, desc + b"\xff\x00", desc[:-1], desc[:1], b"", b"\x0f"]
+    for _ in range(40):
+        d = bytearray(desc)
+        d[int(rng.integers(0, len(d)))] = int(rng.integers(0, 256))
+        cases.append(bytes(d))
+    for d in cases:
+        for max_symbol in (63, 255, len(norm) - 2):
+            assert _outcome(fse_format.read_ncount, d, max_symbol) == \
+                _outcome(fse.read_ncount, d, max_symbol), (d.hex(),
+                                                           max_symbol)
+    assert fse_format.read_ncount(desc, 255) == (norm, al, len(desc))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_backward_bit_reader_equal(seed):
+    """BackwardBitReader on a written stream and on random bytes: the
+    same fields, bits_remaining, exhausted and refusals."""
+    rng = np.random.default_rng(seed)
+    w = bitstream.BackwardBitWriter()
+    for _ in range(200):
+        nb = int(rng.integers(0, 25))
+        w.add(int(rng.integers(0, 1 << nb)), nb)
+    streams = [w.close(), rng.integers(0, 256, 37, np.uint8).tobytes(),
+               b"\x01", b"\x80", b"", b"\x12\x00"]
+    for data in streams:
+        mine = _outcome(huffman_format.BackwardBitReader, data)
+        ref = _outcome(bitstream.BackwardBitReader, data)
+        if isinstance(ref, str):
+            assert mine == ref
+            continue
+        while True:
+            nb = int(rng.integers(0, 20))
+            a, b = _outcome(mine.read, nb), _outcome(ref.read, nb)
+            assert a == b
+            assert (mine.bits_remaining, mine.exhausted) == \
+                (ref.bits_remaining, ref.exhausted)
+            if isinstance(a, str) or mine.exhausted:
+                break
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 7, 8, 31, 32, 33, 100, 4096,
+                               65791])
+def test_numpy_xxh64_equal(n):
+    """xxhash.py, the decoder's checksum, against the JAX package's and
+    the native runtime's, on bytes and on arrays, at seeds 0 and 7."""
+    data = np.random.default_rng(n).integers(0, 256, n, np.uint8)
+    for seed in (0, 7, (1 << 64) - 1):
+        want = xxhash.xxh64(data, seed)
+        assert port_xxhash.xxh64(data, seed) == want
+        assert port_xxhash.xxh64(data.tobytes(), seed) == want
+        assert native.xxh64(data, seed) == want
 
 
 def test_nbseq_header_and_bit_writers_equal():
