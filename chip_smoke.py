@@ -13,9 +13,11 @@ its four modes, with threads and processes, the CLI and the profiler
 trace) on the card, holds the port to its robustness surface there
 (adversarial inputs at every level against the CPU twins, wrong device
 claims, validate, one codec shared by threads, a first build by two
-processes), checks every frame with stock libzstd, and reads the card's
+processes), checks every frame with stock libzstd, reads the card's
 frames of every kind with the port's own decoder (decoder.py), mutated
-ones against libzstd, and the producer's triples as LZ4s.
+ones against libzstd, and the producer's triples as LZ4s, and drives the
+rest of the package on the card (B10's segmented parse, the packed hash
+contract, the batch, staged and sharded pipelines, bitpack, entry.py).
 
     python3 chip_smoke.py [--seed S] [--mb 64]
 
@@ -57,7 +59,10 @@ Run from the repository root on a machine with one CUDA device. Phases
      of the same bytes (copy_ms: to int32 for B5 and B9, to int64 for
      B6); B10 on the L5 and L12 candidate lengths of
      the B=64 batch and on crafted rows, lazy on and off, each case also
-     back to back (stream_ms, as B11, B12, B17 and B18); B11 and B13
+     back to back (stream_ms, as B11, B12, B17 and B18), and the same in
+     its segmented mode at psegs 2, 4 and 8 (each candidate cut at its
+     segment's end; the crafted rows' matches cross every segment end);
+     B11 and B13
      (full and ragged lengths) on corpus, random and mixed bytes; B7 and
      B13 also timed on corpus, random and mixed bytes apart, and at
      B=37 x 65536 and B=64 x 4100 with ragged lengths, each B7 and B13
@@ -226,7 +231,26 @@ Run from the repository root on a machine with one CUDA device. Phases
      LZ4s (lz4s_format.encode) read back exactly by lz4s_format.decode and
      native.dec_lz4s and valid for the slice (format.validate_sequences).
      The launch counts are reset just before and read just after each
-     card call; every kernel a level reaches must launch in this phase.
+     card call; every kernel a level reaches must launch in this phase;
+ 11. the rest of the package on the card, at B=64 blocks of 128 KiB of
+     the 32 MiB corpus unless named, each call against the same call on
+     the CPU twins (computed in three spawned workers meanwhile), equal
+     in every field, with its ms a batch and its launch counts (reset
+     just before, read just after; every kernel a path reaches must
+     launch): find_matches_positions on level 1's table with the parse
+     (dense=False, sync=False) at psegs 4, greedy and lazy (B5, K2, B7,
+     B9, K3, B10, B17), and GpuCodec(level=1, batch=64) with that table
+     on the 32 MiB corpus plus the tail (decoded by libzstd) and at batch
+     8 on 8 blocks + the tail (equal to device="cpu"); the packed hash
+     contract, find_matches_packed(matcher="hash") and
+     find_matches_hash_split at widths (5, 8), window 32768 (B5, K2, B7,
+     B10, B18); find_matches_staged, greedy and lazy (B10);
+     parallel.mesh.sharded_pipeline and compression_step in an NCCL world
+     of one here and on two gloo ranks sharing the card (each rank's rows
+     and every block's stats, gathered in block order); bitpack on the
+     items of level 9's sequence sections (B14's state bits and the
+     extras), also equal to bitconcat's words where a row fits; entry()'s
+     fn (K1-K4); entry.dryrun_multichip(2, device="cuda").
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -240,7 +264,6 @@ import concurrent.futures
 import contextlib
 import io
 import json
-import math
 import multiprocessing
 import os
 import socket
@@ -274,6 +297,7 @@ REF = "qat_zstd_plugin_tpu/ops/glue_kernels.py"
 LIT_REF = "qat_zstd_plugin_tpu/ops/literals_kernel.py"
 HYBRID_LEVELS = (1, 9)  # hybrid device entropy: the hash and content paths
 WINMIN_STRIDES = tuple(1 << s for s in range(13))  # B6's and B9's: 1-4096
+PARSE_SEGMENTS = (2, 4, 8)  # B10's segmented mode in phase 2
 MAX_SEQ = 16384  # GpuCodec's max_seq, bench.py's hybrid row
 # The producer's shapes: one block a call (batch 1, no LDM), zero-padded
 # to 128 KiB, at a full length, ragged ones (a flush-forced or the last
@@ -341,6 +365,22 @@ STRICTER_REJECTS = ("huffman stream underflow",
 LZ4S_BLOCK = 65536  # LZ4s offsets are 16 bits, as on the QAT engine
 LZ4S_SLICES = 16
 LZ4S_LEVELS = (1, 4, 9)
+# Phase 11: the rest of the package at B=64 x 128 KiB of the DENSE_MB
+# corpus: the parsed L1 path at psegs 4 (level 1's table with the parse,
+# dense=False, sync=False), greedy and lazy; the packed hash contract at
+# widths (5, 8) in four segments a block; the content pipeline's staged
+# form, greedy and lazy (and through it sharded_pipeline and
+# compression_step); CPU twins in REST_WORKERS spawned workers.
+REST_WORKERS = 3
+PSEGS_TABLES = tuple(dict(dense=False, sync=False, lazy=lazy, psegs=4)
+                     for lazy in (False, True))
+PSEGS_CASES = tuple(dict(widths=(6,), window=WINDOW, ldm=4,
+                         ldm_max_off=1 << 19, dense=False, sync=False,
+                         lazy=lazy, psegs=4) for lazy in (False, True))
+HASH_PACKED = dict(widths=(5, 8), neighbors=1, window=WINDOW,
+                   max_seq=MAX_SEQ)
+REST_BATCH_KW = dict(neighbors=4, max_seq=MAX_SEQ)
+SEQ_WORDS = 8192  # match_pipeline.SEQ_WORDS: a block's section stream
 # The CUDA functions of K1-K4 (csrc/l1_kernels.cu), as a trace names them.
 L1_FUNCTIONS = ("hash_keys_winmin_sync_kernel", "neighbor_unsort_keys_kernel",
                 "ldm_keys_kernel", "compact_slots_sync_kernel")
@@ -388,6 +428,13 @@ HYBRID_KERNELS = {
 # With full device entropy: the hybrid kernels and the literals' two.
 FULL_KERNELS = {level: kernels + ("literal_keys", "byte_hist")
                 for level, kernels in HYBRID_KERNELS.items()}
+# Phase 11's paths: the parsed L1 path (psegs 4) and GpuCodec with its
+# table, and the packed hash contract.
+PSEGS_KERNELS = ("hash_keys", "neighbor_unsort_keys", "finalize_candidates",
+                 "ldm_winmin", "ldm_keys", "parse_greedy", "compact_slots")
+HASH_PACKED_KERNELS = ("hash_keys", "neighbor_unsort_keys",
+                       "finalize_candidates", "parse_greedy",
+                       "compact_operands")
 # Phase 9's: every kernel a level reaches; B17-B19 stay on phase 3's paths.
 ROBUST_KERNELS = tuple(k for k in KERNELS if k not in (
     "compact_slots", "compact_operands", "bitonic_sort"))
@@ -875,10 +922,14 @@ def _crafted_lengths(B: int, N: int, rng) -> np.ndarray:
     return m
 
 
-def _visited(torch, chosen, mlen) -> int:
+def _visited(torch, chosen, mlen, psegs: int = 1) -> int:
     """Positions the parse's cursor visits: all but the interiors of the
-    chosen matches (the data-dependent reads of B10)."""
-    N = mlen.shape[1]
+    chosen matches (the data-dependent reads of B10), each match cut at
+    its row's end: the block's, or with psegs > 1 its parse segment's."""
+    B, N = mlen.shape
+    chosen = chosen.reshape(B * psegs, N // psegs)
+    mlen = mlen.reshape(B * psegs, N // psegs)
+    N //= psegs
     pos = torch.arange(N, device=mlen.device)
     inner = torch.where(chosen, torch.clamp(pos + mlen, max=N) - pos - 1, 0)
     return int(chosen.numel() - inner.sum())
@@ -933,6 +984,23 @@ def content_kernels_vs_twins(torch, tk, pk, mp, blocks_np: np.ndarray,
                  lambda: pk.parse_greedy_twin(mlen, lazy),
                  main=(what, lazy) == ("L5 candidates", True),
                  stream_ms=stream_ms(torch, run))
+    # B10's segmented mode (trunc: psegs rows a block, each candidate cut
+    # at its segment's end) on the same rows; the crafted ones cross every
+    # segment end (their matches cross each 4096-position edge). Its bytes
+    # are psegs 1's: each visited position's length read once.
+    for what, mlen in inputs.items():
+        for psegs in PARSE_SEGMENTS:
+            for lazy in (False, True):
+                chosen = pk.parse_greedy(mlen, lazy, psegs)
+                err = exact(torch, chosen,
+                            pk.parse_greedy_twin(mlen, lazy, psegs),
+                            f"parse_greedy {what} lazy={lazy} psegs={psegs}")
+                run = lambda: pk.parse_greedy(mlen, lazy, psegs)
+                case("parse_greedy", f"{what}, lazy={lazy}, psegs={psegs}",
+                     err, 4 * _visited(torch, chosen, mlen, psegs)
+                     + nbytes(chosen), run,
+                     lambda: pk.parse_greedy_twin(mlen, lazy, psegs),
+                     psegs=psegs, stream_ms=stream_ms(torch, run))
     torch.cuda.synchronize()
 
 
@@ -1719,13 +1787,6 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def mesh_batch(nfull: int, world: int, ldm: int) -> int:
-    """compress_mesh's row count B: the full blocks padded to a multiple
-    of lcm(world, LDM span) (the JAX package's parallel/pipeline.py:69-77)."""
-    unit = math.lcm(world, ldm or 1)
-    return max(unit, -(-nfull // unit) * unit)
-
-
 def mesh_run(torch, tk, pipeline, mesh, level: int, data: bytes) -> tuple:
     """One compress_mesh run on the card after a warm-up on 8 blocks and
     the tail, the launch counts reset just before and read just after:
@@ -1798,6 +1859,55 @@ def _mesh_check(oracle, what: str, level: int, frame: bytes, want: bytes,
                              f"launched: {missing}")
 
 
+def spawn_ranks(target, world: int, *args) -> tuple:
+    """Phase 7's and phase 11's gloo ranks: `world` spawned processes
+    running target(rank, world, init_method, *args, queue, go) around a
+    tcp://127.0.0.1 store. Returns (procs, queue, go)."""
+    ctx = multiprocessing.get_context("spawn")
+    queue, go = ctx.Queue(), ctx.Event()
+    init_method = f"tcp://127.0.0.1:{_free_port()}"
+    procs = [ctx.Process(target=target, args=(r, world, init_method, *args,
+                                              queue, go))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, queue, go
+
+
+def rank_replies(queue, procs: list, kind: str) -> dict:
+    """Each rank's next message, which must be of `kind`; raises if a rank
+    dies first or none comes within MESH_TIMEOUT_S."""
+    out = {}
+    t0 = time.perf_counter()
+    while len(out) < len(procs):
+        try:
+            msg = queue.get(timeout=5)
+        except Empty:
+            dead = {r: p.exitcode for r, p in enumerate(procs)
+                    if r not in out and not p.is_alive()}
+            if dead or time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                raise AssertionError(f"ranks: no {kind!r} message; dead "
+                                     f"ranks {dead}")
+            continue
+        if msg[0] == "error":
+            raise AssertionError(f"rank {msg[1]}:\n{msg[2]}")
+        if msg[0] != kind:
+            raise AssertionError(f"rank message {msg[:2]}")
+        out[msg[1]] = msg[2:]
+    return out
+
+
+def join_ranks(procs: list, go) -> list:
+    """Let the ranks go and wait for them; returns their exit codes."""
+    go.set()
+    for p in procs:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.terminate()
+            p.join()
+    return [p.exitcode for p in procs]
+
+
 def mesh_phase(torch, qzt, tk, oracle, root: str, args, corpus: bytes,
                dense_corpus: bytes, card: str, phase4_mbs: dict) -> dict:
     """Phase 7: the reference frames, compress_mesh at level 1 in an NCCL
@@ -1807,39 +1917,15 @@ def mesh_phase(torch, qzt, tk, oracle, root: str, args, corpus: bytes,
     timed run is over). Returns the launch counts of the timed runs, every
     process's."""
     import torch.distributed as dist
+    from qat_zstd_plugin_tpu_torch.entry import mesh_batch
     from qat_zstd_plugin_tpu_torch.parallel import mesh, pipeline
     from qat_zstd_plugin_tpu_torch.runtime.levels import TPU_LEVEL_TABLE
     data = {1: corpus, 4: dense_corpus, 9: dense_corpus}
-    ctx = multiprocessing.get_context("spawn")
-    queue, go = ctx.Queue(), ctx.Event()
-    init_method = f"tcp://127.0.0.1:{_free_port()}"
-    procs = [ctx.Process(target=mesh_rank, args=(
-        r, MESH_RANKS, init_method, root, args.seed, args.mb, queue, go))
-        for r in range(MESH_RANKS)]
-    for p in procs:
-        p.start()
+    procs, queue, go = spawn_ranks(mesh_rank, MESH_RANKS, root, args.seed,
+                                   args.mb)
 
     def replies(kind: str) -> dict:
-        """Each rank's next message, which must be of `kind`; raises if a
-        rank dies first or none comes within MESH_TIMEOUT_S."""
-        out = {}
-        t0 = time.perf_counter()
-        while len(out) < MESH_RANKS:
-            try:
-                msg = queue.get(timeout=5)
-            except Empty:
-                dead = {r: p.exitcode for r, p in enumerate(procs)
-                        if r not in out and not p.is_alive()}
-                if dead or time.perf_counter() - t0 > MESH_TIMEOUT_S:
-                    raise AssertionError(f"mesh ranks: no {kind!r} "
-                                         f"message; dead ranks {dead}")
-                continue
-            if msg[0] == "error":
-                raise AssertionError(f"mesh rank {msg[1]}:\n{msg[2]}")
-            if msg[0] != kind:
-                raise AssertionError(f"mesh rank message {msg[:2]}")
-            out[msg[1]] = msg[2:]
-        return out
+        return rank_replies(queue, procs, kind)
 
     launches = dict.fromkeys(KERNELS, 0)
     try:
@@ -1891,13 +1977,7 @@ def mesh_phase(torch, qzt, tk, oracle, root: str, args, corpus: bytes,
             "orchestration (span split, context spans, ordered gather), "
             "not scaling; NCCL across cards is not exercised on one card"))
     finally:
-        go.set()
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.terminate()
-                p.join()
-    codes = [p.exitcode for p in procs]
+        codes = join_ranks(procs, go)
     if any(codes):
         raise AssertionError(f"mesh ranks exited with {codes}")
     return launches
@@ -2810,6 +2890,396 @@ def format_phase(torch, qzt, tk, oracle, args, corpus: bytes,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the rest of the package on the card
+# ---------------------------------------------------------------------------
+
+def cpu_rest(path: str, blocks_np: np.ndarray, kw: dict):
+    """The CPU side of a phase 11 path check, in a worker process: the
+    match_pipeline or glue_kernels function `path` on the twins."""
+    import torch
+    from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
+    from qat_zstd_plugin_tpu_torch.ops import match_pipeline as mp
+    fn = {"positions": mp.find_matches_positions,
+          "hash_split": tk.find_matches_hash_split,
+          "staged": mp.find_matches_staged}[path]
+    B, N = blocks_np.shape
+    return _numpy(fn(torch.from_numpy(blocks_np),
+                     torch.full((B,), N, dtype=torch.int32), **kw))
+
+
+def cpu_table_frame(level: int, batch: int, data: bytes, table: dict
+                    ) -> bytes:
+    """The CPU frame of GpuCodec(level, batch) with the level's device
+    table replaced by `table`'s fields, in a worker process."""
+    import dataclasses
+    import qat_zstd_plugin_tpu_torch as qzt
+    from qat_zstd_plugin_tpu_torch.runtime import levels
+    levels.TPU_LEVEL_TABLE[level] = dataclasses.replace(
+        levels.TPU_LEVEL_TABLE[level], **table)
+    return qzt.GpuCodec(level=level, batch=batch,
+                        device="cpu").compress(data)
+
+
+def cpu_bitpack(lo: np.ndarray, hi: np.ndarray, nb: np.ndarray,
+                max_words: int):
+    """bitpack on the CPU, in a worker process."""
+    import torch
+    from qat_zstd_plugin_tpu_torch.ops import bitpack
+    return _numpy(bitpack.bitpack(torch.from_numpy(lo), torch.from_numpy(hi),
+                                  torch.from_numpy(nb), max_words))
+
+
+def cpu_entry() -> np.ndarray:
+    """entry("cpu")'s fn on its inputs, in a worker process."""
+    from qat_zstd_plugin_tpu_torch import entry
+    fn, args = entry.entry("cpu")
+    return fn(*args).numpy()
+
+
+def _rest_worker_init() -> None:
+    """Each phase 11 CPU worker takes its share of the host's cores."""
+    import torch
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // REST_WORKERS))
+
+
+def pipeline_rank(rank: int, world: int, init_method: str, root: str,
+                  blocks_np: np.ndarray, queue, go) -> None:
+    """Phase 11, one gloo rank in a spawned process, driving cuda:0:
+    joins the group, reports ("ready", rank), waits for `go`, then runs
+    sharded_pipeline and compression_step (REST_BATCH_KW) on its share of
+    the rows and reports ("done", rank, rows, out, stats, launches, ms),
+    or ("error", rank, traceback)."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, root)
+    try:
+        from qat_zstd_plugin_tpu_torch.ops import glue_kernels as tk
+        from qat_zstd_plugin_tpu_torch.parallel import distributed, mesh
+        from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
+        torch.cuda.set_device(0)
+        distributed.init(init_method, world_size=world, rank=rank,
+                         backend="gloo")
+        m = mesh.make_mesh()
+        B = len(blocks_np)
+        rows = (rank * B // world, (rank + 1) * B // world)
+        x = torch.from_numpy(blocks_np[rows[0]:rows[1]]).cuda()
+        n = torch.full((len(x),), BLOCK, dtype=torch.int32, device="cuda")
+        queue.put(("ready", rank))
+        if not go.wait(MESH_TIMEOUT_S):
+            raise TimeoutError("no go from the parent")
+        run = mesh.sharded_pipeline(m, **REST_BATCH_KW, device="cuda")
+        step = mesh.compression_step(m, **REST_BATCH_KW, device="cuda")
+        tk.reset_launches()
+        out = run(x, n)
+        o2, stats = step(x, n)
+        torch.cuda.synchronize()
+        launches = dict(tk.launches)
+        for k in out:
+            if not torch.equal(out[k], o2[k]):
+                raise AssertionError(f"compression_step's {k} differs")
+        ms = cuda_ms(lambda: run(x, n), reps=5)
+        queue.put(("done", rank, rows, _numpy({k: v.cpu() for k, v in
+                                                out.items()}),
+                   _numpy({k: v.cpu() for k, v in stats.items()}),
+                   launches, ms))
+    except Exception:
+        queue.put(("error", rank, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    queue.close()
+    queue.join_thread()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def _equal_dict(torch, got: dict, want: dict, what: str) -> None:
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: dict keys differ")
+    for k, v in want.items():
+        exact(torch, torch.as_tensor(got[k]).cpu(), torch.as_tensor(v),
+              f"{what} {k}")
+
+
+def _b14_items(torch, tk, fk, mp, blocks, lengths):
+    """The items B14 and the extras hand the packer at B=64: level 9's
+    hybrid compaction of the batch, its sections prepared and B14 run,
+    [state_0, extras_0, state_1, ...] as in fse_kernel.finish_sections,
+    (lo, hi, nbits) int32 each."""
+    out = mp.content_sequences(blocks, lengths, 8, MAX_SEQ, True)[0]
+    prep = fk.prepare_sections(out["lit_len"], out["offset"],
+                               out["match_len"], out["nseq"], True)
+    st_lo, st_nb = fk.run_state_kernel(*prep["state_args"])
+    ex_lo, ex_hi, ex_nb = prep["extras"]
+    B, S1 = ex_lo.shape
+    lo = torch.stack([st_lo.t().to(torch.int64) & 0xFFFFFFFF, ex_lo], 2)
+    hi = torch.stack([torch.zeros_like(ex_hi), ex_hi], 2)
+    nb = torch.stack([st_nb.t().to(torch.int64), ex_nb], 2)
+    return tuple(tk._i32(a.reshape(B, 2 * S1)).contiguous()
+                 for a in (lo, hi, nb))
+
+
+def _need(launches: dict, kernels, what: str) -> None:
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels never launched: {missing}")
+
+
+def rest_phase(torch, qzt, tk, oracle, root: str, dense_np: np.ndarray,
+               dense_corpus: bytes, card: str) -> dict:
+    """Phase 11: the paths of the JAX package the port holds beyond the
+    levels' own, on the card against the same call on the CPU twins
+    (computed in REST_WORKERS spawned workers meanwhile), each timed a
+    batch with its launch counts read just after: the parsed L1 path at
+    psegs 4 and GpuCodec with that table, the packed hash contract,
+    find_matches_staged (greedy and lazy), sharded_pipeline and
+    compression_step (an NCCL world of one here, then MESH_RANKS gloo
+    ranks sharing the card), bitpack on B14's items, entry() and
+    dryrun_multichip. Returns the launch counts of the counted calls."""
+    import dataclasses
+    import torch.distributed as dist
+    from qat_zstd_plugin_tpu_torch import entry
+    from qat_zstd_plugin_tpu_torch.ops import bitconcat, bitpack
+    from qat_zstd_plugin_tpu_torch.ops import fse_kernel as fk
+    from qat_zstd_plugin_tpu_torch.ops import match_pipeline as mp
+    from qat_zstd_plugin_tpu_torch.parallel import mesh
+    from qat_zstd_plugin_tpu_torch.profile_l1 import cuda_ms
+    from qat_zstd_plugin_tpu_torch.runtime import levels
+    t_phase = time.perf_counter()
+    B, N = dense_np.shape
+    dev = torch.device("cuda")
+    blocks = torch.from_numpy(dense_np).to(dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    frame_data = dense_corpus[:8 * BLOCK + TAIL]
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(fn, kernels, what: str):
+        out, n = _on_card_counted(torch, tk, fn)
+        _need(n, kernels, what)
+        for k, v in n.items():
+            launches[k] += v
+        return out, {k: v for k, v in n.items() if v}
+
+    procs, queue, go = spawn_ranks(pipeline_rank, MESH_RANKS, root, dense_np)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        REST_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_rest_worker_init)
+    try:
+        w_parsed = [pool.submit(cpu_rest, "positions", dense_np, kw)
+                    for kw in PSEGS_CASES]
+        w_hash = pool.submit(cpu_rest, "hash_split", dense_np, HASH_PACKED)
+        w_batch = pool.submit(cpu_rest, "staged", dense_np, REST_BATCH_KW)
+        w_staged = pool.submit(cpu_rest, "staged", dense_np,
+                               {**REST_BATCH_KW, "lazy": True})
+        w_entry = pool.submit(cpu_entry)
+        w_frames = [pool.submit(cpu_table_frame, 1, 8, frame_data, table)
+                    for table in PSEGS_TABLES]
+
+        # The parsed L1 path at psegs 4, greedy and lazy.
+        got_parsed = []
+        for kw in PSEGS_CASES:
+            out, n = counted(lambda: mp.find_matches_positions(
+                blocks, lengths, **kw), PSEGS_KERNELS, f"psegs {kw}")
+            got_parsed.append((out.cpu(), n, cuda_ms(
+                lambda: mp.find_matches_positions(blocks, lengths, **kw),
+                reps=5)))
+        # GpuCodec on that table: 32 MiB + the tail, and the 8-block frames.
+        base = levels.TPU_LEVEL_TABLE[1]
+        got_frames = []
+        try:
+            for table in PSEGS_TABLES:
+                levels.TPU_LEVEL_TABLE[1] = dataclasses.replace(base, **table)
+                qzt.GpuCodec(level=1, batch=B, device="cuda").compress(
+                    dense_corpus[:BLOCK + TAIL])  # warm-up
+                codec = qzt.GpuCodec(level=1, batch=B, device="cuda")
+                tk.reset_launches()
+                t0 = time.perf_counter()
+                frame = codec.compress(dense_corpus)
+                seconds = time.perf_counter() - t0
+                n = dict(tk.launches)
+                _need(n, PSEGS_KERNELS, f"GpuCodec L1 {table}")
+                for k, v in n.items():
+                    launches[k] += v
+                if oracle.decompress(frame, len(dense_corpus)) != \
+                        dense_corpus:
+                    raise AssertionError(f"GpuCodec L1 {table}: libzstd "
+                                         "decode differs")
+                if codec.stats.fallback_blocks or \
+                        codec.device_blocks != len(dense_corpus) // BLOCK:
+                    raise AssertionError(f"GpuCodec L1 {table}: a block fell "
+                                         "back")
+                phase("rest", path="GpuCodec L1 parsed", table=table,
+                      batch=B, input_bytes=len(dense_corpus),
+                      frame_bytes=len(frame),
+                      ratio=len(frame) / len(dense_corpus), seconds=seconds,
+                      e2e_mbs=len(dense_corpus) / seconds / 1e6,
+                      decoder="libzstd",
+                      launches={k: v for k, v in n.items() if v})
+                got_frames.append(qzt.GpuCodec(
+                    level=1, batch=8, device="cuda").compress(frame_data))
+        finally:
+            levels.TPU_LEVEL_TABLE[1] = base
+
+        # The packed hash contract, both entry points.
+        got_hash = {}
+        for name, fn in (
+                ("find_matches_packed(matcher='hash')",
+                 lambda: mp.find_matches_packed(blocks, lengths,
+                                                matcher="hash",
+                                                **HASH_PACKED)),
+                ("find_matches_hash_split",
+                 lambda: tk.find_matches_hash_split(blocks, lengths,
+                                                    **HASH_PACKED))):
+            out, n = counted(fn, HASH_PACKED_KERNELS, name)
+            got_hash[name] = (out.cpu(), n, cuda_ms(fn, reps=5))
+        # find_matches_staged, greedy and lazy.
+        got_content = {}
+        for name, fn in (
+                ("find_matches_staged", lambda: mp.find_matches_staged(
+                    blocks, lengths, **REST_BATCH_KW)),
+                ("find_matches_staged lazy", lambda: mp.find_matches_staged(
+                    blocks, lengths, **REST_BATCH_KW, lazy=True))):
+            out, n = counted(fn, ("parse_greedy",), name)
+            got_content[name] = ({k: v.cpu() for k, v in out.items()}, n,
+                                 cuda_ms(fn, reps=5))
+        # sharded_pipeline and compression_step in an NCCL world of one.
+        dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                                f"{_free_port()}", world_size=1, rank=0)
+        try:
+            m = mesh.make_mesh()
+            run = mesh.sharded_pipeline(m, **REST_BATCH_KW, device="cuda")
+            step = mesh.compression_step(m, **REST_BATCH_KW, device="cuda")
+            out, n = counted(lambda: run(blocks, lengths), ("parse_greedy",),
+                             "sharded_pipeline nccl")
+            (o2, stats), n2 = counted(lambda: step(blocks, lengths),
+                                      ("parse_greedy",),
+                                      "compression_step nccl")
+            got_nccl = ({k: v.cpu() for k, v in out.items()},
+                        {k: v.cpu() for k, v in o2.items()},
+                        {k: v.cpu() for k, v in stats.items()}, n,
+                        cuda_ms(lambda: run(blocks, lengths), reps=5),
+                        cuda_ms(lambda: step(blocks, lengths), reps=5))
+        finally:
+            dist.destroy_process_group()
+        # bitpack on B14's items, beside bitconcat (what the path packs
+        # with) on the same items.
+        items = _b14_items(torch, tk, fk, mp, blocks, lengths)
+        w_bitpack = pool.submit(cpu_bitpack, *(a.cpu().numpy()
+                                               for a in items), SEQ_WORDS)
+        got_bp = bitpack.bitpack(*items, SEQ_WORDS)
+        bc = bitconcat.bitconcat(*items, SEQ_WORDS, max_item_bits=64)
+        bp_ms = cuda_ms(lambda: bitpack.bitpack(*items, SEQ_WORDS), reps=5)
+        bc_ms = cuda_ms(lambda: bitconcat.bitconcat(
+            *items, SEQ_WORDS, max_item_bits=64), reps=5)
+        # entry()'s fn on the card.
+        fn, args = entry.entry("cuda")
+        got_entry, n_entry = counted(lambda: fn(*args), LEVEL_KERNELS[1],
+                                     "entry")
+        entry_ms = cuda_ms(lambda: fn(*args), reps=5)
+
+        # The gloo ranks, now that this process's timed calls are done.
+        rank_replies(queue, procs, "ready")
+        go.set()
+        ranks = rank_replies(queue, procs, "done")
+        # dryrun_multichip: two more gloo ranks on the card.
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            report = entry.dryrun_multichip(MESH_RANKS, device="cuda")
+        dryrun_s = time.perf_counter() - t0
+
+        # Every card result against its CPU twin.
+        for kw, (got, n, ms), want in zip(PSEGS_CASES, got_parsed, w_parsed):
+            exact(torch, got, torch.from_numpy(want.result()),
+                  f"parsed slot words {kw}")
+            phase("rest", path="find_matches_positions", batch=B, **kw,
+                  equal=True, claims=int((got != -1).sum()), ms=ms,
+                  launches=n, card=card)
+        for table, got, want in zip(PSEGS_TABLES, got_frames, w_frames):
+            if got != want.result():
+                raise AssertionError(f"GpuCodec L1 {table}: the card's "
+                                     "frame differs from device='cpu'")
+            if oracle.decompress(got, len(frame_data)) != frame_data:
+                raise AssertionError(f"GpuCodec L1 {table}: 8-block frame "
+                                     "does not decode")
+            phase("rest", path="GpuCodec L1 parsed, card vs cpu",
+                  table=table, input_bytes=len(frame_data), equal=True,
+                  frame_bytes=len(got))
+        want_hash = torch.from_numpy(w_hash.result())
+        for name, (got, n, ms) in got_hash.items():
+            exact(torch, got, want_hash, name)
+            fields = mp.unpack_outputs(got.numpy())
+            phase("rest", path=name, batch=B, **HASH_PACKED, equal=True,
+                  sequences=int(fields["nseq"].sum()),
+                  overflow_blocks=int(fields["overflow"].sum()), ms=ms,
+                  launches=n, card=card)
+        want_batch = _tensors(torch, w_batch.result())
+        for name, want in (("find_matches_staged", want_batch),
+                           ("find_matches_staged lazy",
+                            _tensors(torch, w_staged.result()))):
+            got, n, ms = got_content[name]
+            _equal_dict(torch, got, want, name)
+            phase("rest", path=name, batch=B, **REST_BATCH_KW,
+                  lazy=name.endswith("lazy"), equal=True,
+                  sequences=int(want["nseq"].sum()), ms=ms, launches=n,
+                  card=card)
+        out, o2, stats, n, ms, step_ms = got_nccl
+        want_stats = {"nseq_all": want_batch["nseq"],
+                      "last_literals_all": want_batch["last_literals"],
+                      "total_sequences": want_batch["nseq"].sum(
+                          dtype=torch.int32)}
+        _equal_dict(torch, out, want_batch, "sharded_pipeline nccl")
+        _equal_dict(torch, o2, want_batch, "compression_step nccl")
+        _equal_dict(torch, stats, want_stats, "compression_step nccl stats")
+        phase("rest", path="sharded_pipeline, compression_step",
+              backend="nccl", world=1, batch=B, equal=True, ms=ms,
+              step_ms=step_ms, launches=n, card=card)
+        for rank, (rows, got, st, n, ms) in sorted(ranks.items()):
+            _need(n, ("parse_greedy",), f"gloo rank {rank}")
+            for k, v in n.items():
+                launches[k] += v
+            _equal_dict(torch, got, {k: v[rows[0]:rows[1]]
+                                     for k, v in want_batch.items()
+                                     if v.dim() and len(v) == B},
+                        f"sharded_pipeline gloo rank {rank}")
+            _equal_dict(torch, st, want_stats,
+                        f"compression_step gloo rank {rank}")
+            phase("rest", path="sharded_pipeline, compression_step",
+                  backend="gloo", world=MESH_RANKS, rank=rank,
+                  rows=list(rows), equal=True, ms=ms,
+                  launches={k: v for k, v in n.items() if v}, card=card)
+        want_bp = _tensors(torch, w_bitpack.result())
+        for name, g, w in zip(("words", "total_bits", "overflow"), got_bp,
+                              want_bp):
+            exact(torch, g.cpu(), w, f"bitpack {name}")
+        fits = ~got_bp[2]
+        exact(torch, got_bp[0][fits], bc[0][fits], "bitpack vs bitconcat")
+        exact(torch, got_bp[1], bc[1], "bitpack vs bitconcat bits")
+        phase("rest", path="bitpack (B14's items)", batch=B,
+              items=int(items[0].shape[1]), max_words=SEQ_WORDS, equal=True,
+              overflow_blocks=int(got_bp[2].sum()), ms=bp_ms,
+              bitconcat_ms=bc_ms, card=card)
+        exact(torch, got_entry.cpu(), torch.from_numpy(w_entry.result()),
+              "entry")
+        phase("rest", path="entry()", equal=True,
+              claims=int((got_entry != -1).sum()), ms=entry_ms,
+              launches=n_entry, card=card)
+        phase("rest", path="dryrun_multichip", world=MESH_RANKS,
+              claims=report["claims"], step_s=report["step_s"],
+              frames=report["frames"], seconds=dryrun_s,
+              lines=text.getvalue().splitlines(), card=card)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        codes = join_ranks(procs, go)
+    if any(codes):
+        raise AssertionError(f"phase 11 ranks exited with {codes}")
+    phase("rest", path="phase 11", seconds=time.perf_counter() - t_phase,
+          card=card, launches={k: n for k, n in launches.items() if n})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2999,6 +3469,11 @@ def main() -> int:
     # decoder, the differential check, LZ4s with the card as the engine.
     for k, n in format_phase(torch, qzt, tk, oracle, args, corpus,
                              card).items():
+        launches[k] += n
+
+    # 11. The rest of the package on the card.
+    for k, n in rest_phase(torch, qzt, tk, oracle, root, dense_np,
+                           dense_corpus, card).items():
         launches[k] += n
 
     ref = [m for m in sys.modules

@@ -29,6 +29,7 @@ and the reference's deployment shape, a sequence producer that stock
 libzstd (>= 1.5.4) calls once a block, with the device half at batch 1:
 
     create_seqprod_state(level, device="cuda") -> SeqProdState
+        (device="host": the software producer, the host matcher alone)
     sequence_producer(state, block, window_size=None)
         -> [(offset, lit_length, match_length), ..., (0, last_literals, 0)]
         or SEQUENCE_PRODUCER_ERROR
@@ -55,6 +56,11 @@ card (parallel/), and the reference's QZ_* process defaults
                                     device="cuda")
         -> the same frame on every rank, equal byte for byte to
         qat_zstd_plugin_tpu's compress_mesh frame at every world size
+
+and the rest of the JAX package's surface: entry.py (entry(),
+dryrun_multichip(n)), ops.match_pipeline's find_matches_packed(matcher=...)
+and find_matches_staged, parallel.mesh's sharded_pipeline and
+compression_step, and ops.bitpack.
 """
 
 from __future__ import annotations
@@ -64,8 +70,9 @@ import torch
 
 from . import native, oracle
 from .format import BLOCK_SIZE_MAX, BlockSequences
+from .runtime import levels
 from .runtime.device import Status, start_device, status, stop_device
-from .runtime.gpu_codec import GpuCodec
+from .runtime.gpu_codec import GpuCodec, check_block_size
 from .runtime.stream import StreamCompressor
 from .utils import logging
 
@@ -116,21 +123,37 @@ def decompress(frame_bytes: bytes, expected_size: int | None = None
     return decoder.decompress(frame_bytes, max_output=expected_size)
 
 
+HOST = "host"  # SeqProdState's device for the software producer
+
+
 class SeqProdState:
     """Per-stream producer state: a GpuCodec at batch 1 with host entropy
     (the producer returns sequences; libzstd codes them), and the counts
     of the blocks it took: `device_blocks` went through the device half,
     `host_blocks` were matched on the host (under 64 bytes, or their
     device output overflowed, `overflow_blocks`), `errors` raised, the
-    latest in `last_error`."""
+    latest in `last_error`.
+
+    device="host" is the software producer (the reference's
+    use_device=False): no GpuCodec is built and every block is matched on
+    the host by native.find_sequences at the level's parameters. It is
+    only ever an explicit choice: "cuda" without a card raises."""
 
     def __init__(self, level: int = 1, block_size: int = BLOCK_SIZE_MAX,
                  device: str | torch.device = "cuda"):
         self.level = level
-        # Host entropy whatever QZ_DEVICE_ENTROPY says: the producer hands
-        # libzstd sequences, and device entropy's carry no offsets.
-        self.codec = GpuCodec(level=level, batch=1, block_size=block_size,
-                              device=device, device_entropy=False)
+        self.host = levels.level_params(level)
+        self.codec = None
+        if device == HOST:
+            # No device route: the size is held to the format's bound only.
+            check_block_size(level, block_size, None)
+        else:
+            # Host entropy whatever QZ_DEVICE_ENTROPY says: the producer
+            # hands libzstd sequences, and device entropy's carry no
+            # offsets.
+            self.codec = GpuCodec(level=level, batch=1,
+                                  block_size=block_size, device=device,
+                                  device_entropy=False)
         self.freed = False
         self.device_blocks = 0
         self.host_blocks = 0
@@ -158,7 +181,7 @@ def sequence_producer(state: SeqProdState, block: bytes | np.ndarray,
     zero-padded, through the device half at its length, and the native
     extension recovers the full match lengths; a shorter one, or one whose
     device output overflowed, takes the host matcher at the level's
-    parameters."""
+    parameters, as every block of a device="host" state does."""
     if state is None or state.freed:
         return SEQUENCE_PRODUCER_ERROR
     buf = block if isinstance(block, np.ndarray) \
@@ -170,7 +193,7 @@ def sequence_producer(state: SeqProdState, block: bytes | np.ndarray,
         return SEQUENCE_PRODUCER_ERROR
     try:
         seqs = None
-        if n >= DEVICE_MIN_BLOCK:
+        if state.codec is not None and n >= DEVICE_MIN_BLOCK:
             pad = np.zeros((1, state.codec.block_size), np.uint8)
             pad[0, :n] = buf
             got = state.codec.produce_sequences(pad,
@@ -185,7 +208,7 @@ def sequence_producer(state: SeqProdState, block: bytes | np.ndarray,
             else:
                 seqs = got
         if seqs is None:
-            gp = state.codec.host
+            gp = state.host
             seqs = BlockSequences(*native.find_sequences(
                 buf, gp.chain_depth, gp.lazy, mml=gp.mml))
             state.host_blocks += 1
@@ -226,7 +249,8 @@ def compress_via_libzstd(data: bytes, level: int = 1,
     """The reference's deployment shape: stock libzstd's ZSTD_compress2
     calls sequence_producer once a block (fallback enabled) and codes its
     sequences. Equal byte for byte to qat_zstd_plugin_tpu's
-    compress_via_libzstd(use_device=True) at the same level."""
+    compress_via_libzstd(use_device=True) at the same level, and with
+    device="host" (the software producer) to its use_device=False."""
     return _via_libzstd(oracle.compress_with_producer, data, level, device,
                         search_repcodes=search_repcodes)
 
@@ -239,7 +263,8 @@ def compress_stream_via_libzstd(data: bytes, level: int = 1,
     """The same through libzstd's streaming compressor
     (ZSTD_compressStream2, the zstd command line's API): `data` in
     `chunk_size` pieces, a flush every `flush_every` of them (0: none),
-    so that blocks are cut short by flushes and the input's end."""
+    so that blocks are cut short by flushes and the input's end;
+    device="host" as in compress_via_libzstd."""
     return _via_libzstd(oracle.compress_stream_with_producer, data, level,
                         device, chunk_size=chunk_size,
                         flush_every=flush_every,

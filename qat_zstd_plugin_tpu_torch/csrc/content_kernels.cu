@@ -61,6 +61,14 @@ constexpr int kMinMatch = 4;  // match_pipeline.MIN_MATCH
 // per row (40 MiB at B=64 x 128 KiB, 12.5 us at 3.35 TB/s); with 64 rows
 // on 64 of 132 SMs and 2 log2(C) barriers per chunk it stays well above
 // that.
+//
+// Segmented mode (trunc, the reference's parse_greedy_pallas(psegs > 1)):
+// each block row of N positions is psegs independent rows of n = N/psegs,
+// which lie one after the other in memory, so the caller passes B*psegs
+// rows of n and one CTA still takes one (block, segment) row. Each
+// position's length is first cut to the row's end, min(mlen[t], n - t),
+// and the take test (>= 4, and with lazy not mlen[t+1] > the cut length,
+// the next length read raw and 0 at the row's end) uses the cut one.
 // ---------------------------------------------------------------------------
 
 constexpr int kParseThreads = 256;
@@ -69,7 +77,8 @@ constexpr int kParseRounds = 12;   // log2(kParseChunk)
 
 __global__ void __launch_bounds__(kParseThreads)
 parse_greedy_kernel(const int32_t* __restrict__ mlen,
-                    uint8_t* __restrict__ chosen, int n, int lazy) {
+                    uint8_t* __restrict__ chosen, int n, int lazy,
+                    int trunc) {
     __shared__ int32_t step[kParseChunk];
     __shared__ int16_t jump_a[kParseChunk], jump_b[kParseChunk];
     __shared__ uint8_t mark[kParseChunk];
@@ -88,7 +97,7 @@ parse_greedy_kernel(const int32_t* __restrict__ mlen,
         }
         for (int j = threadIdx.x; j < len; j += kParseThreads) {
             const int t = base + j;
-            const int ml = m[t];
+            const int ml = trunc ? min(m[t], n - t) : m[t];
             const int next = t + 1 < n ? m[t + 1] : 0;
             const bool take = ml >= kMinMatch && !(lazy && next > ml);
             const int d = take ? ml : 1;  // a take moves >= kMinMatch
@@ -138,11 +147,11 @@ int qz_ldm_winmin(const void* blocks, void* minz, void* scratch, int rows,
 }
 
 int qz_parse_greedy(const void* mlen, void* chosen, int rows, int n, int lazy,
-                    void* stream) {
+                    int trunc, void* stream) {
     parse_greedy_kernel<<<rows, kParseThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(mlen), static_cast<uint8_t*>(chosen), n,
-        lazy);
+        lazy, trunc);
     return int(cudaGetLastError());
 }
 

@@ -42,7 +42,7 @@ SIGNATURES = {
     "qz_finalize_candidates": (_P,) * 9 + (_I,) * 8 + (_Z, _P),
     "qz_compact_slots_dense": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "qz_ldm_winmin": (_P, _P, _P, _I, _I, _I, _P),
-    "qz_parse_greedy": (_P, _P, _I, _I, _I, _P),
+    "qz_parse_greedy": (_P, _P, _I, _I, _I, _I, _P),
     "qz_gram_pos_planes": (_P, _P, _P, _I, _I, _I, _P),
     "qz_neighbor_verify_keys": (_P, _P, _P, _I, _I, _I, _I, _P),
     "qz_finalize_verified": (_P,) * 6 + (_I,) * 3 + (_Z, _P),

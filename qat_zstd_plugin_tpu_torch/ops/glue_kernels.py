@@ -2,7 +2,7 @@
 qat_zstd_plugin_tpu.ops.glue_kernels and the torch ops between them.
 
 Port of qat_zstd_plugin_tpu.ops.glue_kernels `find_matches_positions`
-(every branch at psegs=1) and what it reaches. Level 1, sync=True (the
+(every branch) and what it reaches. Level 1, sync=True (the
 syncmer pair anchors, csrc/l1_kernels.cu):
 
   hash_keys_winmin_sync -> sort -> neighbor_unsort_keys -> sort --+
@@ -24,14 +24,22 @@ Levels 2-4, sync=False (full-resolution keys, csrc/dense_kernels.cu):
 Without LDM (a batch that is no whole number of spans) every width takes
 hash_keys and compact_slots_dense gets no estimates.
 
-The parsed branch, dense=False (no level takes it; csrc/parsed_kernels.cu):
+The parsed branch, dense=False (no shipped level takes it;
+csrc/parsed_kernels.cu):
 
   candidates_hash_split -> (mlen, moff) -> [ldm_winmin -> ldm_unsorted ->
-    merge_ldm] -> parse_greedy (B10) -> compact_slots (B17) -> slot words
+    merge_ldm] -> parse_greedy (B10, psegs segments a block) ->
+    compact_slots (B17) -> slot words
 
-and compact_fast_glue, the packed sequences from a parse: compact_operands
-(B18) -> two row sorts -> the segment merge -> the sequence fields. B19
-bitonic_sort is in ops/sort_kernel.py (csrc/sort_kernels.cu).
+and the packed hash contract (find_matches_hash_split; the reference's
+candidates_hash, compact_fast and find_matches_fused(matcher="hash") in
+ops/match_pipeline.py are these same computations):
+
+  candidates_hash_split -> parse_greedy (B10) -> compact_operands (B18)
+    -> two row sorts -> [the segment merge -> two row sorts] -> the
+    sequence fields (compact_fast_glue) -> pack_outputs
+
+B19 bitonic_sort is in ops/sort_kernel.py (csrc/sort_kernels.cu).
 
 Levels 5-12 (the content path, ops/match_pipeline.find_matches_packed)
 take their LDM claims from here: ldm_winmin (csrc/content_kernels.cu) ->
@@ -1296,6 +1304,25 @@ def compact_fast_glue(chosen: torch.Tensor, mlen: torch.Tensor,
     return out
 
 
+def find_matches_hash_split(blocks: torch.Tensor, lengths: torch.Tensor,
+                            widths: tuple = (5, 8), neighbors: int = 1,
+                            window: int = 32768, max_seq: int = 16384,
+                            lazy: bool = False) -> torch.Tensor:
+    """The hash matcher's packed-sequences contract: (B, N) uint8 blocks
+    and (B,) int32 lengths -> (B, max_seq + 1, 2) int32 (see
+    match_pipeline.pack_outputs). Port of the reference's
+    glue_kernels.find_matches_hash_split: candidates_hash_split (B5, K2,
+    B7), the parse (B10), compact_fast_glue (B18, the row sorts, for
+    nseg > 1 the segment merge, the sequence fields) and the packing."""
+    from .match_pipeline import pack_outputs  # it imports this module
+    from .parse_kernel import parse_greedy  # it imports this module
+    mlen, moff = candidates_hash_split(blocks, lengths, widths=widths,
+                                       neighbors=neighbors, window=window)
+    chosen = parse_greedy(mlen, lazy).to(torch.int32)
+    return pack_outputs(compact_fast_glue(chosen, mlen, moff, lengths,
+                                          max_seq, window), max_seq)
+
+
 # ---------------------------------------------------------------------------
 # The compositions
 # ---------------------------------------------------------------------------
@@ -1343,8 +1370,10 @@ def _unsorted(key: torch.Tensor, pbits: int, neighbors: int,
 
 def candidates_hash_split(blocks, lengths, widths: tuple = (5, 8),
                           neighbors: int = 1, window: int = 32768):
-    """(mlen, moff) from hash_keys of every width, without LDM (reference:
-    glue_kernels.candidates_hash_split)."""
+    """(mlen, moff) from hash_keys of every width, without LDM: B5 -> sort
+    -> K2 -> sort per width, then B7 (reference:
+    glue_kernels.candidates_hash_split, and candidates_hash_glue and
+    match_pipeline.candidates_hash, which compute the same planes)."""
     pbits = (min(window, blocks.shape[1]) - 1).bit_length()
     sus = [_unsorted(hash_keys(blocks, width, window, flip=_FLIP), pbits,
                      neighbors, flipped=True)
@@ -1356,17 +1385,18 @@ def find_matches_positions(blocks: torch.Tensor, lengths: torch.Tensor,
                            widths: tuple = (6,), neighbors: int = 1,
                            window: int = 32768, ldm: int = 0,
                            ldm_max_off: int = 1 << 19, dense: bool = True,
-                           sync: bool = False,
-                           lazy: bool = False) -> torch.Tensor:
+                           sync: bool = False, lazy: bool = False,
+                           psegs: int = 1) -> torch.Tensor:
     """Hash-matcher pipeline, segment-slots contract: (B, N) uint8 blocks
     and (B,) int32 lengths -> (B*nseg, w/4) int32 slot words, slot i of a
     row holding (subslot_k << 30 | byte_offset) or 0xFFFFFFFF. Port of the
-    reference's glue_kernels.find_matches_positions at psegs=1: the dense
-    branches, sync (level 1's syncmer pair anchors, one width) and
-    full-resolution keys with or without LDM (levels 2-4), and the parsed
-    branch (dense=False, no level takes it): candidates, LDM claims merged
-    in at full resolution, the greedy (or one-step lazy) parse B10, then
-    B17 compact_slots."""
+    reference's glue_kernels.find_matches_positions: the dense branches,
+    sync (level 1's syncmer pair anchors, one width) and full-resolution
+    keys with or without LDM (levels 2-4), and the parsed branch
+    (dense=False, no shipped level takes it): candidates, LDM claims merged
+    in at full resolution, the greedy (or one-step lazy) parse B10 in
+    `psegs` segments a block (each candidate cut at its segment's end
+    when psegs > 1), then B17 compact_slots."""
     widths = tuple(widths)
     N = blocks.shape[1]
     w = min(window, N)
@@ -1401,17 +1431,18 @@ def find_matches_positions(blocks: torch.Tensor, lengths: torch.Tensor,
                                            neighbors, window)
         return compact_slots_dense(mlen, moff, window, local_cap=local_cap)
     chosen, _, moff = parsed_claims(blocks, lengths, widths, neighbors,
-                                    window, ldm, ldm_max_off, lazy)
+                                    window, ldm, ldm_max_off, lazy, psegs)
     return compact_slots(chosen, moff, window)
 
 
 def parsed_claims(blocks: torch.Tensor, lengths: torch.Tensor,
                   widths: tuple, neighbors: int, window: int, ldm: int,
-                  ldm_max_off: int, lazy: bool):
+                  ldm_max_off: int, lazy: bool, psegs: int = 1):
     """The parsed branch up to its parse: (chosen, mlen, moff), the (B, N)
-    bool parse of the hash candidates with the LDM claims merged in at
-    full resolution (reference: glue_kernels.find_matches_positions,
-    dense=False, before compact_slots)."""
+    bool parse (in psegs segments a block) of the hash candidates with the
+    LDM claims merged in at full resolution (reference:
+    glue_kernels.find_matches_positions, dense=False, before
+    compact_slots)."""
     from .parse_kernel import parse_greedy  # it imports this module
     mlen, moff = candidates_hash_split(blocks, lengths, widths, neighbors,
                                        window)
@@ -1422,4 +1453,4 @@ def parsed_claims(blocks: torch.Tensor, lengths: torch.Tensor,
         mlen, moff = merge_ldm(mlen, moff, su_l, lengths, ldm,
                                local_cap=4 * max(widths),
                                max_off=ldm_max_off)
-    return parse_greedy(mlen, lazy), mlen, moff
+    return parse_greedy(mlen, lazy, psegs), mlen, moff

@@ -6,11 +6,14 @@ Port of three contracts of qat_zstd_plugin_tpu.ops.match_pipeline:
 * segment slots, levels 1-4 (`find_matches_positions`,
   `unpack_segments`): the hash matcher's claim positions;
 * packed sequences, levels 5-12 (`find_matches_packed`,
-  `unpack_outputs`): the exact-LCP content matcher. `candidates` carries
-  the content words through a gram sort for exact match lengths up to 16
-  bytes, `glue_kernels.merge_ldm` folds in the long-distance claims,
-  `parse_kernel.parse_greedy` (B10) picks the matches, `compact` packs
-  them per block and `pack_outputs` puts every field into one array;
+  `unpack_outputs`): the exact-LCP content matcher.
+  `candidates` carries the content words through a gram sort for exact
+  match lengths up to 16 bytes, `glue_kernels.merge_ldm` folds in the
+  long-distance claims, `parse_kernel.parse_greedy` (B10) picks the
+  matches, `compact` packs them per block and `pack_outputs` puts every
+  field into one array; `find_matches_staged` returns compact's dict.
+  With matcher="hash" the same contract comes from the hash matcher
+  (glue_kernels.find_matches_hash_split);
 * device entropy, levels 1-12 (`find_matches_with_seqsec_hash`,
   `find_matches_with_seqsec`, `unpack_outputs_wide`): the coalesced
   sequences' literal and match lengths (`pack_wide`) beside each block's
@@ -38,18 +41,19 @@ def find_matches_positions(blocks: torch.Tensor, lengths: torch.Tensor,
                            widths: tuple = (6,), neighbors: int = 1,
                            window: int = 32768, ldm: int = 0,
                            ldm_max_off: int = 1 << 19, dense: bool = True,
-                           sync: bool = False,
-                           lazy: bool = False) -> torch.Tensor:
+                           sync: bool = False, lazy: bool = False,
+                           psegs: int = 1) -> torch.Tensor:
     """Hash-matcher pipeline of levels 1-4, segment-slots contract (see
-    glue_kernels.find_matches_positions; `lazy` is the parsed branch's
-    one-step lazy parse). LDM spans tile the batch, so a batch that is not
-    a whole number of spans runs without LDM."""
+    glue_kernels.find_matches_positions; `lazy` and `psegs` are the parsed
+    branch's one-step lazy parse and parse segments).
+    LDM spans tile the batch, so a batch that is not a whole number of
+    spans runs without LDM."""
     if ldm and blocks.shape[0] % ldm:
         ldm = 0  # spans need whole block groups; partial batches skip LDM
     return glue_kernels.find_matches_positions(
         blocks, lengths, widths=tuple(widths), neighbors=neighbors,
         window=window, ldm=ldm, ldm_max_off=ldm_max_off, dense=dense,
-        sync=sync, lazy=lazy)
+        sync=sync, lazy=lazy, psegs=psegs)
 
 
 def unpack_segments(slot_keys: np.ndarray, nblocks: int, window: int
@@ -119,24 +123,44 @@ def candidates(blocks: torch.Tensor, lengths: torch.Tensor,
     gram, position breaking ties, groups equal grams in position order, so
     the k-th sorted predecessor in a group is the k-th most recent earlier
     occurrence; the carried words give the exact common prefix up to 16
-    bytes, longer and then nearer wins. Offset-1 runs get exact lengths up
-    to 65535. Only the unsegmented, unstrided form that every content
-    level takes (stride 1, window >= N) is ported."""
+    bytes, longer and then nearer wins. stride > 1 takes anchors at
+    multiples of stride only (zeros between them); window < N sorts each
+    window-wide segment apart, positions segment-local, so no match
+    crosses a segment (N % window == 0, window % stride == 0). Offset-1
+    runs get exact lengths up to 65535 at every position, across
+    segments."""
     B, N = blocks.shape
-    if stride != 1 or window < N:
-        raise ValueError(f"candidates: stride {stride} and window {window} "
-                         f"< {N} (segmented sorts) are not ported")
+    if stride < 1 or (window < N and (N % window or window % stride)):
+        raise ValueError(f"candidates: block length {N}, window {window} "
+                         f"and stride {stride} do not tile")
     dev = blocks.device
-    g0, g1, g2, g3 = _grams(blocks)
+    grams = _grams(blocks)
     pos = torch.arange(N, device=dev)
-    # (g0 << 17 | pos) orders as the stable sort on g0 does, and is unique
-    # per row (pos < 2^17), so any sort gives that order.
-    order = torch.sort((g0.to(torch.int64) << 17) | pos, dim=1).indices
-    sk = g0.gather(1, order)
-    sp = order.to(torch.int32)
-    s1, s2, s3 = (g.gather(1, order) for g in (g1, g2, g3))
+    if stride > 1:
+        grams = tuple(g[:, ::stride] for g in grams)
+        pos = pos[::stride]
     blen = lengths.to(torch.int32)[:, None]
-    best = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    R, L = B, pos.numel()
+    if window < N:
+        nseg = N // window
+        R, L = B * nseg, window // stride
+        grams = tuple(g.reshape(R, L) for g in grams)
+        seg_start = (torch.arange(R, device=dev) % nseg) * window
+        pos = pos.reshape(nseg, L).repeat(B, 1) - seg_start[:, None]
+        blen = (blen.repeat_interleave(nseg, 0) - seg_start[:, None]) \
+            .clamp(0, window).to(torch.int32)
+    else:
+        pos = pos.expand(R, L)
+    g0, g1, g2, g3 = grams
+    # (g0 << 17 | column) orders as the stable sort on g0 does (positions
+    # rise along a row), and is unique per row (column < 2^17), so any
+    # sort gives that order.
+    col = torch.arange(L, device=dev)
+    order = torch.sort((g0.to(torch.int64) << 17) | col, dim=1).indices
+    sk = g0.gather(1, order)
+    sp = pos.gather(1, order).to(torch.int32)
+    s1, s2, s3 = (g.gather(1, order) for g in (g1, g2, g3))
+    best = torch.zeros((R, L), dtype=torch.int32, device=dev)
     for k in range(1, neighbors + 1):
         pk = _shr(sp, k, BIG)
         p1, p2, p3 = (_shr(s, k, 0) for s in (s1, s2, s3))
@@ -158,15 +182,19 @@ def candidates(blocks: torch.Tensor, lengths: torch.Tensor,
              | ((cand_len >= 5) & (cand_off <= 4096))
              | ((cand_len >= 4) & (cand_off <= 256)))
     packed = torch.where(worth, (cand_len << 17) | cand_off, 0)
-    # Un-sort: scatter back to position order.
-    pc = torch.empty_like(packed).scatter_(1, order, packed)
+    # Un-sort: scatter back to position order, then to the block's grid.
+    pc = torch.empty_like(packed).scatter_(1, order, packed).reshape(B, -1)
+    if stride > 1:
+        pc = torch.nn.functional.pad(pc[:, :, None], (0, stride - 1)) \
+            .reshape(B, N)
     mlen = pc >> 17
     moff = pc & ((1 << 17) - 1)
 
     # Offset-1 runs: exact lengths from the next byte change (the row's
     # last byte always counts as one), capped at 65535.
+    blen = lengths.to(torch.int32)[:, None]
     x = blocks.to(torch.int32)
-    idx = pos.to(torch.int32)
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
     chg = torch.ones((B, N), dtype=torch.bool, device=dev)
     chg[:, :-1] = x[:, :-1] != x[:, 1:]
     big = torch.full_like(x, BIG)
@@ -298,17 +326,39 @@ def pack_outputs(out: dict, max_seq: int) -> torch.Tensor:
     return torch.cat([hdr, body], dim=1)
 
 
+def find_matches_staged(blocks: torch.Tensor, lengths: torch.Tensor,
+                        neighbors: int = 4, max_seq: int = 16384,
+                        lazy: bool = False, stride: int = 1,
+                        window: int = 1 << 30) -> dict:
+    """The content pipeline without LDM or packing: candidates -> the
+    parse (B10) -> compact, returning compact's dict. Port of the
+    reference's find_matches_staged (a jit a stage there) and, at stride
+    1, of its find_matches_batch (one jit)."""
+    mlen, moff = candidates(blocks, lengths, neighbors, stride, window)
+    chosen = parse_kernel.parse_greedy(mlen, lazy)
+    return compact(chosen, mlen, moff, lengths, max_seq, window)
+
+
 def find_matches_packed(blocks: torch.Tensor, lengths: torch.Tensor,
                         neighbors: int = 4, max_seq: int = 16384,
                         lazy: bool = False, stride: int = 1,
                         window: int = 1 << 30, ldm: int = 0,
-                        ldm_max_off: int = 1 << 18) -> torch.Tensor:
-    """Content-matcher pipeline of levels 5-12, packed-sequences contract:
-    (B, N) uint8 blocks and (B,) int32 lengths -> (B, max_seq+1, 2) int32
-    (see pack_outputs). Port of the reference's find_matches_packed /
-    find_matches_fused content branch: candidates, then with LDM the
-    minimizer plane (B9) -> ldm_unsorted (K3, K2) -> merge_ldm, then the
-    parse (B10), compact and pack."""
+                        ldm_max_off: int = 1 << 18, matcher: str = "content",
+                        widths: tuple = (4, 8)) -> torch.Tensor:
+    """The packed-sequences contract: (B, N) uint8 blocks and (B,) int32
+    lengths -> (B, max_seq+1, 2) int32 (see pack_outputs). Port of the
+    reference's find_matches_packed / find_matches_fused.
+    matcher="content" (levels 5-12): content_candidates (with LDM the
+    minimizer plane B9 -> ldm_unsorted K3, K2 -> merge_ldm), the parse
+    (B10), compact. matcher="hash": glue_kernels.find_matches_hash_split
+    (B5, K2, B7, B10, B18), which the reference's "hash" and "hash_glue"
+    both compute."""
+    if matcher == "hash":
+        return glue_kernels.find_matches_hash_split(
+            blocks, lengths, widths=tuple(widths), neighbors=neighbors,
+            window=window, max_seq=max_seq, lazy=lazy)
+    if matcher != "content":
+        raise ValueError(f"unknown matcher {matcher!r}")
     mlen, moff = content_candidates(blocks, lengths, neighbors, stride,
                                     window, ldm, ldm_max_off)
     chosen = parse_kernel.parse_greedy(mlen, lazy)
@@ -336,6 +386,10 @@ def content_candidates(blocks: torch.Tensor, lengths: torch.Tensor,
         mlen, moff = glue_kernels.merge_ldm(mlen, moff, su_l, lengths, ldm,
                                             local_cap=LCP_CAP,
                                             max_off=max_off)
+        if window < blocks.shape[1]:
+            # The reference's segmented compact packs (ml << 18 | off)
+            # with LDM, so it caps the lengths it parses at 16383.
+            mlen = mlen.clamp(max=16383)
     return mlen, moff
 
 

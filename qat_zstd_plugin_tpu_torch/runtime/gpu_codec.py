@@ -299,7 +299,8 @@ class GpuCodec:
                 return match_pipeline.find_matches_positions(
                     blocks, lengths, widths=p.widths,
                     neighbors=p.neighbors, window=window, ldm=p.ldm,
-                    ldm_max_off=1 << wlog, dense=p.dense, sync=p.sync)
+                    ldm_max_off=1 << wlog, dense=p.dense, sync=p.sync,
+                    lazy=p.lazy, psegs=p.psegs)
         else:
             def run(blocks, lengths):
                 return match_pipeline.find_matches_packed(

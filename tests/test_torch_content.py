@@ -129,9 +129,13 @@ def test_candidates(kind, neighbors):
 
 
 def test_candidates_refuse_segmented_sorts():
+    """Segmented sorts are ported; segments that do not tile the block
+    (the reference asserts N % window == 0 == window % stride) raise."""
     blocks = t(make_blocks("random", 1))
-    with pytest.raises(ValueError, match="not ported"):
-        tmp.candidates(blocks, t(lengths_for(1)), 4, window=32768)
+    for window, stride in ((30000, 1), (32768, 3)):
+        with pytest.raises(ValueError, match="do not tile"):
+            tmp.candidates(blocks, t(lengths_for(1)), 4, stride=stride,
+                           window=window)
 
 
 # --- merge_ldm, compact, pack_outputs ---------------------------------------

@@ -959,3 +959,46 @@ def test_validate_on_the_card(cuda, level):
     assert got == qzt.GpuCodec(level=level, batch=2,
                                device="cpu").compress(data, validate=True)
     assert qzt.decompress(got, len(data)) == data
+
+
+@pytest.mark.parametrize("psegs", [2, 4, 8])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_parse_greedy_segmented(cuda, psegs, lazy):
+    """B10's segmented mode: the rows' matches cross every segment end
+    (every 4096-position edge)."""
+    for mlen in (_parse_rows(), _parse_rows(B=6, n=20480, seed=4)):
+        m = torch.from_numpy(mlen).to(cuda)
+        got = pk.parse_greedy(m, lazy, psegs)
+        assert torch.equal(got, pk.parse_greedy_twin(m, lazy, psegs))
+        assert torch.equal(got.cpu(), pk.parse_greedy(m.cpu(), lazy, psegs))
+
+
+def test_rest_of_the_package_card_vs_cpu(cuda):
+    """The packed hash contract, the staged pipeline, the parsed path at
+    psegs 4, bitpack and entry() on the card equal the CPU twins."""
+    from qat_zstd_plugin_tpu_torch import entry
+    from qat_zstd_plugin_tpu_torch.ops import bitpack
+    blocks = _blocks()
+    host = (torch.from_numpy(blocks), torch.full((8,), N, dtype=torch.int32))
+    card = tuple(x.to(cuda) for x in host)
+    for fn in (lambda b, n: tmp.find_matches_packed(
+                   b, n, matcher="hash", widths=(5, 8), neighbors=1,
+                   window=WINDOW, max_seq=4096),
+               lambda b, n: tmp.find_matches_positions(
+                   b, n, widths=(6,), window=WINDOW, ldm=4, dense=False,
+                   lazy=True, psegs=4)):
+        assert torch.equal(fn(*card).cpu(), fn(*host))
+    got = tmp.find_matches_staged(*card, neighbors=4, max_seq=4096)
+    want = tmp.find_matches_staged(*host, neighbors=4, max_seq=4096)
+    assert all(torch.equal(got[k].cpu(), want[k]) for k in want)
+    rng = np.random.default_rng(0)
+    items = [torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (4, 999))
+                              .astype(np.int32)) for _ in range(2)]
+    items.append(torch.from_numpy(rng.integers(0, 65, (4, 999))
+                                  .astype(np.int32)))
+    got = bitpack.bitpack(*(x.to(cuda) for x in items), 900)
+    want = bitpack.bitpack(*items, 900)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    fn, args = entry.entry("cuda", batch=4)
+    cfn, cargs = entry.entry("cpu", batch=4)
+    assert torch.equal(fn(*args).cpu(), cfn(*cargs))

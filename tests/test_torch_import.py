@@ -40,9 +40,10 @@ from qat_zstd_plugin_tpu_torch.ops import (_build, bitconcat, bitpack,
                                           parse_kernel, sort_kernel)
 from qat_zstd_plugin_tpu_torch.runtime import (device, gpu_codec, levels,
                                                stats, stream)
-from qat_zstd_plugin_tpu_torch import (corpus, decoder, format, fse_format,
-                                       huffman_format, lz4s_format, native,
-                                       oracle, profile_l1, xxhash)
+from qat_zstd_plugin_tpu_torch import (corpus, decoder, entry, format,
+                                       fse_format, huffman_format,
+                                       lz4s_format, native, oracle,
+                                       profile_l1, xxhash)
 from qat_zstd_plugin_tpu_torch.parallel import distributed, mesh, pipeline
 from qat_zstd_plugin_tpu_torch.runtime import soft_codec
 from qat_zstd_plugin_tpu_torch.tools import benchmark, cli, fuzz_decoder
@@ -117,6 +118,36 @@ for level in (1, 9):
 fn = mesh.sharded_positions_step(mesh.make_mesh(), window=16384,
                                  device='cpu')
 assert fn(np.zeros((4, 16384), np.uint8), np.zeros(4, np.int32)).shape[0] == 4
+assert 'jax' not in sys.modules
+assert not any(m.split('.')[0] == 'qat_zstd_plugin_tpu' for m in sys.modules)
+print('ok')
+""",
+    "rest": """
+import numpy as np
+import torch
+import qat_zstd_plugin_tpu_torch as qzt
+from qat_zstd_plugin_tpu_torch import entry
+from qat_zstd_plugin_tpu_torch.ops import bitpack, match_pipeline, parse_kernel
+from qat_zstd_plugin_tpu_torch.parallel import mesh
+rng = np.random.default_rng(0)
+data = (rng.integers(0, 8, 131072 + 999, np.uint8)).tobytes()
+frame = qzt.compress_via_libzstd(data, level=1, device='host')
+assert qzt.decompress(frame, len(data)) == data
+fn, args = entry.entry('cpu', batch=4)
+assert (fn(*args) != -1).sum() > 0
+x = torch.from_numpy(np.frombuffer(data[:65536], np.uint8).reshape(2, 32768)
+                     .copy())
+n = torch.full((2,), 32768, dtype=torch.int32)
+for matcher, window in (('content', 1 << 30), ('hash', 8192)):
+    assert match_pipeline.find_matches_packed(
+        x, n, matcher=matcher, window=window, max_seq=1024).shape == (
+            2, 1025, 2)
+out, stats = mesh.compression_step(mesh.make_mesh(), device='cpu')(x, n)
+assert int(stats['total_sequences']) == int(out['nseq'].sum())
+m = torch.randint(0, 30, (2, 8192), dtype=torch.int32)
+assert parse_kernel.parse_greedy(m, True, 4).shape == (2, 8192)
+w, bits, over = bitpack.bitpack(m, m, m % 33, 64)
+assert w.shape == (2, 64)
 assert 'jax' not in sys.modules
 assert not any(m.split('.')[0] == 'qat_zstd_plugin_tpu' for m in sys.modules)
 print('ok')

@@ -9,8 +9,8 @@ descriptions, the nbSeq header and the closing of the backward stream),
 the Huffman pieces the full-mode literals sections need (the tree
 description, the weights' FSE compression and normalization, the literals
 header), the decoder's pieces (the FSE decode table, the table
-description reader, the backward bit reader, the NumPy XXH64), and the
-process defaults (utils/config.py).
+description reader, the backward bit reader, the NumPy XXH64), the
+process defaults (utils/config.py) and entry.py's corpus.
 """
 
 import dataclasses
@@ -429,3 +429,17 @@ def test_config_defaults_equal_field_by_field(monkeypatch):
         monkeypatch.delenv(name)
     assert dataclasses.asdict(config.Config.from_env()) == \
         dataclasses.asdict(jax_config.Config.from_env())
+
+
+# ---------------------------------------------------------------------------
+# entry.py's corpus.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nbytes, seed", [(0, 0), (1, 0), (5999, 1),
+                                          (131072 * 2 + 7, 0)])
+def test_entry_corpus_copy(nbytes, seed):
+    import __graft_entry__
+    from qat_zstd_plugin_tpu_torch import entry
+    assert entry._corpus(nbytes, seed) == __graft_entry__._corpus(nbytes,
+                                                                 seed)
+    assert entry.BLOCK == __graft_entry__.BLOCK
