@@ -58,8 +58,10 @@ Run from the repository root on a machine with one CUDA device. Phases
      over 20 back-to-back calls (stream_ms) beside torch's widening copy
      of the same bytes (copy_ms: to int32 for B5 and B9, to int64 for
      B6); B10 on the L5 and L12 candidate lengths of
-     the B=64 batch and on crafted rows, lazy on and off, each case also
-     back to back (stream_ms, as B11, B12, B17 and B18), and the same in
+     the B=64 batch, on crafted rows (designs/parse.py crafted_lengths)
+     and on rows of every length 4, 5 and 7 (chains that never meet),
+     lazy on and off, each case also back to back (stream_ms, as B11,
+     B12, B17 and B18) beside its design's floor (floor_ms), and the same in
      its segmented mode at psegs 2, 4 and 8 (each candidate cut at its
      segment's end; the crafted rows' matches cross every segment end);
      B11 and B13
@@ -902,45 +904,12 @@ def dense_kernels_vs_twins(torch, tk, blocks_np: np.ndarray, seed: int,
     torch.cuda.synchronize()
 
 
-def _crafted_lengths(B: int, N: int, rng) -> np.ndarray:
-    """Candidate lengths for B10: all-zero rows, rows with every length
-    >= 4, matches across the kernel's 4096-position chunk edges, lazy ties,
-    strictly longer look-aheads, and matches that end exactly at N or
-    pass it."""
-    m = np.where(rng.random((B, N)) < 0.3, rng.integers(0, 40, (B, N)), 0)
-    m = m.astype(np.int32)
-    m[0] = 0
-    m[1] = rng.integers(4, 9, N)
-    m[2, :] = 7                                   # lazy ties everywhere
-    for edge in range(4096, N, 4096):
-        m[3, edge - 5] = 30                      # crosses the staging edge
-        m[4, edge - 1] = 4                       # look-ahead on the next chunk
-        m[4, edge] = 5
-    m[5, N - 20] = 20                            # ends exactly at N
-    m[6, N - 3:] = 60                            # passes N
-    m[7, :] = np.arange(N) % 64                  # rising runs
-    return m
-
-
-def _visited(torch, chosen, mlen, psegs: int = 1) -> int:
-    """Positions the parse's cursor visits: all but the interiors of the
-    chosen matches (the data-dependent reads of B10), each match cut at
-    its row's end: the block's, or with psegs > 1 its parse segment's."""
-    B, N = mlen.shape
-    chosen = chosen.reshape(B * psegs, N // psegs)
-    mlen = mlen.reshape(B * psegs, N // psegs)
-    N //= psegs
-    pos = torch.arange(N, device=mlen.device)
-    inner = torch.where(chosen, torch.clamp(pos + mlen, max=N) - pos - 1, 0)
-    return int(chosen.numel() - inner.sum())
-
-
-def content_kernels_vs_twins(torch, tk, pk, mp, blocks_np: np.ndarray,
+def content_kernels_vs_twins(torch, tk, pk, blocks_np: np.ndarray,
                              seed: int, results: dict) -> None:
     """Phase 2, the level 5-12 kernels against their twins on the card, at
     B=64 × 128 KiB."""
-    from qat_zstd_plugin_tpu_torch.runtime.levels import (TPU_LEVEL_TABLE,
-                                                          level_params)
+    from qat_zstd_plugin_tpu_torch.designs.parse import (parse_inputs,
+                                                         visited)
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 3)
     B, N = blocks_np.shape
@@ -963,16 +932,13 @@ def content_kernels_vs_twins(torch, tk, pk, mp, blocks_np: np.ndarray,
              stream_ms=stream_ms(torch, run),
              copy_ms=stream_ms(torch, lambda: mixed.to(torch.int32)))
 
-    # B10 on the L5 and L12 parse inputs of the batch and on crafted rows.
-    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
-    inputs = {}
-    for level in (5, 12):
-        p = TPU_LEVEL_TABLE[level]
-        inputs[f"L{level} candidates"] = mp.content_candidates(
-            corpus, lengths, p.neighbors, p.stride, p.window, p.ldm,
-            1 << level_params(level).window_log)[0]
-    inputs["crafted rows"] = torch.from_numpy(
-        _crafted_lengths(B, N, rng)).to(dev)
+    # B10 on the L5 and L12 parse inputs of the batch, on crafted rows and
+    # on rows where chains from different starts never meet (every length
+    # 4, 5 or 7: the design's worst case). Its bound: each visited
+    # position's length read and each output byte written; its design's
+    # floor (floor_ms): every length read.
+    inputs = parse_inputs(torch, corpus, rng)
+    floor = lambda mlen: 5 * mlen.numel() / HBM_BYTES_PER_S * 1e3
     for what, mlen in inputs.items():
         for lazy in (False, True):
             chosen = pk.parse_greedy(mlen, lazy)
@@ -980,10 +946,10 @@ def content_kernels_vs_twins(torch, tk, pk, mp, blocks_np: np.ndarray,
                         f"parse_greedy {what} lazy={lazy}")
             run = lambda: pk.parse_greedy(mlen, lazy)
             case("parse_greedy", f"{what}, lazy={lazy}", err,
-                 4 * _visited(torch, chosen, mlen) + nbytes(chosen), run,
+                 4 * visited(torch, chosen, mlen) + nbytes(chosen), run,
                  lambda: pk.parse_greedy_twin(mlen, lazy),
                  main=(what, lazy) == ("L5 candidates", True),
-                 stream_ms=stream_ms(torch, run))
+                 floor_ms=floor(mlen), stream_ms=stream_ms(torch, run))
     # B10's segmented mode (trunc: psegs rows a block, each candidate cut
     # at its segment's end) on the same rows; the crafted ones cross every
     # segment end (their matches cross each 4096-position edge). Its bytes
@@ -997,10 +963,11 @@ def content_kernels_vs_twins(torch, tk, pk, mp, blocks_np: np.ndarray,
                             f"parse_greedy {what} lazy={lazy} psegs={psegs}")
                 run = lambda: pk.parse_greedy(mlen, lazy, psegs)
                 case("parse_greedy", f"{what}, lazy={lazy}, psegs={psegs}",
-                     err, 4 * _visited(torch, chosen, mlen, psegs)
+                     err, 4 * visited(torch, chosen, mlen, psegs)
                      + nbytes(chosen), run,
                      lambda: pk.parse_greedy_twin(mlen, lazy, psegs),
-                     psegs=psegs, stream_ms=stream_ms(torch, run))
+                     psegs=psegs, floor_ms=floor(mlen),
+                     stream_ms=stream_ms(torch, run))
     torch.cuda.synchronize()
 
 
@@ -3375,7 +3342,7 @@ def main() -> int:
         unsort_kernels_vs_twins(torch, tk, blocks_np, dense_np, args.seed,
                                 kernels)
         dense_kernels_vs_twins(torch, tk, dense_np, args.seed, kernels)
-        content_kernels_vs_twins(torch, tk, pk, mp, dense_np, args.seed,
+        content_kernels_vs_twins(torch, tk, pk, dense_np, args.seed,
                                  kernels)
         hybrid_kernels_vs_twins(torch, tk, fk, dense_np, args.seed, kernels)
         literals_kernels_vs_twins(torch, lk, dense_np, args.seed, kernels)

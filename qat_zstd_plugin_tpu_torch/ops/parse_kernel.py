@@ -4,7 +4,7 @@ Port of qat_zstd_plugin_tpu.ops.parse_kernel.parse_greedy_pallas (the
 Pallas kernel `_make_kernel`) and of its XLA twin
 match_pipeline.parse_greedy_scan. The CUDA kernel is in
 csrc/content_kernels.cu; `parse_greedy` launches it for a CUDA tensor
-(counted in glue_kernels.launches["parse_greedy"]) and runs
+(counted in glue_kernels.launches["parse_greedy"], one a call) and runs
 `parse_greedy_twin` for a CPU tensor.
 
 The parse is the recurrence of parse_greedy_scan: a cursor per row
@@ -13,6 +13,15 @@ takes t when mlen[t] >= MIN_MATCH and, with lazy, not mlen[t+1] > mlen[t]
 (mlen[N] := 0); the cursor moves to t + mlen[t] on a take and to t + 1
 otherwise. Whether t is taken, and where the cursor goes next, depend on
 t alone, so the positions a row visits are the chain 0 -> next(0) -> ...
+
+The kernel cuts each row into chunks of PARSE_CHUNK positions, a CTA
+each: it maps its chunk from every entry to the chunk's exit by a
+backward recurrence over pieces and warps, takes the row's cursor at its
+chunk's start from the CTA before it (decoupled look-back over status
+words in `scratch`, which the entry point zeroes), publishes its exit,
+and walks its pieces forward from their entries. The wrapper allocates
+the scratch: a ticket counter and a status word a chunk, each
+PARSE_STATUS_STRIDE words apart.
 
 With psegs > 1 (the reference's parse-segmented mode, `trunc` in
 _make_kernel) each row of N positions is psegs independent rows of
@@ -27,6 +36,9 @@ from __future__ import annotations
 import torch
 
 from .glue_kernels import MIN_MATCH, _check, _launch, _use_twin
+
+PARSE_CHUNK = 4096        # csrc kParseThreads * kParsePiece: a CTA's chunk
+PARSE_STATUS_STRIDE = 8   # csrc kParseStatusStride: words a status word
 
 
 def _segments(mlen: torch.Tensor, psegs: int):
@@ -81,7 +93,10 @@ def parse_greedy(mlen: torch.Tensor, lazy: bool = False,
     rows = _segments(mlen, psegs)
     if _use_twin(mlen, "parse_greedy"):
         return parse_greedy_twin(mlen, lazy, psegs)
+    R, n = rows.shape
     chosen = torch.empty(mlen.shape, dtype=torch.bool, device=mlen.device)
-    _launch("parse_greedy", mlen, chosen, rows.shape[0], rows.shape[1],
+    scratch = torch.empty((R * -(-n // PARSE_CHUNK) + 1) * PARSE_STATUS_STRIDE,
+                          dtype=torch.int32, device=mlen.device)
+    _launch("parse_greedy", mlen, chosen, scratch, scratch.numel(), R, n,
             int(lazy), int(psegs > 1))
     return chosen

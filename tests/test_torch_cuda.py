@@ -431,6 +431,31 @@ def test_parse_greedy(cuda, lazy):
         assert torch.equal(got.cpu(), pk.parse_greedy(m.cpu(), lazy))
 
 
+@pytest.mark.parametrize("lazy", [False, True])
+def test_parse_greedy_edges(cuda, lazy):
+    """B10 on the design's edges: rows of a length that is no multiple of
+    4 or 16 (scalar loads and byte stores), one position, one partial
+    chunk, constant lengths (chains that never meet), the crafted rows
+    (jumps over whole chunks, exits on chunk edges), psegs 1, 2 and 4,
+    and a launch counted once a call."""
+    from qat_zstd_plugin_tpu_torch.designs.parse import crafted_lengths
+    rng = np.random.default_rng(7)
+    rows = [crafted_lengths(16, 131072, rng), np.full((5, 8196), 5, np.int32),
+            np.full((3, 4), 4, np.int32), np.full((3, 1), 9, np.int32),
+            _parse_rows(B=6, n=4099, seed=5), _parse_rows(B=6, n=2002,
+                                                          seed=6),
+            np.full((2, 12), 7, np.int32)]
+    for mlen in rows:
+        m = torch.from_numpy(mlen).to(cuda)
+        for psegs in (1, 2, 4):
+            if m.shape[1] % psegs:
+                continue
+            tk.reset_launches()
+            got = pk.parse_greedy(m, lazy, psegs)
+            assert tk.launches["parse_greedy"] == 1
+            assert torch.equal(got, pk.parse_greedy_twin(m, lazy, psegs))
+
+
 def test_content_frames_card_vs_cpu(cuda):
     data = _blocks(B=8, seed=5).tobytes() + b"tail" * 1000
     tk.reset_launches()
