@@ -31,6 +31,8 @@ import threading
 
 import numpy as np
 
+from ..runtime import stats
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_DIR, "qz_entropy.cc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
@@ -122,6 +124,7 @@ def _compile(path: str) -> None:
                            f"({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stderr}")
     os.replace(tmp, path)
+    stats.note("built", True)
 
 
 def load() -> ctypes.CDLL:
@@ -129,11 +132,12 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            for name, (restype, argtypes) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.restype = restype
-                fn.argtypes = list(argtypes)
+            with stats.span("load.native", built=False):
+                lib = ctypes.CDLL(build())
+                for name, (restype, argtypes) in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.restype = restype
+                    fn.argtypes = list(argtypes)
             _lib = lib
     return _lib
 

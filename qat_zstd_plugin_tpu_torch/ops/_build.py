@@ -22,6 +22,8 @@ import subprocess
 import threading
 import time
 
+from ..runtime import stats
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -129,6 +131,7 @@ def _compile(path: str) -> None:
     tmp = f"{path}.{tag}"
     _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
     build_seconds = time.perf_counter() - t0
+    stats.note("built", True)
     os.replace(tmp, path)
     for obj in objs:
         os.remove(obj)
@@ -142,14 +145,15 @@ def load() -> ctypes.CDLL:
         return _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            lib.qz_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.qz_cuda_error_string.restype = ctypes.c_char_p
-            lib.qz_bitonic_active_clusters.argtypes = [ctypes.c_int]
-            lib.qz_bitonic_active_clusters.restype = ctypes.c_int
+            with stats.span("load.kernels", built=False):
+                lib = ctypes.CDLL(build())
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                lib.qz_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.qz_cuda_error_string.restype = ctypes.c_char_p
+                lib.qz_bitonic_active_clusters.argtypes = [ctypes.c_int]
+                lib.qz_bitonic_active_clusters.restype = ctypes.c_int
             _lib = lib
     return _lib

@@ -38,25 +38,15 @@ too (GpuCodec(device_entropy=True)). It prints one JSON object per line:
                 sorted keys, ldm_keys on one span): host clock over 1000
                 calls and one synchronise, at a size where the card
                 finishes each launch before the host has made the next;
-  stages        per repetition, seconds per corpus of each host-visible
-                step of the main path, run one after the other and each
-                synchronised: np stack, host-to-device copy, the device
-                half, device-to-host copy, then at levels 1-4
-                unpack_segments and device_positions_to_claims, at 5-12
-                unpack_outputs and the coalesce of each block's
-                sequences (device_outputs_to_sequences), in hybrid mode
-                the host's wrapping of each device section
-                (sections_host: unpack_outputs_wide, nbSeq, the mode
-                byte, the table descriptions, the closed stream, and in
-                full mode the literals sections' tree descriptions,
-                jump tables and headers);
-  host_half     per repetition, seconds of finish_block_host over every
-                full block on a thread pool, from the claims or sequences
-                made beforehand (a block whose device output overflowed
-                is matched on the host here; in hybrid mode the others
-                add only their literals section, in full mode only where
-                the device did not take the literals);
-  e2e           per repetition, seconds and MB/s of GpuCodec.compress;
+  e2e           per repetition, seconds and MB/s of GpuCodec.compress
+                and the codec's counters (GpuCodec.counters);
+  spans         the port's spans over those e2e calls (runtime/stats
+                .recording): for each name, how many a call, and their
+                wall and thread CPU seconds a call (summed over threads:
+                "block.host" is the host half on the pool, "collect.wait"
+                the wait for a batch's device work, "collect.unpack" and
+                "collect.blocks" the host unpack, ...), and the routes
+                of the blocks' host half;
   e2e_profiled  one more e2e call under torch.profiler: the card's busy
                 time (union of its kernel and memcpy intervals) against
                 the call's wall time, and the busiest device ops.
@@ -75,7 +65,7 @@ import re
 import statistics
 import subprocess
 import time
-from concurrent.futures import ThreadPoolExecutor
+from collections import Counter
 
 import numpy as np
 import torch
@@ -261,20 +251,30 @@ def hybrid_first_stage(codec, blocks, lengths):
         p.window)
 
 
-def _to_cpu(result):
-    """The device-entropy half's outputs, copied to the host."""
-    packed, words, bits, sec_over, plan, lits = result
-    return (packed.cpu(), words.cpu(), bits.cpu(), sec_over.cpu(),
-            {k: v.cpu() for k, v in plan.items()},
-            None if lits is None else {k: v.cpu() for k, v in lits.items()})
+def span_totals(spans, calls: int) -> dict:
+    """Per span name: spans, wall and thread CPU seconds a call; and the
+    host half's routes a call."""
+    by: dict[str, dict] = {}
+    for sp in spans:
+        t = by.setdefault(sp.name, {"n": 0, "wall_s": 0.0, "cpu_s": 0.0})
+        t["n"] += 1
+        t["wall_s"] += (sp.end_ns - sp.start_ns) / 1e9
+        t["cpu_s"] += sp.cpu_ns / 1e9
+    for t in by.values():
+        for k in t:
+            t[k] /= calls
+    routes = Counter(sp.attrs.get("route") for sp in spans
+                     if sp.name == "block.host")
+    return {"by_span": by,
+            "routes": {k: v / calls for k, v in routes.items()}}
 
 
 def profile(seed: int, mb: int, reps: int, trace_dir: str,
             level: int = 1, device_entropy: str | bool = False) -> None:
     from .corpus import make_corpus
     from .ops import _build, literals_kernel, match_pipeline
-    from .runtime.gpu_codec import (GpuCodec, device_outputs_to_sequences,
-                                    device_positions_to_claims)
+    from .runtime import stats
+    from .runtime.gpu_codec import GpuCodec
 
     sections = bool(device_entropy)  # hybrid or full
     # bench.py's rows: L1 at batch 128, levels 2-12 and device entropy
@@ -295,8 +295,6 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
                      device_entropy=device_entropy)
     run = codec._pipeline()
     content = codec.params.matcher != "hash"
-    nfull = len(buf) // BLOCK
-    starts = range(0, nfull, batch)
 
     # Device half alone, input on the card.
     blocks = torch.from_numpy(buf[:batch * BLOCK].reshape(batch, BLOCK)
@@ -335,76 +333,20 @@ def profile(seed: int, mb: int, reps: int, trace_dir: str,
         emit("wrappers", host_us=host, calls=1000)
     del blocks, lengths
 
-    # The main path's host-visible steps, one after the other.
-    def timed(acc: dict, key: str, fn, sync: bool = False):
-        t0 = time.perf_counter()
-        out = fn()
-        if sync:
-            torch.cuda.synchronize()
-        acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
-        return out
-
-    claims: dict[int, object] = {}
-    for rep in range(reps):
-        acc: dict[str, float] = {}
-        for s in starts:
-            b = min(batch, nfull - s)
-            blk = timed(acc, "stack", lambda: buf[
-                s * BLOCK:(s + b) * BLOCK].reshape(b, BLOCK).copy())
-            lens = np.full(b, BLOCK, np.int32)
-            xb, xl = timed(acc, "h2d", lambda: (
-                torch.from_numpy(blk).to(dev),
-                torch.from_numpy(lens).to(dev)), sync=True)
-            res = timed(acc, "device_half", lambda: run(xb, xl), sync=True)
-            if sections:
-                host = timed(acc, "d2h", lambda: _to_cpu(res))
-                got = timed(acc, "sections_host",
-                            lambda: codec._collect_sections(b, lens, host))
-                claims.update((s + i, c) for i, c in enumerate(got))
-                continue
-            host = timed(acc, "d2h", lambda: res.cpu().numpy())
-            if content:
-                out = timed(acc, "unpack_outputs",
-                            lambda: match_pipeline.unpack_outputs(host))
-                got = timed(acc, "coalesce", lambda: [
-                    device_outputs_to_sequences(out, i) for i in range(b)])
-            else:
-                per = timed(acc, "unpack", lambda: match_pipeline
-                            .unpack_segments(host.view(np.uint32), b,
-                                             codec.params.window))
-                got = timed(acc, "claims", lambda: [
-                    device_positions_to_claims(p, o, BLOCK)
-                    for p, o in per])
-            claims.update((s + i, (c, None)) for i, c in enumerate(got))
-        emit("stages", rep=rep, batches=len(starts), seconds=acc,
-             total_s=sum(acc.values()))
-
-    # The host half alone, from those claims.
-    workers = min(32, (os.cpu_count() or 1) + 4)  # the codec pool's
-    for rep in range(reps):
-        with ThreadPoolExecutor(workers) as pool:
-            t0 = time.perf_counter()
-            list(pool.map(lambda i: codec.finish_block_host(
-                buf, i, *claims[i]), range(nfull)))
-            seconds = time.perf_counter() - t0
-        emit("host_half", rep=rep, blocks=nfull, seconds=seconds,
-             workers=workers)
-
     # End to end.
     kw = dict(level=level, batch=batch, device="cuda",
               device_entropy=device_entropy)
     GpuCodec(**kw).compress(corpus[:BLOCK + TAIL])  # warm-up
-    for rep in range(reps):
-        c = GpuCodec(**kw)
-        t0 = time.perf_counter()
-        frame = c.compress(corpus)
-        seconds = time.perf_counter() - t0
-        emit("e2e", rep=rep, seconds=seconds,
-             mbs=len(corpus) / seconds / 1e6, ratio=len(frame) / len(corpus),
-             device_blocks=c.device_blocks,
-             overflow_blocks=c.overflow_blocks,
-             section_blocks=c.section_blocks,
-             literal_blocks=c.literal_blocks)
+    with stats.recording() as spans:
+        for rep in range(reps):
+            c = GpuCodec(**kw)
+            t0 = time.perf_counter()
+            frame = c.compress(corpus)
+            seconds = time.perf_counter() - t0
+            emit("e2e", rep=rep, seconds=seconds,
+                 mbs=len(corpus) / seconds / 1e6,
+                 ratio=len(frame) / len(corpus), **c.counters())
+    emit("spans", calls=reps, **span_totals(spans, reps))
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:

@@ -55,6 +55,7 @@ re-matched on the CPU.
 from __future__ import annotations
 
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -68,10 +69,15 @@ from ..ops.bitpack import backward_stream_bytes
 from ..ops.glue_kernels import segment_rule
 from ..ops.literals_kernel import device_literals_section, streams_rule
 from ..utils import config, logging
+from . import stats
 from .levels import TPU_LEVEL_TABLE, level_params
 from .stats import BlockStats, Timer
 
 QUEUE_DEPTH = 3  # device batches in flight
+# GpuCodec's counters (GpuCodec.counters), each kept under its lock.
+COUNTERS = ("device_blocks", "overflow_blocks", "section_blocks",
+            "literal_blocks", "batches", "batch_rows", "padded_rows",
+            "h2d_bytes", "d2h_bytes", "tail_blocks", "inflight_sum")
 # QZ_DEVICE_ENTROPY's values (tpu_codec.TpuCodec.__init__'s map).
 ENTROPY_ENV = {"": False, "0": False, "off": False, "1": True,
                "full": True, "hybrid": "hybrid"}
@@ -209,8 +215,10 @@ def check_block_size(level: int, block_size: int,
 
 class GpuCodec:
     """Batched block compressor on one torch device. One codec may be
-    shared by threads: its counters take a lock, and each thread's
-    batches go to that thread's current stream."""
+    shared by threads: its counters (COUNTERS, `counters()`) take a
+    lock, and each thread's batches go to that thread's current stream.
+    While runtime/stats.recording() is on, its calls record spans
+    (compress_bodies names them)."""
 
     def __init__(self, level: int = 1, batch: int | None = None,
                  block_size: int | None = None, max_seq: int | None = None,
@@ -257,6 +265,14 @@ class GpuCodec:
         self.overflow_blocks = 0  # of those, re-matched on the host
         self.section_blocks = 0   # of those, with the device's section
         self.literal_blocks = 0   # of those, with its literals section too
+        self.batches = 0          # batches submitted to the device half
+        self.batch_rows = 0       # their real rows
+        self.padded_rows = 0      # the rows padding them to `batch`
+        self.h2d_bytes = 0        # bytes they copied to the device
+        self.d2h_bytes = 0        # bytes of device output copied back
+        self.tail_blocks = 0      # short blocks matched on the host
+        self.inflight_sum = 0     # batches in flight at each submit, summed
+        self._inflight = 0        # compress_bodies' batches in flight now
         self._count_lock = threading.Lock()
         self._fn = None
 
@@ -266,6 +282,11 @@ class GpuCodec:
         with self._count_lock:
             for name, n in deltas.items():
                 setattr(self, name, getattr(self, name) + n)
+
+    def counters(self) -> dict[str, int]:
+        """The codec's counters, read together under its lock."""
+        with self._count_lock:
+            return {name: getattr(self, name) for name in COUNTERS}
 
     def _pipeline(self):
         if self._fn is None:
@@ -312,16 +333,28 @@ class GpuCodec:
     def submit_batch(self, blocks_np: np.ndarray, lengths_np: np.ndarray):
         """Copy one batch (b <= self.batch, zero-padded to self.batch as in
         the reference: LDM spans tile the batch) to the device and enqueue
-        the pipeline on the current stream. Returns a handle."""
+        the pipeline on the current stream. Returns a handle; while
+        recording it holds an event recorded after the enqueue, which
+        collect_batch waits on in its span "collect.wait"."""
         b = blocks_np.shape[0]
-        if b < self.batch:
-            pad = np.zeros((self.batch - b,) + blocks_np.shape[1:], np.uint8)
-            blocks_np = np.concatenate([blocks_np, pad])
-            lengths_np = np.concatenate(
-                [lengths_np, np.zeros(self.batch - b, np.int32)])
-        blocks = torch.from_numpy(blocks_np).to(self.device)
-        lengths = torch.from_numpy(lengths_np).to(self.device)
-        return b, lengths_np, self._pipeline()(blocks, lengths)
+        with stats.span("submit.stage"):
+            if b < self.batch:
+                pad = np.zeros((self.batch - b,) + blocks_np.shape[1:],
+                               np.uint8)
+                blocks_np = np.concatenate([blocks_np, pad])
+                lengths_np = np.concatenate(
+                    [lengths_np, np.zeros(self.batch - b, np.int32)])
+        nbytes = blocks_np.nbytes + lengths_np.nbytes
+        with stats.span("submit.h2d", bytes=nbytes):
+            blocks = torch.from_numpy(blocks_np).to(self.device)
+            lengths = torch.from_numpy(lengths_np).to(self.device)
+        with stats.span("submit.enqueue"):
+            result = self._pipeline()(blocks, lengths)
+        rec = stats.recorder()
+        done = rec.event(self.device) if rec is not None else None
+        self._count(batches=1, batch_rows=b, padded_rows=self.batch - b,
+                    h2d_bytes=nbytes)
+        return b, lengths_np, result, done
 
     def collect_batch(self, handle):
         """Wait for a submitted batch; returns per block (sequences, the
@@ -334,8 +367,11 @@ class GpuCodec:
         mode where it took the block's literals and the sequences span the
         block (tpu_codec.finish_block_host's check), else None. (None,
         None) for a block whose device output overflowed."""
-        b, lengths, result = handle
+        b, lengths, result, done = handle
         self._count(device_blocks=b)
+        with stats.span("collect.wait"):
+            if done is not None:
+                done.synchronize()
         if self.device_entropy:
             return self._collect_sections(b, lengths, result)
         seqs = self.host_sequences(result, lengths)[:b]
@@ -347,57 +383,77 @@ class GpuCodec:
         """Each row of a host-entropy device output (rows of `lengths`
         bytes) as sequences: claims at levels 1-4, coalesced sequences at
         5-12, None for a row whose device output overflowed."""
+        with stats.span("collect.d2h") as sp:
+            host = result.cpu().numpy()
+            if sp is not None:
+                sp.attrs["bytes"] = host.nbytes
+        self._count(d2h_bytes=host.nbytes)
         if self.params.matcher == "hash":
-            words = result.cpu().numpy().view(np.uint32)
-            per_block = match_pipeline.unpack_segments(
-                words, len(lengths), self.params.window)
-            return [device_positions_to_claims(p, o, lengths[i])
-                    for i, (p, o) in enumerate(per_block)]
-        out = match_pipeline.unpack_outputs(result.cpu().numpy())
-        return [device_outputs_to_sequences(out, i)
-                for i in range(len(lengths))]
+            with stats.span("collect.unpack"):
+                per_block = match_pipeline.unpack_segments(
+                    host.view(np.uint32), len(lengths), self.params.window)
+            with stats.span("collect.blocks"):
+                return [device_positions_to_claims(p, o, lengths[i])
+                        for i, (p, o) in enumerate(per_block)]
+        with stats.span("collect.unpack"):
+            out = match_pipeline.unpack_outputs(host)
+        with stats.span("collect.blocks"):
+            return [device_outputs_to_sequences(out, i)
+                    for i in range(len(lengths))]
 
     def _collect_sections(self, b: int, lengths: np.ndarray, result):
         packed, words, bits, sec_over, plan, lits = result
-        out = match_pipeline.unpack_outputs_wide(packed.cpu().numpy())
-        words = words.cpu().numpy()
-        bits = bits.cpu().numpy()
-        sec_over = sec_over.cpu().numpy()
-        plan = {k: v.cpu().numpy() for k, v in plan.items()}
-        if lits is not None:
-            lits = {k: v.cpu().numpy() for k, v in lits.items()}
-            lits["words"] = lits["words"].reshape(len(words), 4, -1)
-            lits["bits"] = lits["bits"].reshape(len(words), 4)
-        res = []
-        counts = {"overflow_blocks": 0, "section_blocks": 0,
-                  "literal_blocks": 0}
-        for i in range(b):
-            if out["overflow"][i] or sec_over[i]:
-                counts["overflow_blocks"] += 1
-                res.append((None, None))
-                continue
-            ns = int(out["nseq"][i])
-            seqs = BlockSequences(out["lit_len"][i, :ns],
-                                  np.zeros(ns, np.int64),
-                                  out["match_len"][i, :ns],
-                                  int(out["last_literals"][i]))
-            if ns == 0:
-                res.append((seqs, None))
-                continue
-            counts["section_blocks"] += 1
-            lit_sec = None
-            if lits is not None and lits["ok"][i] \
-                    and seqs.total_span() == lengths[i]:
-                lit_sec = device_literals_section(
-                    lits["nb_bits"][i], lits["codes"][i],
-                    lits["max_bits"][i], lits["last_symbol"][i],
-                    int(lits["n_lit"][i]), lits["words"][i],
-                    lits["bits"][i])
-                counts["literal_blocks"] += lit_sec is not None
-            res.append((seqs, (lit_sec, device_sequence_section(
-                ns, words[i], int(bits[i]), plan, i))))
-        self._count(**counts)
-        return res
+        with stats.span("collect.d2h") as sp:
+            packed = packed.cpu().numpy()
+            words = words.cpu().numpy()
+            bits = bits.cpu().numpy()
+            sec_over = sec_over.cpu().numpy()
+            plan = {k: v.cpu().numpy() for k, v in plan.items()}
+            if lits is not None:
+                lits = {k: v.cpu().numpy() for k, v in lits.items()}
+            nbytes = (packed.nbytes + words.nbytes + bits.nbytes
+                      + sec_over.nbytes
+                      + sum(v.nbytes for v in plan.values())
+                      + sum(v.nbytes for v in (lits or {}).values()))
+            if sp is not None:
+                sp.attrs["bytes"] = nbytes
+        self._count(d2h_bytes=nbytes)
+        with stats.span("collect.unpack"):
+            out = match_pipeline.unpack_outputs_wide(packed)
+            if lits is not None:
+                lits["words"] = lits["words"].reshape(len(words), 4, -1)
+                lits["bits"] = lits["bits"].reshape(len(words), 4)
+        with stats.span("collect.blocks"):
+            res = []
+            counts = {"overflow_blocks": 0, "section_blocks": 0,
+                      "literal_blocks": 0}
+            for i in range(b):
+                if out["overflow"][i] or sec_over[i]:
+                    counts["overflow_blocks"] += 1
+                    res.append((None, None))
+                    continue
+                ns = int(out["nseq"][i])
+                seqs = BlockSequences(out["lit_len"][i, :ns],
+                                      np.zeros(ns, np.int64),
+                                      out["match_len"][i, :ns],
+                                      int(out["last_literals"][i]))
+                if ns == 0:
+                    res.append((seqs, None))
+                    continue
+                counts["section_blocks"] += 1
+                lit_sec = None
+                if lits is not None and lits["ok"][i] \
+                        and seqs.total_span() == lengths[i]:
+                    lit_sec = device_literals_section(
+                        lits["nb_bits"][i], lits["codes"][i],
+                        lits["max_bits"][i], lits["last_symbol"][i],
+                        int(lits["n_lit"][i]), lits["words"][i],
+                        lits["bits"][i])
+                    counts["literal_blocks"] += lit_sec is not None
+                res.append((seqs, (lit_sec, device_sequence_section(
+                    ns, words[i], int(bits[i]), plan, i))))
+            self._count(**counts)
+            return res
 
     def produce_sequences(self, blocks_np: np.ndarray,
                           lengths_np: np.ndarray
@@ -423,9 +479,11 @@ class GpuCodec:
             checksum = self.checksum_default
         buf = np.frombuffer(data, dtype=np.uint8) if not isinstance(
             data, np.ndarray) else np.ascontiguousarray(data, np.uint8)
-        bodies = self.compress_bodies(buf, validate=validate)
-        return assemble_frame(buf, bodies, self.block_size, checksum,
-                              window_log=self.host.window_log)
+        with stats.span("call", bytes=len(buf)):
+            bodies = self.compress_bodies(buf, validate=validate)
+            with stats.span("assemble"):
+                return assemble_frame(buf, bodies, self.block_size, checksum,
+                                      window_log=self.host.window_log)
 
     def finish_block_host(self, buf: np.ndarray, i: int,
                           seqs: BlockSequences | None,
@@ -443,7 +501,11 @@ class GpuCodec:
         stream's later chunks). With the config's second_parse, a deep
         level skips the selector and keeps the smaller of that body and
         the host chain parse's. validate checks the sequences that reach
-        the entropy coder first (see compress)."""
+        the entropy coder first (see compress). While recording, the
+        route it takes is noted on this thread's open span: "sections"
+        or "sections_literals" (the device's sections), "hinted",
+        "extend" (the device's sequences extended, or none to extend),
+        "host_match" (the host matcher)."""
         n = len(buf)
         bs = self.block_size
         gp = self.host
@@ -453,6 +515,8 @@ class GpuCodec:
         # see the full window (LDM claims reach (window - block, window]).
         win = 1 << gp.window_log
         blk = buf[i * bs:min((i + 1) * bs, n)]
+        if seqs is None:
+            stats.note("route", "host_match")
         if len(blk) < 64:
             return None
         ctx = min(i * bs, win)
@@ -462,7 +526,9 @@ class GpuCodec:
             # Device entropy: the sections are final; no extension.
             lit_sec, seq_sec = section
             if lit_sec is not None:
+                stats.note("route", "sections_literals")
                 return lit_sec + seq_sec
+            stats.note("route", "sections")
             return native.block_body_external_seqsec(
                 blk, seqs.lit_lengths, seqs.match_lengths,
                 seqs.last_literals, seq_sec, self.params.huffman)
@@ -473,6 +539,8 @@ class GpuCodec:
             share = float(seqs.lit_lengths.sum()
                           + seqs.last_literals) / len(blk)
             deep_hinted = deep_parse_pick(self.level, share, ctx_find, bs)
+        if seqs is not None:
+            stats.note("route", "hinted" if deep_hinted else "extend")
         if deep_hinted:
             hpos = (np.cumsum(seqs.lit_lengths + seqs.match_lengths)
                     - seqs.match_lengths)
@@ -543,43 +611,76 @@ class GpuCodec:
         nblocks = max(1, -(-n // bs))
         nfull = n // bs
 
-        def finish_block(i: int, seqs, section=None) -> bytes | None:
+        futures: dict[int, object] = {}
+        inflight: list[tuple[range, object]] = []
+        # Spans (while recording): per batch "submit" and "collect" on
+        # this thread; per block "block.queue" (from pool.submit to its
+        # start) and "block.host" on the pool; then "drain".
+        rec = stats.recorder()
+        call = rec.call_id() if rec is not None else 0
+
+        def finish_block(i: int, seqs, section=None,
+                         queued: int = 0) -> bytes | None:
+            size = min(n - i * bs, bs)
+            if rec is not None:
+                rec.add("block.queue", call, i, queued,
+                        time.perf_counter_ns())
+                sp = rec.begin("block.host", i, call, bytes=size)
             with Timer() as tm:
                 body = self.finish_block_host(buf, i, seqs, section,
                                               frame_start, validate=validate)
-            self.stats.record(min(n - i * bs, bs),
-                              len(body) if body else None, tm.elapsed)
+            self.stats.record(size, len(body) if body else None, tm.elapsed)
+            if rec is not None:
+                rec.end(sp, tm.t0, tm.t1)
             return body
 
-        futures: dict[int, object] = {}
-        inflight: list[tuple[range, object]] = []
-        with ThreadPoolExecutor() as pool:
+        self._count(tail_blocks=nblocks - nfull)
+        try:
+            with ThreadPoolExecutor() as pool:
 
-            def collect_one() -> None:
-                ids, handle = inflight.pop(0)
-                try:
-                    got = self.collect_batch(handle)
-                except Exception as e:
-                    _batch_failed(e, "collect", len(ids))
-                    raise
-                for i, (sq, sec) in zip(ids, got):
-                    futures[i] = pool.submit(finish_block, i, sq, sec)
+                def queue(i: int, seqs, section=None) -> None:
+                    queued = time.perf_counter_ns() if rec is not None else 0
+                    futures[i] = pool.submit(finish_block, i, seqs, section,
+                                             queued)
 
-            for s in range(0, nfull, self.batch):
-                ids = range(s, min(s + self.batch, nfull))
-                blocks_np = buf[s * bs:ids.stop * bs] \
-                    .reshape(len(ids), bs).copy()
-                lengths_np = np.full(len(ids), bs, np.int32)
-                try:
-                    handle = self.submit_batch(blocks_np, lengths_np)
-                except Exception as e:
-                    _batch_failed(e, "submit", len(ids))
-                    raise
-                inflight.append((ids, handle))
-                if len(inflight) >= QUEUE_DEPTH:
+                def collect_one() -> None:
+                    ids, handle = inflight.pop(0)
+                    self._count(_inflight=-1)
+                    try:
+                        with stats.span("collect", ids.start // self.batch,
+                                        rows=len(ids)):
+                            got = self.collect_batch(handle)
+                    except Exception as e:
+                        _batch_failed(e, "collect", len(ids))
+                        raise
+                    for i, (sq, sec) in zip(ids, got):
+                        queue(i, sq, sec)
+
+                for s in range(0, nfull, self.batch):
+                    ids = range(s, min(s + self.batch, nfull))
+                    with stats.span("submit", s // self.batch,
+                                    rows=len(ids)):
+                        with stats.span("submit.stage"):
+                            blocks_np = buf[s * bs:ids.stop * bs] \
+                                .reshape(len(ids), bs).copy()
+                            lengths_np = np.full(len(ids), bs, np.int32)
+                        try:
+                            handle = self.submit_batch(blocks_np, lengths_np)
+                        except Exception as e:
+                            _batch_failed(e, "submit", len(ids))
+                            raise
+                    inflight.append((ids, handle))
+                    with self._count_lock:  # the codec's, all callers'
+                        self._inflight += 1
+                        self.inflight_sum += self._inflight
+                    if len(inflight) >= QUEUE_DEPTH:
+                        collect_one()
+                for i in range(nfull, nblocks):  # the short tail block
+                    queue(i, None)
+                while inflight:
                     collect_one()
-            for i in range(nfull, nblocks):  # the short tail block
-                futures[i] = pool.submit(finish_block, i, None)
-            while inflight:
-                collect_one()
-            return [futures[i].result() for i in range(nblocks)]
+                with stats.span("drain"):
+                    return [futures[i].result() for i in range(nblocks)]
+        finally:
+            if inflight:  # a batch failed: these are never collected
+                self._count(_inflight=-len(inflight))

@@ -8,7 +8,10 @@ runtime/stats.py, where the port keeps its copies of them.
 The port's kernels are launched through ctypes on torch's current stream,
 not through torch; CUPTI, which torch.profiler reads on "cuda", records
 them all the same, under their CUDA function names
-(hash_keys_winmin_sync_kernel, ...).
+(hash_keys_winmin_sync_kernel, ...). `trace` also records the port's
+spans (runtime/stats.recording), which show in its Chrome trace as
+record_function ranges ("call", "submit.h2d", "collect.wait",
+"block.host", ...) on the profiler's clock.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import time
 
 import torch
 
+from ..runtime import stats
 from ..runtime.stats import BlockStats, Timer
 
 __all__ = ["BlockStats", "Timer", "trace"]
@@ -35,7 +39,8 @@ def trace(log_dir: str, device: str | torch.device = "cuda"):
     "cuda" records the CPU and CUDA activities (the card's kernels and
     copies) and synchronises the card before the trace ends; it raises
     when torch sees no CUDA device. "cpu" records the CPU activity (the
-    aten ops) only."""
+    aten ops) only. Either way the port's spans are recorded over the
+    region, as ranges of the trace."""
     dev = torch.device(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
@@ -48,7 +53,8 @@ def trace(log_dir: str, device: str | torch.device = "cuda"):
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir,
                         f"trace.{os.getpid()}.{time.time_ns()}.json")
-    with torch.profiler.profile(activities=activities) as prof:
+    with stats.recording(), \
+            torch.profiler.profile(activities=activities) as prof:
         yield path
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

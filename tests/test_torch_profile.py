@@ -73,3 +73,20 @@ def test_elementwise_counts_pytorch_elementwise_kernels():
            _ev("void (anonymous namespace)::neighbor_unsort_keys_kernel<"
                "true>(unsigned int const*)", 5, 6)]
     assert profile_l1._elementwise(evs) == 2
+
+
+def test_span_totals_a_call():
+    """profile_l1's spans line: count, wall and CPU seconds a call by
+    name, and the host half's routes a call."""
+    def sp(name, ms, cpu_ms, **attrs):
+        return SimpleNamespace(name=name, start_ns=0, end_ns=ms * 10**6,
+                               cpu_ns=cpu_ms * 10**6, attrs=attrs)
+    spans = [sp("collect.unpack", 200, 180), sp("collect.unpack", 100, 90),
+             sp("block.host", 30, 10, route="extend"),
+             sp("block.host", 10, 10, route="host_match")]
+    got = profile_l1.span_totals(spans, calls=2)
+    assert got["by_span"]["collect.unpack"] == pytest.approx(
+        {"n": 1.0, "wall_s": 0.15, "cpu_s": 0.135})
+    assert got["by_span"]["block.host"] == pytest.approx(
+        {"n": 1.0, "wall_s": 0.02, "cpu_s": 0.01})
+    assert got["routes"] == {"extend": 0.5, "host_match": 0.5}
