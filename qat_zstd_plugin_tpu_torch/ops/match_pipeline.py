@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..runtime import stats
 from . import fse_kernel, glue_kernels, literals_kernel, parse_kernel
 from .glue_kernels import MIN_MATCH, _shr
 
@@ -472,12 +473,14 @@ def _with_sections(blocks, lengths, first, seq_words: int,
                    custom_tables: bool, device_literals: bool):
     """sections of the first stage's compaction, then with
     device_literals the literals dict (literals_kernel.
-    encode_literals_device of the first stage's parse), else None."""
+    encode_literals_device of the first stage's parse, in the span
+    "submit.literals" while recording), else None."""
     out, chosen, mlen = first
     lits = None
     if device_literals:
-        lits = literals_kernel.encode_literals_device(blocks, lengths, chosen,
-                                                      mlen)
+        with stats.span("submit.literals"):
+            lits = literals_kernel.encode_literals_device(blocks, lengths,
+                                                          chosen, mlen)
     return (*sections(out, seq_words, custom_tables), lits)
 
 

@@ -40,7 +40,10 @@ them (device_literals_section) and joins the two sections. A block whose
 literals the device declines (the `ok` flag: too few literals or
 symbols, a stream too long), whose section the format cannot hold, or
 whose sequences do not span the block, gets the hybrid body; blocks with
-both device sections are counted in `literal_blocks`.
+both device sections are counted in `literal_blocks` (their literals
+sections' bytes in `literal_bytes`), the others with a device section in
+`literal_declined`, `literal_unspanned` and `literal_unfit`, so that the
+four add up to `section_blocks`.
 
 The frames equal TpuCodec's byte for byte at the same level, batch size,
 max_seq and entropy placement. The short tail block is matched on the
@@ -77,7 +80,9 @@ QUEUE_DEPTH = 3  # device batches in flight
 # GpuCodec's counters (GpuCodec.counters), each kept under its lock.
 COUNTERS = ("device_blocks", "overflow_blocks", "section_blocks",
             "literal_blocks", "batches", "batch_rows", "padded_rows",
-            "h2d_bytes", "d2h_bytes", "tail_blocks", "inflight_sum")
+            "h2d_bytes", "d2h_bytes", "tail_blocks", "inflight_sum",
+            "literal_declined", "literal_unspanned", "literal_unfit",
+            "literal_bytes")
 # QZ_DEVICE_ENTROPY's values (tpu_codec.TpuCodec.__init__'s map).
 ENTROPY_ENV = {"": False, "0": False, "off": False, "1": True,
                "full": True, "hybrid": "hybrid"}
@@ -265,6 +270,13 @@ class GpuCodec:
         self.overflow_blocks = 0  # of those, re-matched on the host
         self.section_blocks = 0   # of those, with the device's section
         self.literal_blocks = 0   # of those, with its literals section too
+        # Full mode, the rest of section_blocks: the device's `ok` false;
+        # ok, but the sequences do not span the block; the section does
+        # not fit the format. And the bytes of the literals sections taken.
+        self.literal_declined = 0
+        self.literal_unspanned = 0
+        self.literal_unfit = 0
+        self.literal_bytes = 0
         self.batches = 0          # batches submitted to the device half
         self.batch_rows = 0       # their real rows
         self.padded_rows = 0      # the rows padding them to `batch`
@@ -425,8 +437,10 @@ class GpuCodec:
                 lits["bits"] = lits["bits"].reshape(len(words), 4)
         with stats.span("collect.blocks"):
             res = []
-            counts = {"overflow_blocks": 0, "section_blocks": 0,
-                      "literal_blocks": 0}
+            counts = dict.fromkeys(
+                ("overflow_blocks", "section_blocks", "literal_blocks",
+                 "literal_declined", "literal_unspanned", "literal_unfit",
+                 "literal_bytes"), 0)
             for i in range(b):
                 if out["overflow"][i] or sec_over[i]:
                     counts["overflow_blocks"] += 1
@@ -442,14 +456,22 @@ class GpuCodec:
                     continue
                 counts["section_blocks"] += 1
                 lit_sec = None
-                if lits is not None and lits["ok"][i] \
-                        and seqs.total_span() == lengths[i]:
-                    lit_sec = device_literals_section(
-                        lits["nb_bits"][i], lits["codes"][i],
-                        lits["max_bits"][i], lits["last_symbol"][i],
-                        int(lits["n_lit"][i]), lits["words"][i],
-                        lits["bits"][i])
-                    counts["literal_blocks"] += lit_sec is not None
+                if lits is not None:
+                    if not lits["ok"][i]:
+                        counts["literal_declined"] += 1
+                    elif seqs.total_span() != lengths[i]:
+                        counts["literal_unspanned"] += 1
+                    else:
+                        lit_sec = device_literals_section(
+                            lits["nb_bits"][i], lits["codes"][i],
+                            lits["max_bits"][i], lits["last_symbol"][i],
+                            int(lits["n_lit"][i]), lits["words"][i],
+                            lits["bits"][i])
+                        if lit_sec is None:
+                            counts["literal_unfit"] += 1
+                        else:
+                            counts["literal_blocks"] += 1
+                            counts["literal_bytes"] += len(lit_sec)
                 res.append((seqs, (lit_sec, device_sequence_section(
                     ns, words[i], int(bits[i]), plan, i))))
             self._count(**counts)

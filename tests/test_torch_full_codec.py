@@ -58,6 +58,10 @@ FULL_CASES = {  # data, level, batch, block size, max_seq
                              2, 65536, 8192),
     "L5_4_blocks_batch4": (lambda: make_corpus(4 * BLOCK, 5), 5, 4, BLOCK,
                            16384),
+    # The benchmark's l9full deployment at batch 4: level 9's content
+    # matcher, lazy parse and LDM, and a host-matched tail block.
+    "L9_corpus_4_blocks_batch4": (lambda: make_corpus(4 * BLOCK + 5000, 9),
+                                  9, 4, BLOCK, 16384),
 }
 
 
@@ -67,7 +71,8 @@ def test_full_frames_equal_tpu_codec(case):
     configuration, and L5), decoded by libzstd; each full block went
     through the device half. On the five-word text every block overflows
     max_seq 8192 and both codecs re-match it on the host; on the corpus
-    blocks carry both device sections."""
+    blocks carry both device sections (at level 9, 3 of its 4 blocks or
+    more)."""
     make, level, batch, block, max_seq = FULL_CASES[case]
     data = make()
     kw = dict(level=level, batch=batch, block_size=block, max_seq=max_seq)
@@ -81,6 +86,8 @@ def test_full_frames_equal_tpu_codec(case):
     assert codec.literal_blocks <= codec.section_blocks
     if "words" in case:
         assert codec.overflow_blocks == codec.device_blocks
+    elif case.startswith("L9"):
+        assert codec.literal_blocks >= 3
     else:
         assert codec.literal_blocks > 0
 

@@ -1,8 +1,9 @@
 """The port's span recorder (runtime/stats.recording) and GpuCodec's
 counters, on the CPU twins at small sizes: frames equal with recording on
 and off, a well-formed span tree, exact counters under threads, nothing
-made while recording is off, and the spans in utils/profiling.trace's
-Chrome trace. One `cuda`-marked case drives the card."""
+made while recording is off, the spans in utils/profiling.trace's
+Chrome trace, and full device entropy's literal counters and span. One
+`cuda`-marked case drives the card."""
 
 import json
 import threading
@@ -202,6 +203,93 @@ def test_loads_are_spans(monkeypatch):
         native.load()
     assert [(sp.name, sp.attrs) for sp in spans] == [
         ("load.native", {"built": False})]
+
+
+# Full device entropy: corpus blocks of this size carry 1024 literals or
+# more, so that the device codes some of them.
+FULL_BLOCK = 32768
+LITERAL_COUNTERS = ("literal_blocks", "literal_declined",
+                    "literal_unspanned", "literal_unfit")
+
+
+def _full_data() -> bytes:
+    """Four corpus blocks and a tail, the second block all zeros: its
+    parse leaves it one literal, fewer than the device's 1024."""
+    data = bytearray(make_corpus(4 * FULL_BLOCK + 3001, seed=71))
+    data[FULL_BLOCK:2 * FULL_BLOCK] = bytes(FULL_BLOCK)
+    return bytes(data)
+
+
+def _spy_sections(codec) -> list:
+    """Wrap codec.collect_batch; the returned list gets each device
+    block's (sequences, sections) in block order."""
+    got = []
+    collect = codec.collect_batch
+
+    def spy(handle):
+        out = collect(handle)
+        got.extend(out)
+        return out
+    codec.collect_batch = spy
+    return got
+
+
+@pytest.mark.parametrize("level", [5, 9])
+def test_literal_counters_balance_in_full_mode(level):
+    """Every block with a device section is counted once: with the
+    device's literals section (literal_blocks, its bytes in
+    literal_bytes) or under why not; the all-zero block is declined."""
+    data = _full_data()
+    codec = GpuCodec(level=level, batch=2, block_size=FULL_BLOCK,
+                     device="cpu", device_entropy=True)
+    got = _spy_sections(codec)
+    frame = codec.compress(data)
+    assert oracle.decompress(frame, len(data)) == data
+    c = codec.counters()
+    assert c["section_blocks"] == c["device_blocks"] == len(got) == 4
+    assert sum(c[k] for k in LITERAL_COUNTERS) == c["section_blocks"]
+    taken = [sec[0] for _, sec in got if sec[0] is not None]
+    assert c["literal_blocks"] == len(taken) >= 1
+    assert c["literal_bytes"] == sum(map(len, taken)) > 0
+    # The zero block keeps the host's literals, and it is declined.
+    assert got[1][1][0] is None
+    assert c["literal_unspanned"] == c["literal_unfit"] == 0
+    assert c["literal_declined"] >= 1
+
+
+@pytest.mark.parametrize("entropy", ["hybrid", False])
+def test_literal_counters_zero_without_full_mode(entropy):
+    codec = GpuCodec(level=9, batch=2, block_size=FULL_BLOCK, device="cpu",
+                     device_entropy=entropy)
+    data = _full_data()
+    assert oracle.decompress(codec.compress(data), len(data)) == data
+    c = codec.counters()
+    assert c["device_blocks"] == 4
+    assert all(c[k] == 0 for k in LITERAL_COUNTERS + ("literal_bytes",))
+
+
+@pytest.mark.parametrize("entropy", [True, "hybrid"])
+def test_literals_span_once_a_batch_in_full_mode(entropy):
+    """"submit.literals" lies inside each batch's "submit.enqueue" in full
+    mode and is never made in hybrid mode; the frame is the same with
+    recording on and off."""
+    data = _full_data()
+    codec = GpuCodec(level=9, batch=2, block_size=FULL_BLOCK, device="cpu",
+                     device_entropy=entropy)
+    off = codec.compress(data)
+    with stats.recording() as spans:
+        on = codec.compress(data)
+    assert on == off and oracle.decompress(on, len(data)) == data
+    lits = [sp for sp in spans if sp.name == "submit.literals"]
+    enqueues = [sp for sp in spans if sp.name == "submit.enqueue"]
+    assert len(enqueues) == 2
+    if entropy == "hybrid":
+        assert lits == []
+        return
+    assert len(lits) == len(enqueues)
+    for sp, up in zip(lits, enqueues):
+        assert sp.thread == up.thread and sp.index == up.index
+        assert up.start_ns <= sp.start_ns <= sp.end_ns <= up.end_ns
 
 
 @pytest.fixture
